@@ -1,0 +1,560 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from the sources in this checkout, holds each against
+its plain PyTorch version on the card, drives the port's main path at the
+bench shape through the public entry points (power-law graph of 2 M nodes and
+about 36 M directed edges, 131 072 walkers, walk length 80: uniform walks,
+node2vec walks by both samplers, skip-gram windows, then the owner-routed
+partitioned engine over 8 shards with 32 768 walkers), checks the results, and
+measures every kernel at the shape the main path gives it.
+
+Every phase prints one JSON line.  The line before the last two is
+``{"kernels": [...]}`` with, per kernel, its launches on the main path, its
+largest deviation from the plain version, its time, the plain version's time,
+the least time the card could take (``bound_ms``) and, where one PyTorch call
+does the same work, that call's time.  Then come the card's name and power
+limit as nvidia-smi prints them, and last
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+Any failure ends the run with a non-zero exit code; without a CUDA device the
+script exits at once with code 1 and prints no result.  It imports only the
+port (``torch_random_walk_tpu_torch``), never JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+import torch_random_walk_tpu_torch as tt
+from torch_random_walk_tpu_torch.kernels import bindings, build
+from torch_random_walk_tpu_torch.ops import common, node2vec, uniform, windows
+from torch_random_walk_tpu_torch.parallel import exchange
+from torch_random_walk_tpu_torch.utils import prng
+
+# The bench shape of the JAX package's bench.py (its single-chip default and
+# its scaling mode's walker count).
+NUM_NODES, AVG_DEGREE, GRAPH_SEED = 2_000_000, 16, 0
+NUM_WALKERS, WALK_LENGTH, WINDOW = 131_072, 80, 5
+P, Q = 0.5, 2.0
+NUM_SHARDS, ROUTED_WALKERS = 8, 32_768
+WALK_SEED, WINDOW_SEED = 1, 2
+
+# Peaks of one H100 SXM at its full 700 W limit (NVIDIA data sheet): device
+# memory rate, and the float32/int32 rate outside the tensor cores, which is
+# the rate of the kernels' integer arithmetic.
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+# Integer operations of one Threefry-2x32 call (20 rounds of add, rotate as
+# two shifts and an or, xor; 5 key injections) and of one binary-search trip.
+THREEFRY_OPS = 20 * 5 + 5 * 3 + 2
+SEARCH_TRIP_OPS = 6
+
+KERNEL_FACTS = {
+    "uniform_walk_csr": (
+        "torch_random_walk_tpu_torch/kernels/uniform_walk.cu",
+        "torch_random_walk_tpu/ops/uniform.py:20 (XLA loop, no Pallas "
+        "counterpart)"),
+    "node2vec_walk_csr_mixture": (
+        "torch_random_walk_tpu_torch/kernels/node2vec_walk.cu",
+        "torch_random_walk_tpu/ops/node2vec.py:106 (XLA loop, no Pallas "
+        "counterpart)"),
+    "node2vec_walk_csr_rejection": (
+        "torch_random_walk_tpu_torch/kernels/node2vec_walk.cu",
+        "torch_random_walk_tpu/ops/node2vec.py:30 (XLA loop, no Pallas "
+        "counterpart)"),
+    "to_windows": (
+        "torch_random_walk_tpu_torch/kernels/windows.cu",
+        "torch_random_walk_tpu/ops/windows.py:59 (XLA program, no Pallas "
+        "counterpart)"),
+    "all_to_all_chunks": (
+        "torch_random_walk_tpu_torch/kernels/exchange.cu",
+        "torch_random_walk_tpu/parallel/pallas_exchange.py:33"),
+}
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def time_ms(fn, warmup: int = 1, iters: int = 5) -> float:
+    """Median device time of ``fn`` in milliseconds, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def wall_ms(fn):
+    """One run of ``fn`` on the host clock, device work included."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def queued_ms(fn, reps: int, iters: int = 5) -> float:
+    """Median device time of one call of ``fn`` when ``reps`` calls run back
+    to back on the device: they are issued while a long spin kernel holds the
+    stream, so the time between the two events holds no wait for the host."""
+    spin_cycles = 60_000_000
+    times = []
+    for _ in range(iters + 1):
+        before = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        before.record()
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        issue_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        require(issue_ms < before.elapsed_time(start),
+                "the host issued slower than the spin kernel ran")
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times[1:])
+
+
+def profile_device(fn):
+    """Run ``fn`` under torch.profiler (device activity only).  Returns
+    (fn's result, wall ms, {kernel name: (launches, device ms)})."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out, ms = wall_ms(fn)
+    kernels = {}
+    for avg in prof.key_averages():
+        if avg.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(avg, "self_device_time_total", None)
+        if us is None:
+            us = avg.self_cuda_time_total
+        kernels[avg.key] = (avg.count, us / 1e3)
+    return out, ms, kernels
+
+
+def max_abs_err(got, want) -> int:
+    """Largest absolute difference over all paired integer outputs."""
+    if isinstance(got, torch.Tensor):
+        got, want = [got], [want]
+    worst = 0
+    for g, w in zip(got, want, strict=True):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"shape/dtype differ: {g.shape} {g.dtype} "
+                                 f"vs {w.shape} {w.dtype}")
+        if g.numel():
+            worst = max(worst, int((g.to(torch.int64) - w.to(torch.int64))
+                                   .abs().max()))
+    return worst
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def run_text(cmd: list[str]) -> str:
+    return subprocess.run(cmd, check=True, capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+
+
+# --- plain versions at given shapes -----------------------------------------
+
+def plain_uniform(graph, targets, seed, walk_length=WALK_LENGTH):
+    key = prng.derive_key(seed, prng.STREAM_CSR_UNIFORM)
+    return uniform.uniform_walk_csr_plain(graph.row_ptr, graph.col_idx,
+                                          targets, walk_length, key)
+
+
+def plain_biased(graph, targets, seed, mixture: bool, walk_length=WALK_LENGTH):
+    key = prng.derive_key(seed, prng.STREAM_CSR_BIASED)
+    if mixture:
+        probs, consts, iters = node2vec.NO_PROBS, node2vec.mixture_consts(
+            P, Q, graph.deg_bits), graph.search_iters
+    else:
+        probs, consts, iters = (common.node2vec_accept_probs(P, Q),
+                                node2vec.NO_CONSTS,
+                                common.DEFAULT_SEARCH_ITERS)
+    return node2vec.node2vec_walk_plain(
+        graph.row_ptr, graph.col_idx, targets, walk_length, key, 0, mixture,
+        probs, consts, iters, common.DEFAULT_MAX_ROUNDS)
+
+
+def plain_windows(walks, num_nodes, seed):
+    key = prng.derive_key(seed, prng.STREAM_WINDOWS_SG)
+    return windows.to_windows_plain(walks, WINDOW, num_nodes, key)
+
+
+# --- bounds -------------------------------------------------------------------
+
+def bound(bytes_moved: float, operations: float) -> tuple[float, str]:
+    """(least time in ms, what bounds it) for work that must move
+    ``bytes_moved`` and do ``operations`` scalar integer operations."""
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = operations / SCALAR_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def uniform_bound(num_walkers: int, walk_length: int):
+    steps = num_walkers * walk_length
+    # per step two row_ptr words and one col word read, one word written;
+    # targets read once, column 0 written once
+    return bound(4 * (3 * steps + steps + 2 * num_walkers),
+                 steps * (THREEFRY_OPS + 8))
+
+
+def biased_bound(graph, walks, rounds: int, mixture: bool):
+    """Least bytes and operations for the rounds this run's data needed.
+    Bytes, each word counted once however often the kernel reads it again:
+    per step the row_ptr words of v and t and the probed words of one binary
+    search over t's row (the same row for every round of the step) and, for
+    the mixture sampler, of one over v's row (its two searches touch the same
+    words); per round one candidate word; the walks written, the targets read.
+    Operations are counted per round, as the kernel must do them.  Search
+    depth is taken as ceil(log2(deg + 1)) of the rows actually visited."""
+    deg = (graph.row_ptr[1:] - graph.row_ptr[:-1]).to(torch.float32)
+    depth = torch.log2(deg + 1).ceil()
+    t = walks[:, :-2].to(torch.int64)
+    v = walks[:, 1:-1].to(torch.int64)
+    steps = t.numel()
+    search_t = float(depth[t].sum(dtype=torch.float64))
+    search_v = float(depth[v].sum(dtype=torch.float64)) if mixture else 0.0
+    words = (4 * steps + search_t + search_v + rounds + walks.numel()
+             + walks.shape[0])
+    ops = (rounds * (THREEFRY_OPS + 12 + SEARCH_TRIP_OPS * search_t / steps)
+           + SEARCH_TRIP_OPS * 2 * search_v)
+    return bound(4 * words, ops), search_t / steps
+
+
+def windows_bound(num_walks: int, length: int):
+    num_win = num_walks * (length - WINDOW + 1)
+    slots = num_win * (WINDOW - 1)
+    return bound(4 * (num_walks * length + num_win + 2 * slots),
+                 slots * (THREEFRY_OPS + 10))
+
+
+def exchange_bound(num_shards: int, cap: int, width: int):
+    return bound(2 * num_shards * num_shards * cap * width * 4, 0)
+
+
+# --- phases -------------------------------------------------------------------
+
+def phase_device() -> str:
+    smi = run_text(["nvidia-smi", "--query-gpu=name,power.limit",
+                    "--format=csv,noheader"]).splitlines()[0]
+    nvcc = run_text([build.find_nvcc(), "--version"]).splitlines()[-1]
+    emit("device", name=torch.cuda.get_device_name(0), smi=smi, nvcc=nvcc,
+         torch=torch.__version__, cuda=torch.version.cuda)
+    return smi
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    bindings.library(verbose=True)
+    emit("build", seconds=round(time.perf_counter() - t0, 2),
+         sources=list(build.SOURCES))
+
+
+def phase_small_checks() -> None:
+    """Each kernel against its plain version at a small size, exact
+    equality, so that a wrong kernel fails before the long phases."""
+    graph = tt.synthetic_power_law(20_000, 8, seed=3)
+    targets = common.as_int32(
+        np.random.default_rng(4).integers(0, graph.num_nodes, 8192),
+        graph.device)
+    errs = {
+        "uniform_walk_csr": max_abs_err(
+            tt.walk(graph, target_nodes=targets, walk_length=20,
+                    seed=WALK_SEED),
+            plain_uniform(graph, targets, WALK_SEED, 20)),
+        "node2vec_walk_csr_mixture": max_abs_err(
+            tt.walk(graph, target_nodes=targets, p=P, q=Q, walk_length=20,
+                    seed=WALK_SEED),
+            plain_biased(graph, targets, WALK_SEED, True, 20).walks),
+        "node2vec_walk_csr_rejection": max_abs_err(
+            tt.walk(graph.row_ptr, graph.col_idx, targets, p=P, q=Q,
+                    walk_length=20, seed=WALK_SEED),
+            plain_biased(graph, targets, WALK_SEED, False, 20).walks),
+    }
+    walks = tt.walk(graph, target_nodes=targets, walk_length=20, seed=5)
+    errs["to_windows"] = max_abs_err(
+        tt.to_windows(walks, WINDOW, graph.num_nodes, seed=WINDOW_SEED),
+        plain_windows(walks, graph.num_nodes, WINDOW_SEED))
+    worst = 0
+    rng = np.random.default_rng(6)
+    for cap, width in [(128, 3), (5, 3), (256, 14)]:  # 16- and 4-byte paths
+        x = rng.integers(-2**31, 2**31, (NUM_SHARDS, NUM_SHARDS, cap, width))
+        outboxes = [torch.tensor(x[s], dtype=torch.int32, device=graph.device)
+                    for s in range(NUM_SHARDS)]
+        worst = max(worst, max_abs_err(
+            exchange.all_to_all_chunks(outboxes),
+            exchange.all_to_all_chunks_plain(outboxes)))
+    errs["all_to_all_chunks"] = worst
+    torch.cuda.synchronize()
+    emit("kernels_small", max_abs_err=errs, tolerance=0)
+    require(set(errs) == set(bindings.KERNEL_NAMES), "a kernel was not held "
+            "against its plain version")
+    require(all(e == 0 for e in errs.values()), f"kernel != plain: {errs}")
+
+
+def phase_graph():
+    graph, ms = wall_ms(lambda: tt.synthetic_power_law(
+        NUM_NODES, AVG_DEGREE, GRAPH_SEED))
+    emit("graph", num_nodes=graph.num_nodes, num_edges=graph.num_edges,
+         max_degree=graph.max_degree, search_iters=graph.search_iters,
+         deg_bits=graph.deg_bits, build_seconds=round(ms / 1e3, 2))
+    require(graph.num_nodes == NUM_NODES
+            and graph.num_edges == NUM_NODES * (AVG_DEGREE + 2),
+            "graph has the wrong size")
+    return graph
+
+
+def phase_main_path(graph):
+    """The main path once through the public entry points, with the launch
+    counts set to 0 just before and read just after."""
+    dev = graph.device
+    targets = (torch.arange(NUM_WALKERS, device=dev) % NUM_NODES).to(
+        torch.int32)
+    pgraph = tt.PartitionedCSR.from_csr(graph, NUM_SHARDS)
+    torch.cuda.synchronize()
+
+    bindings.reset_launch_counts()
+    out = {}
+    out["uniform"], t_u = wall_ms(lambda: tt.walk(
+        graph, target_nodes=targets, walk_length=WALK_LENGTH, seed=WALK_SEED))
+    out["mixture"], t_m = wall_ms(lambda: tt.walk(
+        graph, target_nodes=targets, p=P, q=Q, walk_length=WALK_LENGTH,
+        seed=WALK_SEED))
+    out["rejection"], t_r = wall_ms(lambda: tt.walk(
+        graph.row_ptr, graph.col_idx, targets, p=P, q=Q,
+        walk_length=WALK_LENGTH, seed=WALK_SEED))
+    out["windows"], t_w = wall_ms(lambda: tt.to_windows(
+        out["uniform"], WINDOW, NUM_NODES, seed=WINDOW_SEED))
+    (out["routed"], info), t_x = wall_ms(lambda: tt.walk_partitioned_routed(
+        pgraph, targets[:ROUTED_WALKERS], WALK_LENGTH, seed=WALK_SEED))
+    launches = dict(bindings.launch_counts)
+
+    emit("main_path", launches=launches, first_call_ms={
+        "walk_uniform": t_u, "walk_mixture": t_m, "walk_rejection": t_r,
+        "to_windows": t_w, "walk_partitioned_routed": t_x})
+    for name, n in launches.items():
+        require(n > 0, f"the main path never launched {name}")
+    require(launches["all_to_all_chunks"] == info["phases"],
+            "one exchange launch per phase expected")
+
+    # Results: shapes, no -1, every hop an edge, routed == single-device.
+    num_win = NUM_WALKERS * (WALK_LENGTH + 1 - WINDOW + 1)
+    for name in ("uniform", "mixture", "rejection"):
+        w = out[name]
+        require(tuple(w.shape) == (NUM_WALKERS, WALK_LENGTH + 1)
+                and w.dtype == torch.int32, f"{name}: wrong shape or dtype")
+        require(bool((w[:, 0] == targets).all()), f"{name}: column 0")
+        require(bool(((w >= 0) & (w < NUM_NODES)).all()),
+                f"{name}: id out of range or -1")
+        sample = w[:: NUM_WALKERS // 2048].to(torch.int64)
+        hop_from, hop_to = sample[:, :-1].reshape(-1), sample[:, 1:].reshape(-1)
+        require(bool(common.is_neighbor_csr(
+            hop_to, hop_from, graph.row_ptr, graph.col_idx,
+            graph.search_iters).all()), f"{name}: a hop is not an edge")
+    tgt, pos, neg = out["windows"]
+    require(tuple(tgt.shape) == (num_win,)
+            and tuple(pos.shape) == tuple(neg.shape) == (num_win, WINDOW - 1),
+            "windows: wrong shapes")
+    require(bool(((neg >= 0) & (neg < NUM_NODES)).all()),
+            "windows: negative out of range")
+    require(info["overflow_dropped"] == 0, "routed: records dropped")
+    require(info["log_entries"] == ROUTED_WALKERS * (WALK_LENGTH + 1),
+            "routed: positions missing")
+    require(max_abs_err(out["routed"], out["uniform"][:ROUTED_WALKERS]) == 0,
+            "routed walks differ from the single-device kernel's")
+    emit("main_path_checks", ok=True, routed=info)
+    return targets, pgraph, out, launches, info, t_x
+
+
+def phase_kernels(graph, targets, pgraph, out, counts, routed_info,
+                  routed_ms):
+    """Every kernel at the main path's shape: time, plain version on the same
+    inputs (time and deviation), bound, and library call where one exists."""
+    rows = []
+
+    def row(name, ms, plain_ms, err, bound_pair, library_ms, launches):
+        source, replaces = KERNEL_FACTS[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_pair[0],
+            "bound_by": bound_pair[1], "library_ms": library_ms})
+
+    plain, plain_ms = wall_ms(lambda: plain_uniform(graph, targets, WALK_SEED))
+    row("uniform_walk_csr",
+        time_ms(lambda: tt.walk(graph, target_nodes=targets,
+                                walk_length=WALK_LENGTH, seed=WALK_SEED)),
+        plain_ms, max_abs_err(out["uniform"], plain),
+        uniform_bound(NUM_WALKERS, WALK_LENGTH), None,
+        counts["uniform_walk_csr"])
+    del plain
+
+    for name, key, mixture, call in (
+            ("node2vec_walk_csr_mixture", "mixture", True, lambda: tt.walk(
+                graph, target_nodes=targets, p=P, q=Q,
+                walk_length=WALK_LENGTH, seed=WALK_SEED)),
+            ("node2vec_walk_csr_rejection", "rejection", False,
+             lambda: tt.walk(graph.row_ptr, graph.col_idx, targets, p=P, q=Q,
+                             walk_length=WALK_LENGTH, seed=WALK_SEED))):
+        plain, plain_ms = wall_ms(
+            lambda: plain_biased(graph, targets, WALK_SEED, mixture))
+        require(not bool(plain.exhausted.any()), f"{name}: budget ran out")
+        bound_pair, mean_depth = biased_bound(graph, plain.walks,
+                                              plain.rounds, mixture)
+        row(name, time_ms(call), plain_ms,
+            max_abs_err(out[key], plain.walks),
+            bound_pair, None, counts[name])
+        emit("rounds", kernel=name, walker_rounds=plain.rounds,
+             rounds_per_step=plain.rounds / (NUM_WALKERS * (WALK_LENGTH - 1)),
+             mean_search_depth_of_t=mean_depth)
+        del plain
+
+    walks = out["uniform"]
+    plain, plain_ms = wall_ms(
+        lambda: plain_windows(walks, NUM_NODES, WINDOW_SEED))
+    row("to_windows",
+        time_ms(lambda: tt.to_windows(walks, WINDOW, NUM_NODES,
+                                      seed=WINDOW_SEED)),
+        plain_ms, max_abs_err(out["windows"], plain),
+        windows_bound(NUM_WALKERS, WALK_LENGTH + 1), None,
+        counts["to_windows"])
+    del plain
+
+    # K4 at the routed leg's chunk shape.  One launch is a few microseconds,
+    # so ``ms`` is device time of launches queued back to back; the time per
+    # launch with the host in the way is printed beside it.
+    cap = tt.RoutedConfig.for_walk(ROUTED_WALKERS, NUM_SHARDS,
+                                   WALK_LENGTH).pair_capacity
+    shape = (NUM_SHARDS, cap, 3)
+    outboxes = [torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32,
+                              device=graph.device) for _ in range(NUM_SHARDS)]
+    inboxes = [torch.empty_like(o) for o in outboxes]
+    exchange_chunks = exchange.ChunkExchange(outboxes, inboxes)
+    stacked = torch.stack(outboxes)
+    reps = 100
+
+    def repeat(fn):
+        def run():
+            for _ in range(reps):
+                fn()
+        return run
+
+    calls = {
+        "kernel": exchange_chunks,
+        "plain": lambda: exchange.all_to_all_chunks_plain(outboxes),
+        "library": lambda: stacked.transpose(0, 1).contiguous(),
+    }
+    device_ms = {k: queued_ms(fn, reps) for k, fn in calls.items()}
+    issued_ms = {k: time_ms(repeat(fn)) / reps for k, fn in calls.items()}
+    row("all_to_all_chunks", device_ms["kernel"], device_ms["plain"],
+        max_abs_err(inboxes, exchange.all_to_all_chunks_plain(outboxes)),
+        exchange_bound(*shape), device_ms["library"],
+        counts["all_to_all_chunks"])
+    emit("exchange_kernel", shape=shape, launches_per_timing=reps,
+         device_ms_per_launch=device_ms,
+         device_ms_method="CUDA events around launches issued while a spin "
+                          "kernel holds the stream, median of 5",
+         host_bound_ms_per_launch=issued_ms,
+         host_bound_ms_method="CUDA events around back-to-back launches on "
+                              "an idle stream, median of 5")
+
+    steps = NUM_WALKERS * WALK_LENGTH
+    emit("rates", walkers=NUM_WALKERS, walk_length=WALK_LENGTH,
+         timing="CUDA events, 1 warm-up, median of 5",
+         node_steps_per_s={r["name"]: steps / (r["ms"] / 1e3)
+                           for r in rows[:3]})
+
+    # The routed leg twice more, warm (the main-path run above was the first
+    # use of most PyTorch operators of the phase body): once on the host
+    # clock, once under the profiler for the device's share of the leg.
+    def leg():
+        return tt.walk_partitioned_routed(
+            pgraph, targets[:ROUTED_WALKERS], WALK_LENGTH, seed=WALK_SEED)
+
+    (_, warm_info), warm_ms = wall_ms(leg)
+    require(warm_info == routed_info, "routed leg is not reproducible")
+    (_, prof_info), prof_ms, kernels = profile_device(leg)
+    require(prof_info == routed_info, "routed leg is not reproducible")
+    busy_ms = sum(ms for _, ms in kernels.values())
+    k4 = [v for k, v in kernels.items() if "all_to_all_chunks_kernel" in k]
+    profiled = None
+    if busy_ms > 0:  # else the profiler saw no device activity here
+        require(len(k4) == 1 and k4[0][0] == routed_info["phases"],
+                "the profile does not show one exchange kernel per phase")
+        profiled = {
+            "leg_ms": prof_ms, "device_launches": sum(
+                n for n, _ in kernels.values()),
+            "device_busy_ms": busy_ms, "device_busy_share": busy_ms / prof_ms,
+            "device_idle_share": 1 - busy_ms / prof_ms,
+            "device_busy_over_unprofiled_leg": busy_ms / warm_ms,
+            "k4_device_ms_per_launch": k4[0][1] / k4[0][0],
+            "k4_share_of_leg": k4[0][1] / prof_ms,
+            "k4_share_of_device_busy": k4[0][1] / busy_ms}
+    emit("routed", walkers=ROUTED_WALKERS, shards=NUM_SHARDS,
+         pair_capacity=cap, **routed_info, first_leg_ms=routed_ms,
+         warm_leg_ms=warm_ms,
+         node_steps_per_s=ROUTED_WALKERS * WALK_LENGTH / (warm_ms / 1e3),
+         k4_device_ms_per_launch_alone=device_ms["kernel"],
+         k4_share_of_leg_from_alone=(device_ms["kernel"] * routed_info["phases"]
+                                     / warm_ms),
+         profiled_leg=profiled,
+         profiled_leg_method="torch.profiler, device activity only, over one "
+                             "whole warm leg; null if it saw no device time")
+    return rows
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    smi = phase_device()
+    phase_build()
+    phase_small_checks()
+    graph = phase_graph()
+    (targets, pgraph, out, launches, routed_info,
+     routed_ms) = phase_main_path(graph)
+    rows = phase_kernels(graph, targets, pgraph, out, launches, routed_info,
+                         routed_ms)
+    for r in rows:
+        require(r["max_abs_err"] == 0, f"{r['name']} != its plain version at "
+                "the main path's shape")
+    torch.cuda.synchronize()
+    emit("done", seconds=round(time.perf_counter() - t0, 1),
+         peak_device_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2))
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -50,3 +50,10 @@ def _bounded_jit_caches():
         fn.cache_clear()
     jax.clear_caches()
     gc.collect()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (a CUDA kernel has no interpret "
+        "mode); skipped where there is no card")

@@ -1,0 +1,59 @@
+"""The port stands alone: importing it (every module, and chip_smoke.py)
+pulls in neither jax nor the JAX package, and its sources name neither in an
+import statement."""
+
+import os
+import re
+import subprocess
+import sys
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_PKG = os.path.join(_REPO, "torch_random_walk_tpu_torch")
+
+_PROBE = """
+import importlib, pkgutil, sys
+import torch_random_walk_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "torch_random_walk_tpu"
+             or m.startswith("torch_random_walk_tpu."))
+assert not bad, bad
+print("PORT_IMPORT_CLEAN")
+"""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", _PROBE], text=True,
+                         capture_output=True, env=env, cwd=_REPO, timeout=120)
+    assert out.returncode == 0 and "PORT_IMPORT_CLEAN" in out.stdout, (
+        out.stdout + out.stderr)
+
+
+def test_port_sources_have_no_such_import_statement():
+    pattern = re.compile(r"^\s*(import|from) +(jax|torch_random_walk_tpu)\b")
+    files = [os.path.join(_REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(_PKG):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 10
+    for path in files:
+        with open(path) as f:
+            hits = [line for line in f if pattern.match(line)]
+        assert not hits, (path, hits)
+
+
+def test_importing_the_port_builds_and_loads_no_kernel():
+    probe = ("import torch_random_walk_tpu_torch as p, sys;"
+             "from torch_random_walk_tpu_torch.kernels import bindings;"
+             "assert bindings._lib is None;"
+             "assert 'triton' not in sys.modules; print('LAZY_OK')")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", probe], text=True,
+                         capture_output=True, env=env, cwd=_REPO, timeout=120)
+    assert out.returncode == 0 and "LAZY_OK" in out.stdout, (
+        out.stdout + out.stderr)

@@ -1,0 +1,320 @@
+"""The port's graph constructors and walks against the JAX package, value for
+value (tolerance 0: node ids).  Everything runs on the CPU through the plain
+PyTorch versions; the CUDA kernels are held against those same plain
+versions on the card (tests marked ``cuda`` below, and chip_smoke.py)."""
+
+import networkx as nx
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+import torch_random_walk_tpu as trw
+import torch_random_walk_tpu_torch as tt
+from torch_random_walk_tpu.graph.datasets import synthetic_power_law as j_power_law
+from torch_random_walk_tpu.ops import fatwalk as jfatwalk
+from torch_random_walk_tpu.ops import node2vec as jn2v
+from torch_random_walk_tpu.ops.uniform import uniform_walk_csr as j_uniform
+from torch_random_walk_tpu_torch import convert
+from torch_random_walk_tpu_torch.ops import node2vec as tn2v
+from torch_random_walk_tpu_torch.ops.uniform import uniform_walk_csr as t_uniform
+from torch_port_util import eq, need_cuda, power_law_edges
+
+N, B, L = 300, 64, 6
+
+
+@pytest.fixture(scope="module")
+def graphs():
+    """One random power-law graph with dead ends, built by both packages
+    from the same edges."""
+    src, dst = power_law_edges(N, 6, seed=21)
+    return (trw.CSRGraph.from_edges(src, dst, num_nodes=N),
+            tt.CSRGraph.from_edges(src, dst, num_nodes=N, device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def targets():
+    return np.random.default_rng(22).integers(0, N, B).astype(np.int32)
+
+
+def toy_graphs():
+    g = nx.Graph()
+    for e in [("A", "B"), ("A", "C"), ("B", "C"), ("B", "D"), ("D", "C"),
+              ("E", "A"), ("E", "D")]:
+        g.add_edge(*e)
+    csr = nx.to_scipy_sparse_array(g, format="csr")
+    return tt.CSRGraph.from_arrays(csr.indptr, csr.indices, device="cpu")
+
+
+# --- graph constructors ---------------------------------------------------------
+
+def test_from_edges_equals_jax_constructor(graphs):
+    jg, tg = graphs
+    eq(tg.row_ptr, jg.row_ptr)
+    eq(tg.col_idx, jg.col_idx)
+    assert tg.row_ptr.dtype == tg.col_idx.dtype == torch.int32
+    assert (tg.num_nodes, tg.num_edges, tg.max_degree, tg.search_iters) == (
+        jg.num_nodes, jg.num_edges, jg.max_degree, jg.search_iters)
+    assert tg.deg_bits == jg.layout.deg_bits
+
+
+def test_from_edges_symmetrize_and_inferred_size():
+    src, dst = power_law_edges(50, 3, seed=1, dead_ends=False)
+    jg = trw.CSRGraph.from_edges(src, dst, symmetrize=True)
+    tg = tt.CSRGraph.from_edges(src, dst, symmetrize=True, device="cpu")
+    eq(tg.row_ptr, jg.row_ptr)
+    eq(tg.col_idx, jg.col_idx)
+    assert tg.num_nodes == jg.num_nodes
+
+
+def test_from_arrays_sorts_rows_like_jax():
+    rng = np.random.default_rng(2)
+    deg = rng.integers(0, 6, 40)
+    row_ptr = np.concatenate([[0], np.cumsum(deg)])
+    col = rng.integers(0, 40, row_ptr[-1])
+    jg = trw.CSRGraph.from_arrays(row_ptr, col)
+    tg = tt.CSRGraph.from_arrays(row_ptr, col, device="cpu")
+    eq(tg.col_idx, jg.col_idx)
+    eq(tg.row_ptr, jg.row_ptr)
+    assert tg.deg_bits == jg.layout.deg_bits
+
+
+def test_from_edges_rejects_ids_out_of_range():
+    with pytest.raises(ValueError, match="out of range"):
+        tt.CSRGraph.from_edges([0, 5], [1, 2], num_nodes=4, device="cpu")
+
+
+def test_synthetic_power_law_is_the_same_graph():
+    jg = j_power_law(400, 4, seed=3)
+    tg = tt.synthetic_power_law(400, 4, seed=3, device="cpu")
+    eq(tg.row_ptr, jg.row_ptr)
+    eq(tg.col_idx, jg.col_idx)
+    assert tg.deg_bits == jg.layout.deg_bits
+
+
+def test_convert_csr_from_numpy(graphs):
+    jg, tg = graphs
+    cg = convert.csr_from_numpy(np.asarray(jg.row_ptr), np.asarray(jg.col_idx),
+                                device="cpu")
+    eq(cg.row_ptr, jg.row_ptr)
+    eq(cg.col_idx, jg.col_idx)
+    assert (cg.max_degree, cg.search_iters, cg.deg_bits) == (
+        jg.max_degree, jg.search_iters, jg.layout.deg_bits)
+
+
+def test_mixture_consts_copied_exactly():
+    for p, q, bits in [(0.5, 2.0, 5), (4.0, 0.25, 9), (1.0, 3.0, 1),
+                       (0.1, 0.1, 20)]:
+        assert tn2v.mixture_consts(p, q, bits) == jfatwalk._mixture_consts(
+            p, q, bits)
+
+
+def test_device_none_means_the_card_and_raises_without_one(graphs, targets):
+    if torch.cuda.is_available():
+        pytest.skip("there is a card: device=None is the normal path")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tt.walk(graphs[1], target_nodes=targets, walk_length=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tt.synthetic_power_law(10, 2)
+
+
+# --- goldens of tests/test_golden.py through the port's walk ---------------
+
+def test_golden_uniform_walk():
+    walks = tt.walk(toy_graphs(), target_nodes=np.arange(5), walk_length=6,
+                    seed=10, device="cpu")
+    assert walks.dtype == torch.int32 and tuple(walks.shape) == (5, 7)
+    eq(walks, [[0, 1, 2, 0, 1, 0, 4], [1, 0, 4, 3, 4, 0, 2],
+               [2, 0, 1, 0, 2, 1, 0], [3, 1, 2, 3, 1, 0, 2],
+               [4, 0, 4, 0, 1, 0, 4]])
+
+
+def test_golden_node2vec_walk():
+    walks = tt.walk(toy_graphs(), target_nodes=np.arange(5), p=0.5, q=2.0,
+                    walk_length=6, seed=10, device="cpu")
+    eq(walks, [[0, 1, 0, 1, 0, 1, 0], [1, 3, 2, 0, 2, 1, 2],
+               [2, 3, 2, 3, 2, 3, 4], [3, 4, 3, 4, 3, 4, 3],
+               [4, 0, 4, 3, 4, 3, 2]])
+
+
+def test_golden_node2vec_walk_raw_arrays():
+    g = toy_graphs()
+    walks = tt.walk(g.row_ptr, g.col_idx, np.arange(5), p=0.5, q=2.0,
+                    walk_length=6, seed=10, device="cpu")
+    eq(walks, [[0, 1, 0, 1, 0, 2, 1], [1, 3, 2, 3, 1, 2, 1],
+               [2, 3, 1, 3, 1, 3, 1], [3, 4, 3, 4, 0, 4, 0],
+               [4, 0, 1, 0, 2, 0, 2]])
+
+
+# --- walks on the random graph ----------------------------------------------
+
+def test_uniform_walk_equals_jax_entry(graphs, targets):
+    jg, tg = graphs
+    want = trw.walk(jg, target_nodes=jnp.asarray(targets), walk_length=L,
+                    seed=5)
+    eq(tt.walk(tg, target_nodes=targets, walk_length=L, seed=5, device="cpu"),
+       want)
+    eq(tt.walk(tg.row_ptr, tg.col_idx, targets, walk_length=L, seed=5,
+               device="cpu"), want)
+
+
+def test_uniform_walker_offset_chunks_equal_one_launch(graphs, targets):
+    jg, tg = graphs
+    want = j_uniform(jg.row_ptr, jg.col_idx, jnp.asarray(targets), L, 5,
+                     walker_offset=7)
+    eq(t_uniform(tg.row_ptr, tg.col_idx, targets, L, 5, walker_offset=7,
+                 device="cpu"), want)
+    half = B // 2
+    parts = [t_uniform(tg.row_ptr, tg.col_idx, targets[lo:lo + half], L, 5,
+                       walker_offset=7 + lo, device="cpu")
+             for lo in (0, half)]
+    eq(torch.cat(parts), want)
+
+
+@pytest.mark.parametrize("p,q", [(0.5, 2.0), (4.0, 0.25)])
+def test_rejection_walk_equals_jax(graphs, targets, p, q):
+    jg, tg = graphs
+    want = jn2v.node2vec_walk_csr(jg.row_ptr, jg.col_idx, jnp.asarray(targets),
+                                  p, q, L, 11, walker_offset=3)
+    eq(tn2v.node2vec_walk_csr(tg.row_ptr, tg.col_idx, targets, p, q, L, 11,
+                              walker_offset=3, device="cpu"), want)
+
+
+@pytest.mark.parametrize("p,q", [(0.5, 2.0), (4.0, 0.25)])
+def test_mixture_walk_equals_jax(graphs, targets, p, q):
+    jg, tg = graphs
+    want = jn2v.node2vec_walk_csr_mixture(
+        jg.row_ptr, jg.col_idx, jnp.asarray(targets), p, q, L, 11,
+        jg.layout.deg_bits, walker_offset=3, search_iters=jg.search_iters)
+    eq(tn2v.node2vec_walk_csr_mixture(
+        tg.row_ptr, tg.col_idx, targets, p, q, L, 11, tg.deg_bits,
+        walker_offset=3, search_iters=tg.search_iters, device="cpu"), want)
+
+
+def test_biased_entry_points_pick_the_jax_bitstreams(graphs, targets):
+    """walk(graph) is the mixture bitstream scaled by graph.deg_bits,
+    walk(row_ptr, col_idx) the rejection bitstream, as in the JAX package
+    (whose own graph entry is compared in test_torch_windows.py)."""
+    jg, tg = graphs
+    jt = jnp.asarray(targets)
+    eq(tt.walk(tg, target_nodes=targets, p=0.5, q=2.0, walk_length=L, seed=4,
+               device="cpu"),
+       jn2v.node2vec_walk_csr_mixture(
+           jg.row_ptr, jg.col_idx, jt, 0.5, 2.0, L, 4, jg.layout.deg_bits,
+           search_iters=jg.search_iters))
+    eq(tt.walk(tg.row_ptr, tg.col_idx, targets, p=0.5, q=2.0, walk_length=L,
+               seed=4, device="cpu"),
+       trw.walk(jg.row_ptr, jg.col_idx, jt, p=0.5, q=2.0, walk_length=L,
+                seed=4))
+
+
+def test_early_exit_search_equals_fixed_trip_count(graphs, targets):
+    """A search depth far beyond need changes nothing: the fixed-trip-count
+    search is idle once it has converged, which is what lets the CUDA kernel
+    leave its loop early."""
+    _, tg = graphs
+    a = tn2v.node2vec_walk_csr(tg.row_ptr, tg.col_idx, targets, 0.5, 2.0, L,
+                               11, search_iters=tg.search_iters, device="cpu")
+    b = tn2v.node2vec_walk_csr(tg.row_ptr, tg.col_idx, targets, 0.5, 2.0, L,
+                               11, search_iters=32, device="cpu")
+    eq(a, b.numpy())
+
+
+def test_walk_length_one(graphs, targets):
+    jg, tg = graphs
+    jt = jnp.asarray(targets)
+    eq(tt.walk(tg, target_nodes=targets, walk_length=1, seed=2, device="cpu"),
+       j_uniform(jg.row_ptr, jg.col_idx, jt, 1, 2))
+    eq(tt.walk(tg.row_ptr, tg.col_idx, targets, p=0.5, q=2.0, walk_length=1,
+               seed=2, device="cpu"),
+       jn2v.node2vec_walk_csr(jg.row_ptr, jg.col_idx, jt, 0.5, 2.0, 1, 2))
+    eq(tt.walk(tg, target_nodes=targets, p=0.5, q=2.0, walk_length=1, seed=2,
+               device="cpu"),
+       jn2v.node2vec_walk_csr_mixture(jg.row_ptr, jg.col_idx, jt, 0.5, 2.0, 1,
+                                      2, jg.layout.deg_bits))
+
+
+def test_zero_edge_graph_everyone_stays():
+    jg = trw.CSRGraph.from_arrays(np.zeros(9, np.int64), np.zeros(0, np.int64))
+    tg = tt.CSRGraph.from_arrays(np.zeros(9, np.int64), np.zeros(0, np.int64),
+                                 device="cpu")
+    t = np.arange(8, dtype=np.int32)
+    stay = np.repeat(t[:, None], 4, axis=1)
+    eq(tt.walk(tg, target_nodes=t, walk_length=3, device="cpu"),
+       trw.walk(jg, target_nodes=jnp.asarray(t), walk_length=3))
+    for got in (tt.walk(tg, target_nodes=t, walk_length=3, device="cpu"),
+                tt.walk(tg, target_nodes=t, p=0.5, q=2.0, walk_length=3,
+                        device="cpu"),
+                tt.walk(tg.row_ptr, tg.col_idx, t, p=0.5, q=2.0,
+                        walk_length=3, device="cpu")):
+        eq(got, stay)
+
+
+@pytest.fixture(scope="module")
+def ring_graphs():
+    """No dead ends and no self-loops, so a walker stays in place only when
+    its round budget ran out."""
+    src, dst = power_law_edges(120, 4, seed=31, dead_ends=False)
+    ring = np.arange(120)
+    keep = src != dst
+    src = np.concatenate([src[keep], ring])
+    dst = np.concatenate([dst[keep], (ring + 1) % 120])
+    return (trw.CSRGraph.from_edges(src, dst, num_nodes=120),
+            tt.CSRGraph.from_edges(src, dst, num_nodes=120, device="cpu"))
+
+
+def test_small_round_budget_raw_arrays_keep_v_like_the_oracle(ring_graphs):
+    jg, tg = ring_graphs
+    t = np.arange(B, dtype=np.int32)
+    want = np.asarray(jn2v.node2vec_walk_csr(
+        jg.row_ptr, jg.col_idx, jnp.asarray(t), 4.0, 0.25, L, 8, max_rounds=1))
+    got = tt.walk(tg.row_ptr, tg.col_idx, t, p=4.0, q=0.25, walk_length=L,
+                  seed=8, max_rounds=1, device="cpu")
+    eq(got, want)
+    assert (want[:, 2:] == want[:, 1:-1]).any()  # budgets did run out
+
+
+def test_small_round_budget_graph_entry_marks_last_column(ring_graphs):
+    """The oracle keeps v where the budget ran out; the graph entry point
+    also writes -1 into the last column of such a walk, the JAX graph
+    engine's mark of an incomplete walk."""
+    jg, tg = ring_graphs
+    t = np.arange(B, dtype=np.int32)
+    oracle = np.asarray(jn2v.node2vec_walk_csr_mixture(
+        jg.row_ptr, jg.col_idx, jnp.asarray(t), 4.0, 0.25, L, 8,
+        jg.layout.deg_bits, search_iters=jg.search_iters, max_rounds=1))
+    ran_out = (oracle[:, 2:] == oracle[:, 1:-1]).any(axis=1)
+    assert ran_out.any() and not ran_out.all()
+    want = oracle.copy()
+    want[ran_out, -1] = -1
+    eq(tt.walk(tg, target_nodes=t, p=4.0, q=0.25, walk_length=L, seed=8,
+               max_rounds=1, device="cpu"), want)
+    eq(tn2v.node2vec_walk_csr_mixture(
+        tg.row_ptr, tg.col_idx, t, 4.0, 0.25, L, 8, tg.deg_bits,
+        search_iters=tg.search_iters, max_rounds=1, device="cpu"), oracle)
+
+
+# --- the kernels against their plain versions (on the card only) -----------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uniform", "rejection", "mixture"])
+def test_walk_kernels_equal_plain_versions(case):
+    need_cuda()
+    g = tt.synthetic_power_law(5000, 8, seed=1)
+    cpu = tt.CSRGraph(g.row_ptr.cpu(), g.col_idx.cpu(), g.num_nodes,
+                      g.num_edges, g.max_degree)
+    t = np.random.default_rng(3).integers(0, g.num_nodes, 4096)
+    for graph_arg, dev in ((g, None), (cpu, "cpu")):
+        if case == "uniform":
+            out = tt.walk(graph_arg, target_nodes=t, walk_length=20, seed=6,
+                          device=dev)
+        elif case == "mixture":
+            out = tt.walk(graph_arg, target_nodes=t, p=0.5, q=2.0,
+                          walk_length=20, seed=6, device=dev)
+        else:
+            out = tt.walk(graph_arg.row_ptr, graph_arg.col_idx, t, p=0.5,
+                          q=2.0, walk_length=20, seed=6, device=dev)
+        if dev is None:
+            on_card = out
+    assert on_card.is_cuda
+    eq(on_card, out.numpy())

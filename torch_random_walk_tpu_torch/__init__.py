@@ -1,0 +1,48 @@
+"""torch_random_walk_tpu_torch: the PyTorch/CUDA port of
+``torch_random_walk_tpu``, with hand-written CUDA kernels for an NVIDIA H100.
+
+Ported so far: the counter-based PRNG, the CSR graph and the power-law
+generator, uniform and node2vec (rejection and mixture) CSR walks behind
+``walk``, skip-gram and CBOW node windows, the node-range partition, the
+walker-record all-to-all and the owner-routed uniform walk engine (serial
+schedule).  Sub-packages mirror the JAX package's (``utils``, ``graph``,
+``ops``, ``parallel``); ``kernels`` holds the CUDA sources, their build and
+their bindings; ``convert`` carries graphs over from the JAX package.
+
+Every entry point takes ``device=None``, which means the card and raises
+when there is none; the CPU runs the kernels' plain PyTorch versions and only
+when asked by ``device="cpu"``.  For the same graph, targets and seed the
+walks and windows equal the JAX package's value for value.  This package
+imports ``torch`` and ``numpy`` only.
+"""
+
+from torch_random_walk_tpu_torch import (  # noqa: F401
+    convert,
+    graph,
+    kernels,
+    ops,
+    parallel,
+    utils,
+)
+from torch_random_walk_tpu_torch.graph.csr import CSRGraph
+from torch_random_walk_tpu_torch.graph.datasets import synthetic_power_law
+from torch_random_walk_tpu_torch.ops.walk import walk
+from torch_random_walk_tpu_torch.ops.windows import to_windows, to_windows_cbow
+from torch_random_walk_tpu_torch.parallel.partition import PartitionedCSR
+from torch_random_walk_tpu_torch.parallel.partition_v2 import (
+    RoutedConfig,
+    walk_partitioned_routed,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "CSRGraph",
+    "PartitionedCSR",
+    "RoutedConfig",
+    "synthetic_power_law",
+    "to_windows",
+    "to_windows_cbow",
+    "walk",
+    "walk_partitioned_routed",
+]

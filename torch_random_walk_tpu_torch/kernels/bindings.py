@@ -1,0 +1,212 @@
+"""ctypes bindings of the CUDA kernels.
+
+Each wrapper checks device, dtype, shape and contiguity and raises on what
+its kernel does not take, allocates the outputs with ``torch.empty``,
+launches on PyTorch's current stream without synchronising, raises if the
+launch was refused, and adds one to its entry of ``launch_counts`` where it
+launches, and nowhere else.  Nothing here is called for a CPU tensor: the
+modules in ``ops/`` and ``parallel/`` take their plain versions for those.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from torch_random_walk_tpu_torch.kernels.build import build_library
+
+KERNEL_NAMES = ("uniform_walk_csr", "node2vec_walk_csr_mixture",
+                "node2vec_walk_csr_rejection", "to_windows",
+                "all_to_all_chunks")
+launch_counts = dict.fromkeys(KERNEL_NAMES, 0)
+
+_lib = None
+
+_PTR = ctypes.c_void_p
+_I32 = ctypes.c_int32
+_I64 = ctypes.c_int64
+_U32 = ctypes.c_uint32
+_F32 = ctypes.c_float
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def library(verbose: bool = False) -> ctypes.CDLL:
+    """The kernels' shared library, built at first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build_library(verbose=verbose)))
+        lib.trw_uniform_walk_csr.argtypes = [
+            _PTR, _PTR, _I32, _I64, _PTR, _PTR, _I32, _I32, _U32, _U32, _U32,
+            _PTR]
+        lib.trw_node2vec_walk_csr.argtypes = [
+            _PTR, _PTR, _I32, _I64, _PTR, _PTR, _PTR, _I32, _I32, _U32, _U32,
+            _U32, _I32, _F32, _F32, _F32, _U32, _U32, _U32, _U32, _U32, _I32,
+            _I32, _PTR]
+        lib.trw_to_windows.argtypes = [
+            _PTR, _I64, _I32, _I32, _U32, _U32, _U32, _PTR, _PTR, _PTR, _PTR]
+        lib.trw_all_to_all_chunks.argtypes = [
+            _PTR, _PTR, _I32, _I64, _I32, _PTR]
+        for fn in (lib.trw_uniform_walk_csr, lib.trw_node2vec_walk_csr,
+                   lib.trw_to_windows, lib.trw_all_to_all_chunks):
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
+           device: torch.device | None = None) -> None:
+    if not isinstance(t, torch.Tensor) or not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dimension(s), got "
+                         f"shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(name: str, fn, device: torch.device, *args) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"code {rc}")
+    launch_counts[name] += 1
+
+
+def _check_csr(row_ptr, col_idx, targets, walk_length: int) -> None:
+    dev = row_ptr.device if isinstance(row_ptr, torch.Tensor) else None
+    _check("row_ptr", row_ptr, torch.int32, 1)
+    _check("col_idx", col_idx, torch.int32, 1, dev)
+    _check("target_nodes", targets, torch.int32, 1, dev)
+    if row_ptr.shape[0] < 2:
+        raise ValueError("row_ptr must describe at least one node")
+    if walk_length < 1:
+        raise ValueError(f"walk_length must be >= 1, got {walk_length}")
+
+
+def uniform_walk_csr(row_ptr, col_idx, targets, walk_length: int,
+                     key: tuple[int, int], walker_offset: int):
+    """K1.  (B,) int32 targets -> (B, L+1) int32 walks."""
+    _check_csr(row_ptr, col_idx, targets, walk_length)
+    num_walkers = targets.shape[0]
+    walks = torch.empty((num_walkers, walk_length + 1), dtype=torch.int32,
+                        device=targets.device)
+    if num_walkers == 0:
+        return walks
+    _launch("uniform_walk_csr", library().trw_uniform_walk_csr,
+            targets.device, row_ptr.data_ptr(), col_idx.data_ptr(),
+            row_ptr.shape[0] - 1, col_idx.shape[0], targets.data_ptr(),
+            walks.data_ptr(), num_walkers, walk_length, key[0], key[1],
+            walker_offset & 0xFFFFFFFF)
+    return walks
+
+
+def node2vec_walk_csr(row_ptr, col_idx, targets, walk_length: int,
+                      key: tuple[int, int], walker_offset: int, mixture: bool,
+                      probs: tuple[float, float, float],
+                      consts: tuple[int, int, int, int, int],
+                      search_iters: int, max_rounds: int):
+    """K2.  Returns ((B, L+1) int32 walks, (B,) bool: some step of the walker
+    spent its whole round budget)."""
+    _check_csr(row_ptr, col_idx, targets, walk_length)
+    num_walkers = targets.shape[0]
+    walks = torch.empty((num_walkers, walk_length + 1), dtype=torch.int32,
+                        device=targets.device)
+    exhausted = torch.empty((num_walkers,), dtype=torch.uint8,
+                            device=targets.device)
+    if num_walkers == 0:
+        return walks, exhausted.bool()
+    name = ("node2vec_walk_csr_mixture" if mixture
+            else "node2vec_walk_csr_rejection")
+    _launch(name, library().trw_node2vec_walk_csr, targets.device,
+            row_ptr.data_ptr(), col_idx.data_ptr(), row_ptr.shape[0] - 1,
+            col_idx.shape[0], targets.data_ptr(), walks.data_ptr(),
+            exhausted.data_ptr(), num_walkers, walk_length, key[0], key[1],
+            walker_offset & 0xFFFFFFFF, int(mixture), *probs, *consts,
+            search_iters, max_rounds)
+    return walks, exhausted.bool()
+
+
+def to_windows(walks, window_size: int, num_nodes: int, key: tuple[int, int]):
+    """K3.  (num_walks, length) int32 walks -> targets (num_win,), positives
+    and negatives (num_win, W-1), all int32."""
+    _check("walks", walks, torch.int32, 2)
+    num_walks, length = walks.shape
+    if not 2 <= window_size <= length:
+        raise ValueError(f"window_size must be in [2, {length}], got "
+                         f"{window_size}")
+    if not 0 < num_nodes < 2 ** 31:
+        raise ValueError(f"num_nodes must be in (0, 2^31), got {num_nodes}")
+    num_win = num_walks * (length - window_size + 1)
+    dev = walks.device
+    targets = torch.empty((num_win,), dtype=torch.int32, device=dev)
+    pos = torch.empty((num_win, window_size - 1), dtype=torch.int32, device=dev)
+    neg = torch.empty((num_win, window_size - 1), dtype=torch.int32, device=dev)
+    if num_win == 0:
+        return targets, pos, neg
+    _launch("to_windows", library().trw_to_windows, dev, walks.data_ptr(),
+            num_win * (window_size - 1), length, window_size, num_nodes,
+            key[0], key[1], targets.data_ptr(), pos.data_ptr(),
+            neg.data_ptr())
+    return targets, pos, neg
+
+
+class ChunkTable(NamedTuple):
+    """What K4 needs to exchange one fixed set of buffers: the (2, D) int64
+    device table of their base pointers, and the launch geometry.  Holding
+    the buffers keeps the pointers valid."""
+
+    pointers: torch.Tensor
+    buffers: tuple
+    num_shards: int
+    words: int
+    vec: int
+
+
+def chunk_pointer_table(outboxes, inboxes) -> ChunkTable:
+    """Check one (D, C, R) int32 outbox and inbox per shard and build their
+    ``ChunkTable``."""
+    num_shards = len(outboxes)
+    if num_shards == 0 or len(inboxes) != num_shards:
+        raise ValueError("need one outbox and one inbox per shard")
+    dev, shape = outboxes[0].device, tuple(outboxes[0].shape)
+    if len(shape) != 3 or shape[0] != num_shards:
+        raise ValueError(f"each buffer must be (D={num_shards}, C, R), got "
+                         f"{shape}")
+    for name, bufs in (("outbox", outboxes), ("inbox", inboxes)):
+        for buf in bufs:
+            _check(name, buf, torch.int32, 3, dev)
+            if tuple(buf.shape) != shape:
+                raise ValueError(f"{name} shapes differ: {tuple(buf.shape)} "
+                                 f"vs {shape}")
+    buffers = (*outboxes, *inboxes)
+    if len({b.data_ptr() for b in buffers}) != len(buffers) and shape[1]:
+        raise ValueError("outboxes and inboxes must be distinct buffers")
+    words = shape[1] * shape[2]
+    # 16-byte copies where every chunk starts on a 16-byte boundary.
+    vec = int(words % 4 == 0 and all(b.data_ptr() % 16 == 0 for b in buffers))
+    ptrs = [[b.data_ptr() for b in outboxes], [b.data_ptr() for b in inboxes]]
+    return ChunkTable(torch.tensor(ptrs, dtype=torch.int64, device=dev),
+                      buffers, num_shards, words, vec)
+
+
+def all_to_all_chunks(table: ChunkTable) -> None:
+    """K4.  Copies outboxes[src][dst] into inboxes[dst][src] for every pair
+    of the buffers ``table`` was built for, in one launch."""
+    if table.words == 0:
+        return
+    _launch("all_to_all_chunks", library().trw_all_to_all_chunks,
+            table.pointers.device, table.pointers.data_ptr(),
+            table.pointers.data_ptr() + 8 * table.num_shards,
+            table.num_shards, table.words, table.vec)

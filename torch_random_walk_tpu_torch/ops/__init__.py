@@ -1,0 +1,10 @@
+from torch_random_walk_tpu_torch.ops.node2vec import (  # noqa: F401
+    node2vec_walk_csr,
+    node2vec_walk_csr_mixture,
+)
+from torch_random_walk_tpu_torch.ops.uniform import uniform_walk_csr  # noqa: F401
+from torch_random_walk_tpu_torch.ops.walk import walk  # noqa: F401
+from torch_random_walk_tpu_torch.ops.windows import (  # noqa: F401
+    to_windows,
+    to_windows_cbow,
+)

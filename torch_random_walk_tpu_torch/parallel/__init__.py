@@ -1,0 +1,10 @@
+from torch_random_walk_tpu_torch.parallel.exchange import (  # noqa: F401
+    all_to_all_chunks,
+)
+from torch_random_walk_tpu_torch.parallel.partition import (  # noqa: F401
+    PartitionedCSR,
+)
+from torch_random_walk_tpu_torch.parallel.partition_v2 import (  # noqa: F401
+    RoutedConfig,
+    walk_partitioned_routed,
+)

@@ -1,0 +1,62 @@
+"""Node-range partitioned CSR (twin of ``PartitionedCSR`` in
+``torch_random_walk_tpu/parallel/partition.py``; the partition only, the
+reduction-based v1 walk of that module is not ported yet).
+
+Nodes are split into ``num_shards`` contiguous ranges of ``shard_nodes``
+(= ceil(N / D)) ids; owner(v) = v // shard_nodes.  Each shard holds its own
+tensors, allocated separately:
+
+    node_meta[d]: (S, 2) int32 [start, deg] per local node, start rebased to
+                  the shard's own col tensor; rows past the last node have
+                  degree 0.
+    col[d]:       (E_max,) int32 global neighbour ids, padded with 0 to the
+                  largest shard's edge count (at least 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from torch_random_walk_tpu_torch.graph.csr import CSRGraph
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitionedCSR:
+    node_meta: tuple[torch.Tensor, ...]
+    col: tuple[torch.Tensor, ...]
+    num_nodes: int
+    num_shards: int
+    shard_nodes: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.col[0].device
+
+    @classmethod
+    def from_csr(cls, graph: CSRGraph, num_shards: int) -> "PartitionedCSR":
+        """Partition on the graph's own device."""
+        if num_shards < 1:
+            raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+        n = graph.num_nodes
+        s = -(-n // num_shards)  # ceil
+        bounds = [min(d * s, n) for d in range(num_shards + 1)]
+        row_ptr = graph.row_ptr.to(torch.int64)
+        edge_bounds = row_ptr[torch.tensor(bounds, device=graph.device)].tolist()
+        e_max = max(max(b - a for a, b in zip(edge_bounds, edge_bounds[1:])), 1)
+        metas, cols = [], []
+        for d in range(num_shards):
+            lo, hi = bounds[d], bounds[d + 1]
+            e_lo, e_hi = edge_bounds[d], edge_bounds[d + 1]
+            rp = row_ptr[lo: hi + 1] - e_lo
+            meta = torch.zeros((s, 2), dtype=torch.int32, device=graph.device)
+            meta[:, 0] = e_hi - e_lo  # padded rows: start at the end, deg 0
+            meta[: hi - lo, 0] = rp[:-1]
+            meta[: hi - lo, 1] = rp[1:] - rp[:-1]
+            col = torch.zeros((e_max,), dtype=torch.int32, device=graph.device)
+            col[: e_hi - e_lo] = graph.col_idx[e_lo:e_hi]
+            metas.append(meta)
+            cols.append(col)
+        return cls(node_meta=tuple(metas), col=tuple(cols), num_nodes=n,
+                   num_shards=num_shards, shard_nodes=s)
