@@ -8,12 +8,25 @@ its plain PyTorch version on the card, drives the port's main path at the
 bench shape through the public entry points (power-law graph of 2 M nodes and
 about 36 M directed edges, 131 072 walkers, walk length 80: uniform walks,
 node2vec walks by both samplers, skip-gram windows, then the owner-routed
-partitioned engine over 8 shards with 32 768 walkers), checks the results, and
-measures every kernel at the shape the main path gives it.
+partitioned engine over 8 shards with 32 768 walkers), then the training
+half of the main path on the same graph: ``Node2Vec`` at the bench
+configuration (dim 128, walk length 16, window 5, bfloat16 tables, 256 shared
+negatives, 65 536 start nodes a step), one warm step and three chained steps
+through ``epoch_step`` and one step with p=0.5, q=2.  It checks the results and
+measures every kernel at the shape the main path gives it; the two loss
+kernels also with float32 tables.
+
+Every kernel is held against its plain version on all the rows the main path
+gives it.  One thing runs at a smaller depth than the main path, to keep the
+run short: the routed leg runs at the full walk length for its time and its
+checks, and at walk length 10 (23 phases instead of 163) under the profiler.
 
 Every phase prints one JSON line.  The line before the last two is
-``{"kernels": [...]}`` with, per kernel, its launches on the main path, its
-largest deviation from the plain version, its time, the plain version's time,
+``{"kernels": [...]}`` with, per kernel, its launches on the main path (the
+sampling run and the training run, each counted from zero, added up), its
+largest deviation from the plain version (0 for the integer kernels; for the
+two float kernels the limits are ``LOSS_REL_LIMIT`` and ``GRAD_REL_LIMIT``
+below), its time, the plain version's time,
 the least time the card could take (``bound_ms``) and, where one PyTorch call
 does the same work, that call's time.  Then come the card's name and power
 limit as nvidia-smi prints them, and last
@@ -36,6 +49,7 @@ import torch
 
 import torch_random_walk_tpu_torch as tt
 from torch_random_walk_tpu_torch.kernels import bindings, build
+from torch_random_walk_tpu_torch.models import skipgram
 from torch_random_walk_tpu_torch.ops import common, node2vec, uniform, windows
 from torch_random_walk_tpu_torch.parallel import exchange
 from torch_random_walk_tpu_torch.utils import prng
@@ -47,12 +61,26 @@ NUM_WALKERS, WALK_LENGTH, WINDOW = 131_072, 80, 5
 P, Q = 0.5, 2.0
 NUM_SHARDS, ROUTED_WALKERS = 8, 32_768
 WALK_SEED, WINDOW_SEED = 1, 2
+PROFILED_WALK_LENGTH = 10
+
+# The fused train step of the JAX package's bench.py: its Node2VecConfig and
+# its 65 536 start nodes a step.
+TRAIN_CONFIG = dict(dim=128, walk_length=16, window_size=5, p=1.0, q=1.0,
+                    dtype="bfloat16", shared_negatives=256)
+TRAIN_WALKERS, TRAIN_STEPS = 65_536, 3
+# K5/K6 against their plain version (float32 products and sums on both sides,
+# of the same table values; only the order of the sums differs, and K6 adds
+# with atomics): the loss within 1e-5 of the plain loss, every gradient entry
+# within 1e-4 of the largest entry of its table.
+LOSS_REL_LIMIT, GRAD_REL_LIMIT = 1e-5, 1e-4
 
 # Peaks of one H100 SXM at its full 700 W limit (NVIDIA data sheet): device
 # memory rate, and the float32/int32 rate outside the tensor cores, which is
 # the rate of the kernels' integer arithmetic.
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+# Dense tensor-core peaks by table type (bfloat16; float32 tables as TF32).
+TENSOR_FLOPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 495e12}
 # Integer operations of one Threefry-2x32 call (20 rounds of add, rotate as
 # two shifts and an or, xor; 5 key injections) and of one binary-search trip.
 THREEFRY_OPS = 20 * 5 + 5 * 3 + 2
@@ -78,11 +106,25 @@ KERNEL_FACTS = {
     "all_to_all_chunks": (
         "torch_random_walk_tpu_torch/kernels/exchange.cu",
         "torch_random_walk_tpu/parallel/pallas_exchange.py:33"),
+    "walk_sgns_loss_fwd": (
+        "torch_random_walk_tpu_torch/kernels/sgns_loss.cu",
+        "torch_random_walk_tpu/models/skipgram.py:180 (walk_loss_fn and "
+        "_blockwise_loss:213, XLA program, no Pallas counterpart)"),
+    "walk_sgns_loss_bwd": (
+        "torch_random_walk_tpu_torch/kernels/sgns_loss.cu",
+        "torch_random_walk_tpu/models/skipgram.py:241 (value_and_grad of "
+        "walk_loss_fn, XLA program, no Pallas counterpart)"),
 }
+INTEGER_KERNELS = ("uniform_walk_csr", "node2vec_walk_csr_mixture",
+                   "node2vec_walk_csr_rejection", "to_windows",
+                   "all_to_all_chunks")
+T0 = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase,
+                      "at_s": round(time.perf_counter() - T0, 1), **fields}),
+          flush=True)
 
 
 def time_ms(fn, warmup: int = 1, iters: int = 5) -> float:
@@ -204,13 +246,54 @@ def plain_windows(walks, num_nodes, seed):
     return windows.to_windows_plain(walks, WINDOW, num_nodes, key)
 
 
+def random_tables(num_nodes, dim, dtype, device, seed):
+    """Two (N, D) tables uniform in +-0.25, from a seed."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return tuple(
+        torch.empty((num_nodes, dim), dtype=torch.float32, device=device)
+        .uniform_(-0.25, 0.25, generator=gen).to(dtype) for _ in range(2))
+
+
+def plain_loss_and_grads(in_emb, out_emb, walks, neg_ids, window):
+    """The plain version of K5 and K6: the tables read as float32 (exact for
+    bfloat16), the gradients by autograd, float32."""
+    tables = [t.detach().to(torch.float32, copy=True).requires_grad_(True)
+              for t in (in_emb, out_emb)]
+    loss = skipgram.walk_loss_plain(*tables, walks, neg_ids, window,
+                                    window - 1)
+    return loss.detach(), torch.autograd.grad(loss, tables)
+
+
+def loss_errors(in_emb, out_emb, walks, neg_ids, window):
+    """K5 and K6 against the plain version on the same inputs."""
+    loss = bindings.walk_sgns_loss_fwd(in_emb, out_emb, walks, neg_ids,
+                                       window, window - 1)
+    grads = bindings.walk_sgns_loss_bwd(in_emb, out_emb, walks, neg_ids,
+                                        window, window - 1,
+                                        torch.ones_like(loss))
+    (want, want_grads), plain_ms = wall_ms(lambda: plain_loss_and_grads(
+        in_emb, out_emb, walks, neg_ids, window))
+    require(bool(torch.isfinite(loss)) and bool(torch.isfinite(want)),
+            "loss is not finite")
+    loss_abs = abs(float(loss) - float(want))
+    grad_abs = [float((g - w).abs().max()) for g, w in zip(grads, want_grads)]
+    grad_rel = [a / float(w.abs().max()) for a, w in zip(grad_abs, want_grads)]
+    return {"loss": float(loss), "plain_loss": float(want),
+            "loss_abs_err": loss_abs, "loss_rel_err": loss_abs / abs(float(want)),
+            "grad_abs_err": max(grad_abs), "grad_rel_err": max(grad_rel),
+            "plain_ms": plain_ms}
+
+
 # --- bounds -------------------------------------------------------------------
 
-def bound(bytes_moved: float, operations: float) -> tuple[float, str]:
+def bound(bytes_moved: float, operations: float,
+          ops_per_s: float = SCALAR_OPS_PER_S) -> tuple[float, str]:
     """(least time in ms, what bounds it) for work that must move
-    ``bytes_moved`` and do ``operations`` scalar integer operations."""
+    ``bytes_moved`` and do ``operations`` at the card's peak ``ops_per_s``
+    (by default its scalar integer rate)."""
     by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    by_ops = operations / SCALAR_OPS_PER_S * 1e3
+    by_ops = operations / ops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
 
@@ -255,6 +338,31 @@ def windows_bound(num_walks: int, length: int):
 
 def exchange_bound(num_shards: int, cap: int, width: int):
     return bound(2 * num_shards * num_shards * cap * width * 4, 0)
+
+
+def sgns_bound(dtype: torch.dtype, backward: bool, walks, neg_ids):
+    """K5/K6 on this run's walks.  Bytes, each row counted once however many
+    walks share it (on a power-law graph most do share the hub rows): the
+    distinct center rows of in_emb and the distinct walk and negative rows of
+    out_emb at the table width, the ids, and for K6 the float32 gradient of
+    each of those rows (the rows of the dense gradient tables that stay zero
+    are not counted, which only makes the bound smaller).  Operations:
+    2*B*C*D*(S + 2*hw) forward; backward twice that plus the recompute,
+    against the tensor-core peak of the table type."""
+    b, length1 = walks.shape
+    d, s = TRAIN_CONFIG["dim"], neg_ids.numel()
+    hw = TRAIN_CONFIG["window_size"] // 2
+    c = length1 - 2 * hw
+    wrapped = torch.where(walks < 0, NUM_NODES - 1, walks)  # -1 is row N-1
+    in_rows = torch.unique(wrapped[:, hw: length1 - hw]).numel()
+    out_rows = torch.unique(torch.cat([wrapped.reshape(-1), neg_ids])).numel()
+    elem = torch.empty((), dtype=dtype).element_size()
+    moved = (in_rows + out_rows) * d * elem + 4 * (b * length1 + s) + 4
+    flops = 2 * b * c * d * (s + 2 * hw)
+    if backward:
+        moved += (in_rows + out_rows) * d * 4 + 4
+        flops *= 3
+    return bound(moved, flops, TENSOR_FLOPS_PER_S[dtype]), in_rows, out_rows
 
 
 # --- phases -------------------------------------------------------------------
@@ -310,11 +418,32 @@ def phase_small_checks() -> None:
             exchange.all_to_all_chunks(outboxes),
             exchange.all_to_all_chunks_plain(outboxes)))
     errs["all_to_all_chunks"] = worst
+    # K5/K6: ragged width, a window of one center, -1 ids, both table types,
+    # and a shape that takes the negatives in chunks (D > 256).
+    float_errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, d, b, length, num_s, window in (
+                (64, 8, 32, 8, 8, 5), (64, 18, 32, 2, 5, 3),
+                (500, 300, 64, 40, 300, 5)):
+            in_emb, out_emb = random_tables(n, d, dtype, graph.device, seed=d)
+            walks = torch.tensor(rng.integers(0, n, (b, length + 1)),
+                                 dtype=torch.int32, device=graph.device)
+            walks[::7, -1] = -1
+            neg_ids = torch.tensor(rng.integers(0, n, num_s),
+                                   dtype=torch.int32, device=graph.device)
+            err = loss_errors(in_emb, out_emb, walks, neg_ids, window)
+            for key in ("loss_rel_err", "grad_rel_err"):
+                float_errs[key] = max(float_errs.get(key, 0.0), err[key])
     torch.cuda.synchronize()
-    emit("kernels_small", max_abs_err=errs, tolerance=0)
-    require(set(errs) == set(bindings.KERNEL_NAMES), "a kernel was not held "
+    emit("kernels_small", max_abs_err=errs, tolerance=0,
+         walk_sgns_loss=float_errs,
+         walk_sgns_loss_limits=[LOSS_REL_LIMIT, GRAD_REL_LIMIT])
+    require(set(errs) == set(INTEGER_KERNELS), "a kernel was not held "
             "against its plain version")
     require(all(e == 0 for e in errs.values()), f"kernel != plain: {errs}")
+    require(float_errs["loss_rel_err"] <= LOSS_REL_LIMIT
+            and float_errs["grad_rel_err"] <= GRAD_REL_LIMIT,
+            f"loss kernels != plain: {float_errs}")
 
 
 def phase_graph():
@@ -357,8 +486,8 @@ def phase_main_path(graph):
     emit("main_path", launches=launches, first_call_ms={
         "walk_uniform": t_u, "walk_mixture": t_m, "walk_rejection": t_r,
         "to_windows": t_w, "walk_partitioned_routed": t_x})
-    for name, n in launches.items():
-        require(n > 0, f"the main path never launched {name}")
+    for name in INTEGER_KERNELS:
+        require(launches[name] > 0, f"the main path never launched {name}")
     require(launches["all_to_all_chunks"] == info["phases"],
             "one exchange launch per phase expected")
 
@@ -421,14 +550,14 @@ def phase_kernels(graph, targets, pgraph, out, counts, routed_info,
             ("node2vec_walk_csr_rejection", "rejection", False,
              lambda: tt.walk(graph.row_ptr, graph.col_idx, targets, p=P, q=Q,
                              walk_length=WALK_LENGTH, seed=WALK_SEED))):
-        plain, plain_ms = wall_ms(
-            lambda: plain_biased(graph, targets, WALK_SEED, mixture))
+        plain, plain_ms = wall_ms(lambda: plain_biased(
+            graph, targets, WALK_SEED, mixture))
         require(not bool(plain.exhausted.any()), f"{name}: budget ran out")
-        bound_pair, mean_depth = biased_bound(graph, plain.walks,
-                                              plain.rounds, mixture)
+        bound_pair, mean_depth = biased_bound(graph, out[key], plain.rounds,
+                                              mixture)
         row(name, time_ms(call), plain_ms,
-            max_abs_err(out[key], plain.walks),
-            bound_pair, None, counts[name])
+            max_abs_err(out[key], plain.walks), bound_pair, None,
+            counts[name])
         emit("rounds", kernel=name, walker_rounds=plain.rounds,
              rounds_per_step=plain.rounds / (NUM_WALKERS * (WALK_LENGTH - 1)),
              mean_search_depth_of_t=mean_depth)
@@ -489,29 +618,36 @@ def phase_kernels(graph, targets, pgraph, out, counts, routed_info,
          node_steps_per_s={r["name"]: steps / (r["ms"] / 1e3)
                            for r in rows[:3]})
 
-    # The routed leg twice more, warm (the main-path run above was the first
-    # use of most PyTorch operators of the phase body): once on the host
-    # clock, once under the profiler for the device's share of the leg.
-    def leg():
+    # The routed leg again, warm (the main-path run above was the first use
+    # of most PyTorch operators of the phase body), on the host clock; then a
+    # leg of PROFILED_WALK_LENGTH twice, once plain and once under the
+    # profiler, for the device's share of a leg (the profiler takes minutes
+    # to digest the launches of a full-depth leg).
+    def leg(walk_length=WALK_LENGTH):
         return tt.walk_partitioned_routed(
-            pgraph, targets[:ROUTED_WALKERS], WALK_LENGTH, seed=WALK_SEED)
+            pgraph, targets[:ROUTED_WALKERS], walk_length, seed=WALK_SEED)
 
     (_, warm_info), warm_ms = wall_ms(leg)
     require(warm_info == routed_info, "routed leg is not reproducible")
-    (_, prof_info), prof_ms, kernels = profile_device(leg)
-    require(prof_info == routed_info, "routed leg is not reproducible")
+    (_, short_info), short_ms = wall_ms(lambda: leg(PROFILED_WALK_LENGTH))
+    (_, prof_info), prof_ms, kernels = profile_device(
+        lambda: leg(PROFILED_WALK_LENGTH))
+    require(prof_info == short_info, "routed leg is not reproducible")
     busy_ms = sum(ms for _, ms in kernels.values())
     k4 = [v for k, v in kernels.items() if "all_to_all_chunks_kernel" in k]
     profiled = None
     if busy_ms > 0:  # else the profiler saw no device activity here
-        require(len(k4) == 1 and k4[0][0] == routed_info["phases"],
+        require(len(k4) == 1 and k4[0][0] == short_info["phases"],
                 "the profile does not show one exchange kernel per phase")
+        launches = sum(n for n, _ in kernels.values())
         profiled = {
-            "leg_ms": prof_ms, "device_launches": sum(
-                n for n, _ in kernels.values()),
+            "walk_length": PROFILED_WALK_LENGTH,
+            "phases": short_info["phases"], "leg_ms": prof_ms,
+            "unprofiled_leg_ms": short_ms, "device_launches": launches,
+            "device_launches_per_phase": launches / short_info["phases"],
             "device_busy_ms": busy_ms, "device_busy_share": busy_ms / prof_ms,
             "device_idle_share": 1 - busy_ms / prof_ms,
-            "device_busy_over_unprofiled_leg": busy_ms / warm_ms,
+            "device_busy_over_unprofiled_leg": busy_ms / short_ms,
             "k4_device_ms_per_launch": k4[0][1] / k4[0][0],
             "k4_share_of_leg": k4[0][1] / prof_ms,
             "k4_share_of_device_busy": k4[0][1] / busy_ms}
@@ -524,7 +660,177 @@ def phase_kernels(graph, targets, pgraph, out, counts, routed_info,
                                      / warm_ms),
          profiled_leg=profiled,
          profiled_leg_method="torch.profiler, device activity only, over one "
-                             "whole warm leg; null if it saw no device time")
+                             "whole warm leg of the shorter walk; null if it "
+                             "saw no device time")
+    return rows
+
+
+def phase_train(graph):
+    """The training half of the main path through ``Node2Vec.epoch_step``:
+    one warm step and TRAIN_STEPS chained steps with uniform walks, then one
+    step with node2vec walks on the same tables, with the launch counts set to
+    0 just before and read just after."""
+    dev = graph.device
+    targets = torch.arange(TRAIN_WALKERS, dtype=torch.int32, device=dev)
+    n2v = tt.Node2Vec(graph, tt.Node2VecConfig(**TRAIN_CONFIG))
+    model = n2v.init()
+    biased = tt.Node2Vec(graph, tt.Node2VecConfig(**{**TRAIN_CONFIG,
+                                                     "p": P, "q": Q}))
+    biased.model = model  # the same tables and optimizer state
+    window = TRAIN_CONFIG["window_size"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    bindings.reset_launch_counts()
+    losses, events = [], []
+    for epoch in range(1 + TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(n2v.epoch_step(targets, epoch))
+        end.record()
+        events.append((start, end))
+    biased_loss = biased.epoch_step(targets, 1 + TRAIN_STEPS)
+    torch.cuda.synchronize()
+    launches = dict(bindings.launch_counts)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    losses = [float(x) for x in losses]
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    chained_ms = statistics.median(step_ms[1:])
+    steps = 1 + TRAIN_STEPS
+    emit("train", config=TRAIN_CONFIG, num_nodes=graph.num_nodes,
+         walkers=TRAIN_WALKERS, losses=losses, biased_step_loss=float(
+             biased_loss), step_ms=step_ms, warm_step_ms=step_ms[0],
+         chained_step_ms_median=chained_ms,
+         timing="CUDA events around each epoch_step",
+         node_steps_per_s=(TRAIN_WALKERS * TRAIN_CONFIG["walk_length"]
+                           / (chained_ms / 1e3)),
+         launches=launches, launches_per_step={
+             "walk (uniform_walk_csr or node2vec_walk_csr_mixture)":
+                 (launches["uniform_walk_csr"]
+                  + launches["node2vec_walk_csr_mixture"]) / (steps + 1),
+             "walk_sgns_loss_fwd": launches["walk_sgns_loss_fwd"] / (steps + 1),
+             "walk_sgns_loss_bwd": launches["walk_sgns_loss_bwd"] / (steps + 1)},
+         peak_device_gib=peak_gib)
+    require(launches["uniform_walk_csr"] == steps
+            and launches["node2vec_walk_csr_mixture"] == 1
+            and launches["walk_sgns_loss_fwd"] == steps + 1
+            and launches["walk_sgns_loss_bwd"] == steps + 1,
+            f"the train steps did not go through K1/K2, K5 and K6: {launches}")
+    require(all(np.isfinite(losses)) and np.isfinite(float(biased_loss)),
+            "a loss is not finite")
+    require(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    require(model.count == steps + 1, "Adam's step count is wrong")
+    for name, param in model.named_parameters():
+        require(param.dtype == torch.bfloat16
+                and tuple(param.shape) == (NUM_NODES, TRAIN_CONFIG["dim"])
+                and bool(torch.isfinite(param).all()),
+                f"{name}: wrong type or shape, or not finite")
+
+    # Equal inputs give equal loss bits: the loss kernel twice on the trained
+    # tables, then the first step again from freshly initialised tables.
+    walks, neg_ids = n2v.sample(targets, 0)
+    with torch.no_grad():
+        twice = [model.walk_loss(walks, neg_ids, window, window - 1)
+                 for _ in range(2)]
+    require(torch.equal(twice[0], twice[1]), "the loss is not repeatable")
+    n2v.init()
+    again = float(n2v.epoch_step(targets, 0))
+    require(again == losses[0], "the first step is not repeatable: "
+            f"{again} vs {losses[0]}")
+    emit("train_checks", ok=True, loss_on_first_batch_after_training=float(
+        twice[0]), first_step_again=again)
+    return launches
+
+
+def phase_sgns_kernels(graph, counts):
+    """K5 and K6 at the train shape with random tables, bfloat16 and float32:
+    deviation from the plain version, time, bound; and the parts of a step."""
+    dev = graph.device
+    cfg = tt.Node2VecConfig(**TRAIN_CONFIG)
+    window = cfg.window_size
+    targets = torch.arange(TRAIN_WALKERS, dtype=torch.int32, device=dev)
+    walks = tt.walk(graph, target_nodes=targets, walk_length=cfg.walk_length,
+                    seed=WALK_SEED)
+    neg_ids = skipgram.shared_negative_ids(WALK_SEED, cfg.shared_negatives,
+                                           NUM_NODES)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    found = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        in_emb, out_emb = random_tables(NUM_NODES, cfg.dim, dtype, dev, seed=7)
+        err = loss_errors(in_emb, out_emb, walks, neg_ids, window)
+        err["fwd_ms"] = time_ms(lambda: bindings.walk_sgns_loss_fwd(
+            in_emb, out_emb, walks, neg_ids, window, window - 1))
+        err["bwd_ms"] = time_ms(lambda: bindings.walk_sgns_loss_bwd(
+            in_emb, out_emb, walks, neg_ids, window, window - 1, one))
+        err["fwd_bound"], in_rows, out_rows = sgns_bound(
+            dtype, False, walks, neg_ids)
+        err["bwd_bound"], _, _ = sgns_bound(dtype, True, walks, neg_ids)
+        if dtype == torch.bfloat16:
+            centers = walks[:, window // 2: walks.shape[1] - window // 2]
+            u = in_emb[centers.reshape(-1).long()]
+            v_neg = out_emb[neg_ids.long()]
+            matmul_ms = time_ms(lambda: torch.matmul(u, v_neg.T))
+            del u
+        found[str(dtype)] = err
+        del in_emb, out_emb
+    emit("walk_sgns_loss_kernels", shape={
+        "walks": list(walks.shape), "tables": [NUM_NODES, cfg.dim],
+        "shared_negatives": cfg.shared_negatives, "window_size": window,
+        "distinct_in_emb_rows": in_rows, "distinct_out_emb_rows": out_rows,
+        "gathered_row_slots": TRAIN_WALKERS * (2 * (cfg.walk_length + 1)
+                                               - 2 * (window // 2))
+        + cfg.shared_negatives},
+        limits={"loss_rel_err": LOSS_REL_LIMIT, "grad_rel_err": GRAD_REL_LIMIT},
+        results=found,
+        bwd_ms_includes="the zero-fill of the two (N, D) float32 gradient "
+                        "tables",
+        negative_product_matmul_ms_bfloat16=matmul_ms,
+        negative_product_matmul_is="torch.matmul of the gathered (B*C, D) "
+        "centers with the (D, S) negatives alone, as context; it writes the "
+        "(B*C, S) logits that K5 never stores")
+    for name, err in found.items():
+        require(err["loss_rel_err"] <= LOSS_REL_LIMIT
+                and err["grad_rel_err"] <= GRAD_REL_LIMIT,
+                f"loss kernels != plain at the train shape ({name}): {err}")
+
+    # The parts of one step at this shape (bfloat16 tables).
+    model = tt.SkipGramModel(NUM_NODES, cfg.dim, dtype=cfg.dtype,
+                             learning_rate=cfg.learning_rate)
+    shape = (NUM_NODES, cfg.dim)
+
+    def zero_grads():
+        return {k: torch.zeros(shape, dtype=torch.float32, device=dev)
+                for k in ("in_emb", "out_emb")}
+
+    emit("train_step_parts", timing="CUDA events, 1 warm-up, median of 5",
+         walk_ms=time_ms(lambda: tt.walk(
+             graph, target_nodes=targets, walk_length=cfg.walk_length,
+             seed=WALK_SEED)),
+         shared_negatives_ms=time_ms(lambda: skipgram.shared_negative_ids(
+             WALK_SEED, cfg.shared_negatives, NUM_NODES)),
+         loss_fwd_ms=found["torch.bfloat16"]["fwd_ms"],
+         loss_bwd_ms=found["torch.bfloat16"]["bwd_ms"],
+         zero_fill_ms=time_ms(zero_grads),
+         adam_and_zero_fill_ms=time_ms(lambda: model.adam_update(zero_grads())),
+         walk_train_step_ms=time_ms(lambda: model.walk_train_step(
+             walks, neg_ids, window, window - 1)))
+
+    main = found["torch.bfloat16"]
+    rows = []
+    for name, ms, err, bound_pair in (
+            ("walk_sgns_loss_fwd", main["fwd_ms"], "loss_abs_err",
+             main["fwd_bound"]),
+            ("walk_sgns_loss_bwd", main["bwd_ms"], "grad_abs_err",
+             main["bwd_bound"])):
+        source, replaces = KERNEL_FACTS[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": counts[name],
+            "max_abs_err": max(f[err] for f in found.values()),
+            "ms": ms, "plain_ms": main["plain_ms"], "bound_ms": bound_pair[0],
+            "bound_by": bound_pair[1], "library_ms": None})
     return rows
 
 
@@ -540,14 +846,28 @@ def main() -> int:
     graph = phase_graph()
     (targets, pgraph, out, launches, routed_info,
      routed_ms) = phase_main_path(graph)
+    sampling_peak = torch.cuda.max_memory_allocated()
+    train_launches = phase_train(graph)
+    for name in launches:  # both runs of the main path, added up
+        launches[name] += train_launches[name]
     rows = phase_kernels(graph, targets, pgraph, out, launches, routed_info,
                          routed_ms)
     for r in rows:
         require(r["max_abs_err"] == 0, f"{r['name']} != its plain version at "
                 "the main path's shape")
+    del pgraph, out
+    rows += phase_sgns_kernels(graph, launches)
+    require([r["name"] for r in rows] == [
+        "uniform_walk_csr", "node2vec_walk_csr_mixture",
+        "node2vec_walk_csr_rejection", "to_windows", "all_to_all_chunks",
+        "walk_sgns_loss_fwd", "walk_sgns_loss_bwd"], "a kernel row is missing")
+    require(all(r["launches"] > 0 for r in rows),
+            "a kernel was never launched on the main path")
     torch.cuda.synchronize()
     emit("done", seconds=round(time.perf_counter() - t0, 1),
-         peak_device_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2))
+         peak_device_gib=round(max(sampling_peak,
+                                   torch.cuda.max_memory_allocated())
+                               / 2**30, 2))
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """The port stands alone: importing it (every module, and chip_smoke.py)
-pulls in neither jax nor the JAX package, and its sources name neither in an
-import statement."""
+pulls in neither jax, optax nor the JAX package, and its sources name none of
+them in an import statement."""
 
 import os
 import re
@@ -16,8 +16,11 @@ import torch_random_walk_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 import chip_smoke
+assert "torch_random_walk_tpu_torch.models.skipgram" in sys.modules
+assert "torch_random_walk_tpu_torch.models.node2vec" in sys.modules
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "optax" or m.startswith("optax.")
              or m == "torch_random_walk_tpu"
              or m.startswith("torch_random_walk_tpu."))
 assert not bad, bad
@@ -35,11 +38,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_port_sources_have_no_such_import_statement():
-    pattern = re.compile(r"^\s*(import|from) +(jax|torch_random_walk_tpu)\b")
+    pattern = re.compile(
+        r"^\s*(import|from) +(jax|optax|torch_random_walk_tpu)\b")
     files = [os.path.join(_REPO, "chip_smoke.py")]
     for root, _, names in os.walk(_PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
+    assert any(p.endswith(os.path.join("models", "skipgram.py")) for p in files)
     for path in files:
         with open(path) as f:
             hits = [line for line in f if pattern.match(line)]

@@ -5,8 +5,9 @@ Ported so far: the counter-based PRNG, the CSR graph and the power-law
 generator, uniform and node2vec (rejection and mixture) CSR walks behind
 ``walk``, skip-gram and CBOW node windows, the node-range partition, the
 walker-record all-to-all and the owner-routed uniform walk engine (serial
-schedule).  Sub-packages mirror the JAX package's (``utils``, ``graph``,
-``ops``, ``parallel``); ``kernels`` holds the CUDA sources, their build and
+schedule), and the fused walk -> SGNS train step (``SkipGramModel`` with dense
+Adam, ``Node2Vec``).  Sub-packages mirror the JAX package's (``utils``,
+``graph``, ``ops``, ``models``, ``parallel``); ``kernels`` holds the CUDA sources, their build and
 their bindings; ``convert`` carries graphs over from the JAX package.
 
 Every entry point takes ``device=None``, which means the card and raises
@@ -20,12 +21,15 @@ from torch_random_walk_tpu_torch import (  # noqa: F401
     convert,
     graph,
     kernels,
+    models,
     ops,
     parallel,
     utils,
 )
 from torch_random_walk_tpu_torch.graph.csr import CSRGraph
 from torch_random_walk_tpu_torch.graph.datasets import synthetic_power_law
+from torch_random_walk_tpu_torch.models.node2vec import Node2Vec, Node2VecConfig
+from torch_random_walk_tpu_torch.models.skipgram import SkipGramModel
 from torch_random_walk_tpu_torch.ops.walk import walk
 from torch_random_walk_tpu_torch.ops.windows import to_windows, to_windows_cbow
 from torch_random_walk_tpu_torch.parallel.partition import PartitionedCSR
@@ -38,8 +42,11 @@ __version__ = "0.1.0"
 
 __all__ = [
     "CSRGraph",
+    "Node2Vec",
+    "Node2VecConfig",
     "PartitionedCSR",
     "RoutedConfig",
+    "SkipGramModel",
     "synthetic_power_law",
     "to_windows",
     "to_windows_cbow",

@@ -4,9 +4,10 @@ The JAX package's ``CSRGraph`` and ``PartitionedCSR`` fields, handed over as
 numpy arrays (``numpy.asarray(graph.row_ptr)`` and so on; this module imports
 neither JAX nor the JAX package), become the port's objects with the same
 ``max_degree``, ``search_iters`` and ``deg_bits``, so that walks over a
-converted graph equal walks over the original.  This slice of the port has no
-trained weights; the embedding tables of the trainers join this file with
-them.
+converted graph equal walks over the original.  The SGNS tables and optax's
+Adam state cross as float32 numpy arrays (``np.asarray(x.astype(jnp.float32))``
+is exact for bfloat16 tables); the port casts them to its tables' type, which
+is exact on the way back too.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from torch_random_walk_tpu_torch.graph.csr import CSRGraph
+from torch_random_walk_tpu_torch.models.skipgram import SkipGramModel
 from torch_random_walk_tpu_torch.parallel.partition import PartitionedCSR
 from torch_random_walk_tpu_torch.utils.device import resolve_device
 
@@ -48,3 +50,48 @@ def partitioned_from_numpy(node_meta, col, num_nodes: int, num_shards: int,
         col=tuple(shard(col[d]) for d in range(num_shards)),
         num_nodes=int(num_nodes), num_shards=int(num_shards),
         shard_nodes=int(shard_nodes))
+
+
+def _table(x, like: torch.Tensor) -> torch.Tensor:
+    x = np.asarray(x, dtype=np.float32)
+    if x.shape != tuple(like.shape):
+        raise ValueError(f"expected shape {tuple(like.shape)}, got {x.shape}")
+    return torch.tensor(x, device=like.device).to(like.dtype)
+
+
+def skipgram_from_numpy(in_emb, out_emb, dtype="float32", learning_rate=None,
+                        device=None) -> SkipGramModel:
+    """(N, D) float32 tables -> a ``SkipGramModel`` in ``dtype`` holding them,
+    with zero optimizer state."""
+    in_emb = np.asarray(in_emb)
+    if in_emb.ndim != 2:
+        raise ValueError(f"in_emb must be (N, D), got {in_emb.shape}")
+    model = SkipGramModel(in_emb.shape[0], in_emb.shape[1], dtype=dtype,
+                          learning_rate=learning_rate, device=device)
+    with torch.no_grad():
+        model.in_emb.copy_(_table(in_emb, model.in_emb))
+        model.out_emb.copy_(_table(out_emb, model.out_emb))
+    return model
+
+
+def adam_state_from_numpy(model: SkipGramModel, mu: dict, nu: dict,
+                          count: int) -> None:
+    """optax's ``ScaleByAdamState`` (``mu`` and ``nu`` as dicts of float32
+    arrays keyed "in_emb"/"out_emb", and the step count) into ``model``."""
+    for name in ("in_emb", "out_emb"):
+        model.mu[name] = _table(mu[name], model.mu[name])
+        model.nu[name] = _table(nu[name], model.nu[name])
+    model.count = int(count)
+
+
+def skipgram_to_numpy(model: SkipGramModel) -> dict:
+    """The tables as float32 numpy arrays, keyed as the JAX params are."""
+    return {name: p.detach().float().cpu().numpy()
+            for name, p in model.named_parameters()}
+
+
+def adam_state_to_numpy(model: SkipGramModel):
+    """(mu, nu, count) of ``model`` as float32 numpy arrays."""
+    mu = {k: v.float().cpu().numpy() for k, v in model.mu.items()}
+    nu = {k: v.float().cpu().numpy() for k, v in model.nu.items()}
+    return mu, nu, model.count

@@ -19,7 +19,8 @@ from torch_random_walk_tpu_torch.kernels.build import build_library
 
 KERNEL_NAMES = ("uniform_walk_csr", "node2vec_walk_csr_mixture",
                 "node2vec_walk_csr_rejection", "to_windows",
-                "all_to_all_chunks")
+                "all_to_all_chunks", "walk_sgns_loss_fwd",
+                "walk_sgns_loss_bwd")
 launch_counts = dict.fromkeys(KERNEL_NAMES, 0)
 
 _lib = None
@@ -52,8 +53,17 @@ def library(verbose: bool = False) -> ctypes.CDLL:
             _PTR, _I64, _I32, _I32, _U32, _U32, _U32, _PTR, _PTR, _PTR, _PTR]
         lib.trw_all_to_all_chunks.argtypes = [
             _PTR, _PTR, _I32, _I64, _I32, _PTR]
+        lib.trw_walk_sgns_chunk.argtypes = [_I32] * 6
+        lib.trw_walk_sgns_loss_fwd.argtypes = [
+            _PTR, _I32, _I32, _PTR, _PTR, _I32, _I32, _I32, _PTR, _I32, _I32,
+            _F32, _PTR, _PTR, _PTR]
+        lib.trw_walk_sgns_loss_bwd.argtypes = [
+            _PTR, _I32, _I32, _PTR, _PTR, _I32, _I32, _I32, _PTR, _I32, _I32,
+            _F32, _PTR, _PTR, _PTR, _PTR]
         for fn in (lib.trw_uniform_walk_csr, lib.trw_node2vec_walk_csr,
-                   lib.trw_to_windows, lib.trw_all_to_all_chunks):
+                   lib.trw_to_windows, lib.trw_all_to_all_chunks,
+                   lib.trw_walk_sgns_chunk, lib.trw_walk_sgns_loss_fwd,
+                   lib.trw_walk_sgns_loss_bwd):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -210,3 +220,76 @@ def all_to_all_chunks(table: ChunkTable) -> None:
             table.pointers.device, table.pointers.data_ptr(),
             table.pointers.data_ptr() + 8 * table.num_shards,
             table.num_shards, table.words, table.vec)
+
+
+_TABLE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_sgns(in_emb, out_emb, walks, neg_ids, window_size: int,
+                backward: bool) -> tuple:
+    """The checks K5 and K6 share.  Returns the C functions' common leading
+    arguments."""
+    if not isinstance(in_emb, torch.Tensor) or in_emb.dtype not in _TABLE_DTYPES:
+        raise ValueError("the tables must be float32 or bfloat16 tensors")
+    dev = in_emb.device
+    _check("in_emb", in_emb, in_emb.dtype, 2)
+    _check("out_emb", out_emb, in_emb.dtype, 2, dev)
+    _check("walks", walks, torch.int32, 2, dev)
+    _check("neg_ids", neg_ids, torch.int32, 1, dev)
+    if in_emb.shape != out_emb.shape:
+        raise ValueError(f"in_emb {tuple(in_emb.shape)} and out_emb "
+                         f"{tuple(out_emb.shape)} must have one shape")
+    num_nodes, dim = in_emb.shape
+    num_walks, length1 = walks.shape
+    hw = int(window_size) // 2
+    if not 0 < num_nodes < 2 ** 31 or dim < 1:
+        raise ValueError(f"tables of shape {tuple(in_emb.shape)} are not "
+                         "supported")
+    if num_walks < 1 or length1 - 2 * hw < 1 or hw < 0:
+        raise ValueError(f"walks of shape {tuple(walks.shape)} hold no center "
+                         f"for window_size {window_size}")
+    if neg_ids.shape[0] < 1:
+        raise ValueError("at least one shared negative is required")
+    elem = in_emb.element_size()
+    with torch.cuda.device(dev):
+        fits = library().trw_walk_sgns_chunk(length1, dim, hw,
+                                             neg_ids.shape[0], elem,
+                                             int(backward))
+    if fits == 0:
+        raise ValueError(
+            f"walk length {length1 - 1}, dim {dim} and window_size "
+            f"{window_size} do not fit the loss kernel (dim <= 512, and one "
+            "walk's rows must fit the card's shared memory)")
+    return (walks.data_ptr(), num_walks, length1, in_emb.data_ptr(),
+            out_emb.data_ptr(), num_nodes, dim, elem, neg_ids.data_ptr(),
+            neg_ids.shape[0], hw)
+
+
+def walk_sgns_loss_fwd(in_emb, out_emb, walks, neg_ids, window_size: int,
+                       num_neg: int) -> torch.Tensor:
+    """K5.  (N, D) tables, (B, L+1) int32 walks, (S,) int32 shared negatives
+    -> the blockwise SGNS loss, a float32 scalar on the device."""
+    args = _check_sgns(in_emb, out_emb, walks, neg_ids, window_size, False)
+    partial = torch.empty((walks.shape[0],), dtype=torch.float32,
+                          device=walks.device)
+    loss = torch.empty((), dtype=torch.float32, device=walks.device)
+    _launch("walk_sgns_loss_fwd", library().trw_walk_sgns_loss_fwd,
+            walks.device, *args, float(num_neg), partial.data_ptr(),
+            loss.data_ptr())
+    return loss
+
+
+def walk_sgns_loss_bwd(in_emb, out_emb, walks, neg_ids, window_size: int,
+                       num_neg: int, grad_loss: torch.Tensor):
+    """K6.  The gradient of K5's loss, times the float32 device scalar
+    ``grad_loss``, as two dense (N, D) float32 tables (in_emb's, out_emb's)."""
+    args = _check_sgns(in_emb, out_emb, walks, neg_ids, window_size, True)
+    _check("grad_loss", grad_loss, torch.float32, 0, walks.device)
+    grad_in = torch.zeros(in_emb.shape, dtype=torch.float32,
+                          device=walks.device)
+    grad_out = torch.zeros(in_emb.shape, dtype=torch.float32,
+                           device=walks.device)
+    _launch("walk_sgns_loss_bwd", library().trw_walk_sgns_loss_bwd,
+            walks.device, *args, float(num_neg), grad_loss.data_ptr(),
+            grad_in.data_ptr(), grad_out.data_ptr())
+    return grad_in, grad_out

@@ -19,7 +19,8 @@ import subprocess
 from pathlib import Path
 
 SOURCE_DIR = Path(__file__).resolve().parent
-SOURCES = ("uniform_walk.cu", "node2vec_walk.cu", "windows.cu", "exchange.cu")
+SOURCES = ("uniform_walk.cu", "node2vec_walk.cu", "windows.cu", "exchange.cu",
+           "sgns_loss.cu")
 HEADERS = ("threefry.cuh", "csr.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
