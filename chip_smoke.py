@@ -14,7 +14,10 @@ configuration (dim 128, walk length 16, window 5, bfloat16 tables, 256 shared
 negatives, 65 536 start nodes a step), one warm step and three chained steps
 through ``epoch_step`` and one step with p=0.5, q=2.  It checks the results and
 measures every kernel at the shape the main path gives it; the two loss
-kernels also with float32 tables.
+kernels also with float32 tables, each with its tile plan and its device time
+by kernel.  The ``build`` line reports each loss kernel's registers and
+spills (``-Xptxas -v``) and its tensor-core instructions (``cuobjdump
+-sass``), and the run fails unless the bfloat16 K5 and K6 hold some.
 
 Every kernel is held against its plain version on all the rows the main path
 gives it.  One thing runs at a smaller depth than the main path, to keep the
@@ -39,10 +42,13 @@ port (``torch_random_walk_tpu_torch``), never JAX.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -376,11 +382,87 @@ def phase_device() -> str:
     return smi
 
 
+# The loss kernels' entry functions in the built library, as ptxas and
+# cuobjdump name them, and which must run on the tensor cores.
+SGNS_FUNCTIONS = {
+    "trw_sgns_loss_fwd_bf16": "K5 bfloat16",
+    "trw_sgns_loss_bwd_rows_bf16": "K6 bfloat16, rows pass",
+    "trw_sgns_loss_bwd_neg_bf16": "K6 bfloat16, negatives pass",
+    "walk_sgns_loss_fwd_kernelIf": "K5 float32",
+    "walk_sgns_loss_bwd_kernelIfLi4E": "K6 float32 (D <= 128)",
+    "walk_sgns_loss_bwd_kernelIfLi16E": "K6 float32 (D <= 512)",
+}
+TENSOR_CORE_FUNCTIONS = ("trw_sgns_loss_fwd_bf16",
+                         "trw_sgns_loss_bwd_rows_bf16",
+                         "trw_sgns_loss_bwd_neg_bf16")
+
+
+def sgns_function(name: str) -> str | None:
+    for key in SGNS_FUNCTIONS:
+        if key in name:
+            return key
+    return None
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers, spill bytes and static shared memory of each loss kernel
+    from the ``-Xptxas -v`` report of the build."""
+    found = {}
+    for block in log.split("Compiling entry function '")[1:]:
+        key = sgns_function(block.split("'", 1)[0])
+        if key is None:
+            continue
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        found[key] = {
+            "registers": int(regs.group(1)) if regs else None,
+            "spill_store_bytes": int(spill.group(1)) if spill else None,
+            "spill_load_bytes": int(spill.group(2)) if spill else None,
+            "static_smem_bytes": int(smem.group(1)) if smem else 0}
+    return found
+
+
+def sass_report(lib) -> dict:
+    """Per loss kernel, its tensor-core instructions (HMMA/HGMMA) and its
+    atomic reductions in the SASS of the built library."""
+    cuobjdump = str(Path(build.find_nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True, timeout=120).stdout
+    found = {}
+    for block in re.split(r"\n\s*Function : ", sass)[1:]:
+        key = sgns_function(block.split("\n", 1)[0])
+        if key is None:
+            continue
+        ops = Counter(
+            op + mod for op, mod in re.findall(
+                r"\b(HGMMA|HMMA|REDG?|ATOMG?)(?![A-Z])(\.[A-Za-z0-9_.]+)?",
+                block))
+        found[key] = {
+            "tensor_core_instructions": sum(
+                n for op, n in ops.items() if op.startswith(("HMMA", "HGMMA"))),
+            "atomics": dict(sorted(
+                (op, n) for op, n in ops.items()
+                if not op.startswith(("HMMA", "HGMMA"))))}
+    return found
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
-    bindings.library(verbose=True)
-    emit("build", seconds=round(time.perf_counter() - t0, 2),
-         sources=list(build.SOURCES))
+    lib = build.build_library(verbose=True)
+    bindings.library()
+    seconds = time.perf_counter() - t0
+    ptxas, sass = ptxas_report(build.build_log()), sass_report(lib)
+    kernels = {SGNS_FUNCTIONS[k]: {**ptxas.get(k, {}), **sass.get(k, {})}
+               for k in SGNS_FUNCTIONS}
+    emit("build", seconds=round(seconds, 2), sources=list(build.SOURCES),
+         walk_sgns_loss_kernels=kernels)
+    for key in TENSOR_CORE_FUNCTIONS:
+        require(sass.get(key, {}).get("tensor_core_instructions", 0) > 0,
+                f"{SGNS_FUNCTIONS[key]}: no HMMA/HGMMA instruction in its SASS")
+    require(all(ptxas.get(k, {}).get("registers") for k in SGNS_FUNCTIONS),
+            f"ptxas reported no registers for a loss kernel: {ptxas}")
 
 
 def phase_small_checks() -> None:
@@ -759,7 +841,8 @@ def phase_sgns_kernels(graph, counts):
     found = {}
     for dtype in (torch.bfloat16, torch.float32):
         in_emb, out_emb = random_tables(NUM_NODES, cfg.dim, dtype, dev, seed=7)
-        err = loss_errors(in_emb, out_emb, walks, neg_ids, window)
+        err = {"plan": bindings.walk_sgns_plan(in_emb, walks, neg_ids, window)}
+        err.update(loss_errors(in_emb, out_emb, walks, neg_ids, window))
         err["fwd_ms"] = time_ms(lambda: bindings.walk_sgns_loss_fwd(
             in_emb, out_emb, walks, neg_ids, window, window - 1))
         err["bwd_ms"] = time_ms(lambda: bindings.walk_sgns_loss_bwd(
@@ -767,12 +850,34 @@ def phase_sgns_kernels(graph, counts):
         err["fwd_bound"], in_rows, out_rows = sgns_bound(
             dtype, False, walks, neg_ids)
         err["bwd_bound"], _, _ = sgns_bound(dtype, True, walks, neg_ids)
+        # K5's and K6's device ms per launch by kernel (K6: the zero-fill of
+        # the gradient tables, its rows pass and its negatives pass), over
+        # two calls: the profiler may drop the first kernel it sees.
+        for key, call in (
+                ("fwd_device_ms_by_kernel", lambda: bindings.walk_sgns_loss_fwd(
+                    in_emb, out_emb, walks, neg_ids, window, window - 1)),
+                ("bwd_device_ms_by_kernel", lambda: bindings.walk_sgns_loss_bwd(
+                    in_emb, out_emb, walks, neg_ids, window, window - 1, one))):
+            err[key] = {name: ms / n for name, (n, ms) in profile_device(
+                lambda: (call(), call()))[2].items()} or None
         if dtype == torch.bfloat16:
             centers = walks[:, window // 2: walks.shape[1] - window // 2]
             u = in_emb[centers.reshape(-1).long()]
             v_neg = out_emb[neg_ids.long()]
             matmul_ms = time_ms(lambda: torch.matmul(u, v_neg.T))
             del u
+            # K6's scatter alone through the library: every center row's du
+            # and every walk row's do added into the dense float32 tables.
+            rows = torch.where(walks < 0, NUM_NODES - 1, walks).long()
+            in_rows = rows[:, window // 2: walks.shape[1] - window // 2]
+            in_rows, out_rows = in_rows.reshape(-1), rows.reshape(-1)
+            grad = torch.zeros((NUM_NODES, cfg.dim), dtype=torch.float32,
+                               device=dev)
+            du = torch.ones((in_rows.numel(), cfg.dim), device=dev)
+            do = torch.ones((out_rows.numel(), cfg.dim), device=dev)
+            scatter_ms = time_ms(lambda: (grad.index_add_(0, in_rows, du),
+                                          grad.index_add_(0, out_rows, do)))
+            del rows, in_rows, out_rows, grad, du, do
         found[str(dtype)] = err
         del in_emb, out_emb
     emit("walk_sgns_loss_kernels", shape={
@@ -787,6 +892,10 @@ def phase_sgns_kernels(graph, counts):
         bwd_ms_includes="the zero-fill of the two (N, D) float32 gradient "
                         "tables",
         negative_product_matmul_ms_bfloat16=matmul_ms,
+        row_scatter_index_add_ms=scatter_ms,
+        row_scatter_index_add_is="two index_add_ calls, as context: the B*C "
+        "du rows and B*(L+1) do rows of K6 added into a dense (N, D) float32 "
+        "table, as K6's rows pass adds them with float4 atomics",
         negative_product_matmul_is="torch.matmul of the gathered (B*C, D) "
         "centers with the (D, S) negatives alone, as context; it writes the "
         "(B*C, S) logits that K5 never stores")

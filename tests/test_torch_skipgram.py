@@ -25,6 +25,7 @@ from torch_random_walk_tpu.models.skipgram import (
     shared_negative_ids as j_shared_negative_ids,
 )
 from torch_random_walk_tpu_torch import convert
+from torch_random_walk_tpu_torch.kernels import bindings
 from torch_random_walk_tpu_torch.models import skipgram as tsg
 from torch_port_util import eq, need_cuda
 
@@ -254,16 +255,114 @@ def test_model_rejects_an_unknown_dtype_and_needs_a_card_by_default():
             tsg.SkipGramModel(4, 2)
 
 
+# --- the rounding of the bfloat16 tensor-core K6, on the CPU -----------------------
+
+def bf16_values(a):
+    """float32 copies of the bfloat16 rounding of ``a``."""
+    return np.asarray(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
+
+
+def tensor_core_grads(x, window, num_neg):
+    """K6's gradients formed as its bfloat16 tensor-core build rounds them:
+    the table values enter exactly (they are bfloat16), the logits are
+    float32 sums of exact products, and dloss/dlogit of the negatives is
+    split into a bfloat16 high part and the bfloat16 rounding of the rest
+    before the two products with the rows (du = g Vn, dVn = g^T U), which sum
+    in float32.  The positive pairs run in float32, as on the CUDA cores."""
+    tables = {k: torch.tensor(x[k]) for k in ("in_emb", "out_emb")}
+    n = x["in_emb"].shape[0]
+    walks = torch.tensor(x["walks"]).long()
+    walks = torch.where(walks < 0, walks + n, walks)
+    neg = torch.tensor(x["neg_ids"]).long()
+    neg = torch.where(neg < 0, neg + n, neg)
+    b, length1 = walks.shape
+    hw = window // 2
+    c = length1 - 2 * hw
+    scale = 1.0 / (b * c)
+    neg_scale = scale * num_neg / neg.shape[0]
+    centers = walks[:, hw: length1 - hw].reshape(-1)
+    u = tables["in_emb"][centers]                              # (B*C, D)
+    vn = tables["out_emb"][neg]                                # (S, D)
+    g = neg_scale * torch.sigmoid(u @ vn.T)
+    hi = g.to(torch.bfloat16).float()
+    lo = (g - hi).to(torch.bfloat16).float()
+    du = hi @ vn + lo @ vn
+    dvn = hi.T @ u + lo.T @ u
+    grad_in = torch.zeros_like(tables["in_emb"])
+    grad_out = torch.zeros_like(tables["out_emb"])
+    u3 = u.view(b, c, -1)
+    du3 = du.view(b, c, -1)
+    for off in [o for o in range(-hw, hw + 1) if o != 0]:
+        ctx = walks[:, hw + off: length1 - hw + off]            # (B, C)
+        o = tables["out_emb"][ctx]
+        gp = -scale * torch.sigmoid(-(u3 * o).sum(-1, keepdim=True))
+        du3 += gp * o
+        grad_out.index_add_(0, ctx.reshape(-1), (gp * u3).reshape(b * c, -1))
+    grad_in.index_add_(0, centers, du)
+    grad_out.index_add_(0, neg, dvn)
+    return {"in_emb": grad_in.numpy(), "out_emb": grad_out.numpy()}
+
+
+@pytest.mark.parametrize("window,length,s,d", [
+    (5, 16, 256, 32), (3, 2, 37, 8), (5, 40, 16, 130)],
+    ids=["W5-S256", "one-center-S37", "D130"])
+def test_tensor_core_rounding_of_the_gradients_holds_the_kernel_limit(
+        window, length, s, d):
+    """The split of dloss/dlogit into two bfloat16 parts keeps K6 within the
+    limit its kernel is held to: every entry within 1e-4 of its table's
+    largest entry of JAX's value_and_grad on the same bfloat16 values."""
+    x = make_inputs(12, n=64, d=d, b=24, length=length, s=s)
+    x["walks"][::5, -1] = -1
+    x["neg_ids"][0] = -1
+    x = dict(x, in_emb=bf16_values(x["in_emb"]),
+             out_emb=bf16_values(x["out_emb"]))
+    _, want = jax_loss_and_grads(x, window, window - 1)
+    got = tensor_core_grads(x, window, window - 1)
+    for name in ("in_emb", "out_emb"):
+        np.testing.assert_allclose(got[name], want[name], rtol=1e-4,
+                                   atol=1e-4 * np.abs(want[name]).max())
+
+
 # --- the kernels, on the card -------------------------------------------------------
+
+# (d, window, length, walks, negatives, nodes): the shapes the tiles of the
+# bfloat16 build meet at their edges.
+KERNEL_CASES = {
+    "small": (8, 5, 8, 32, 8, 64),
+    "one-center": (16, 3, 2, 32, 8, 64),          # C = 1
+    "D130": (130, 5, 10, 32, 8, 64),              # rows of 260 bytes
+    "odd-D": (7, 5, 10, 32, 8, 64),               # rows of 14 bytes
+    "ragged-tiles": (128, 5, 16, 100, 256, 500),  # 12 tiles of 9 walks, last 1
+    "walk-longer-than-a-tile": (32, 5, 200, 4, 24, 300),
+    "S37": (24, 5, 12, 40, 37, 200),              # S not a multiple of 16
+    "S300": (64, 5, 12, 40, 300, 400),            # two chunks in K6
+    "hub": (128, 5, 16, 64, 40, 50),              # every walk on one row
+    "one-stage": (256, 201, 202, 4, 8, 64),       # two stages do not fit
+}
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d,window,length", [(8, 5, 8), (16, 3, 2), (130, 5, 10)])
-def test_loss_kernels_match_the_plain_version(dtype, d, window, length):
+@pytest.mark.parametrize("case", list(KERNEL_CASES))
+def test_loss_kernels_match_the_plain_version(dtype, case):
     need_cuda()
-    x = make_inputs(11, n=64, d=d, b=32, length=length, s=8)
+    d, window, length, b, s, n = KERNEL_CASES[case]
+    x = make_inputs(11, n=n, d=d, b=b, length=length, s=s)
     x["walks"][::5, -1] = -1
+    x["neg_ids"][::7] = -1
+    if case == "hub":
+        x["walks"][:, ::2] = 3
+        x["neg_ids"][::2] = 3
     model = convert.skipgram_from_numpy(x["in_emb"], x["out_emb"], dtype)
+    if case == "one-stage":
+        if dtype == "float32":  # one walk's rows exceed K6's shared memory
+            with pytest.raises(ValueError, match="do not fit the loss kernel"):
+                model.walk_loss_and_grads(x["walks"], x["neg_ids"], window,
+                                          window - 1)
+            return
+        plan = bindings.walk_sgns_plan(model.in_emb, torch.tensor(
+            x["walks"], device="cuda"), torch.tensor(x["neg_ids"]), window)
+        assert plan["fwd"]["stages"] == plan["bwd_rows"]["stages"] == 1
     # The plain version on float32 copies of the tables' values (its autograd
     # would sum a bfloat16 table's gradient in bfloat16): both sides multiply
     # the same numbers in float32.

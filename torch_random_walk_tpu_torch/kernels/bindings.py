@@ -54,6 +54,9 @@ def library(verbose: bool = False) -> ctypes.CDLL:
         lib.trw_all_to_all_chunks.argtypes = [
             _PTR, _PTR, _I32, _I64, _I32, _PTR]
         lib.trw_walk_sgns_chunk.argtypes = [_I32] * 6
+        lib.trw_walk_sgns_partials.argtypes = [_I32] * 6
+        lib.trw_walk_sgns_partials.restype = ctypes.c_int64
+        lib.trw_walk_sgns_describe.argtypes = [_I32] * 7 + [_PTR]
         lib.trw_walk_sgns_loss_fwd.argtypes = [
             _PTR, _I32, _I32, _PTR, _PTR, _I32, _I32, _I32, _PTR, _I32, _I32,
             _F32, _PTR, _PTR, _PTR]
@@ -62,8 +65,8 @@ def library(verbose: bool = False) -> ctypes.CDLL:
             _F32, _PTR, _PTR, _PTR, _PTR]
         for fn in (lib.trw_uniform_walk_csr, lib.trw_node2vec_walk_csr,
                    lib.trw_to_windows, lib.trw_all_to_all_chunks,
-                   lib.trw_walk_sgns_chunk, lib.trw_walk_sgns_loss_fwd,
-                   lib.trw_walk_sgns_loss_bwd):
+                   lib.trw_walk_sgns_chunk, lib.trw_walk_sgns_describe,
+                   lib.trw_walk_sgns_loss_fwd, lib.trw_walk_sgns_loss_bwd):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -270,7 +273,11 @@ def walk_sgns_loss_fwd(in_emb, out_emb, walks, neg_ids, window_size: int,
     """K5.  (N, D) tables, (B, L+1) int32 walks, (S,) int32 shared negatives
     -> the blockwise SGNS loss, a float32 scalar on the device."""
     args = _check_sgns(in_emb, out_emb, walks, neg_ids, window_size, False)
-    partial = torch.empty((walks.shape[0],), dtype=torch.float32,
+    num_walks, length1, _, _, _, dim, elem, _, num_neg_ids, hw = args[1:]
+    with torch.cuda.device(walks.device):
+        num_partials = library().trw_walk_sgns_partials(
+            num_walks, length1, dim, hw, num_neg_ids, elem)
+    partial = torch.empty((num_partials,), dtype=torch.float32,
                           device=walks.device)
     loss = torch.empty((), dtype=torch.float32, device=walks.device)
     _launch("walk_sgns_loss_fwd", library().trw_walk_sgns_loss_fwd,
@@ -293,3 +300,27 @@ def walk_sgns_loss_bwd(in_emb, out_emb, walks, neg_ids, window_size: int,
             walks.device, *args, float(num_neg), grad_loss.data_ptr(),
             grad_in.data_ptr(), grad_out.data_ptr())
     return grad_in, grad_out
+
+
+SGNS_PLAN_FIELDS = ("tile_rows", "walks_per_tile", "centers_per_walk_in_tile",
+                    "tiles", "negatives_per_launch", "launches", "stages",
+                    "shared_bytes", "blocks_per_sm", "grid")
+
+
+def walk_sgns_plan(in_emb, walks, neg_ids, window_size: int) -> dict:
+    """How K5 and K6 cut this shape for these tables' type: per kernel
+    (``fwd``, ``bwd_rows``, ``bwd_negatives``; float32 tables have no third
+    kernel) the fields of ``SGNS_PLAN_FIELDS``, launching nothing."""
+    num_walks, length1 = walks.shape
+    num_nodes, dim = in_emb.shape
+    out = torch.zeros(3 * len(SGNS_PLAN_FIELDS), dtype=torch.int32)
+    with torch.cuda.device(walks.device):
+        rc = library().trw_walk_sgns_describe(
+            num_walks, length1, num_nodes, dim, int(window_size) // 2,
+            neg_ids.shape[0], in_emb.element_size(), out.data_ptr())
+    if rc != 0:
+        raise RuntimeError(f"walk_sgns_plan: CUDA error code {rc}")
+    rows = out.view(3, -1).tolist()
+    names = ("fwd", "bwd_rows", "bwd_negatives")
+    return {n: dict(zip(SGNS_PLAN_FIELDS, r)) for n, r in zip(names, rows)
+            if any(r)}

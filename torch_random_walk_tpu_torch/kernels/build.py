@@ -5,8 +5,10 @@ compiles each in seconds.  One ``nvcc -c`` per source is started at the same
 time, for ``sm_90a`` (Hopper), and a last ``nvcc -shared`` links the objects.
 The library lands in ``build/torch_kernels/`` at the root of the checkout (or
 in ``$TRW_TORCH_BUILD_DIR``), under a name that carries a hash of the sources
-and flags, so an unchanged tree is built once.  The build happens at first
-use of a kernel, never at import, and a failed build raises: there is no
+and flags, so an unchanged tree is built once.  Beside it, ``<library>.log``
+keeps what ``nvcc -Xptxas -v`` reported for each source (registers, spills
+and static shared memory of every kernel).  The build happens at first use
+of a kernel, never at import, and a failed build raises: there is no
 fall-back to the plain PyTorch versions.
 """
 
@@ -20,8 +22,8 @@ from pathlib import Path
 
 SOURCE_DIR = Path(__file__).resolve().parent
 SOURCES = ("uniform_walk.cu", "node2vec_walk.cu", "windows.cu", "exchange.cu",
-           "sgns_loss.cu")
-HEADERS = ("threefry.cuh", "csr.cuh")
+           "sgns_loss.cu", "sgns_loss_tc.cu")
+HEADERS = ("threefry.cuh", "csr.cuh", "sgns_loss.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -55,20 +57,29 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def library_path() -> Path:
+    return build_dir() / f"libtrw_kernels_{_digest()}.so"
+
+
+def build_log() -> str:
+    """What ``-Xptxas -v`` reported when the library was built."""
+    return library_path().with_suffix(".log").read_text()
+
+
 def build_library(verbose: bool = False) -> Path:
-    """Compile (if needed) and return the path of the shared library."""
+    """Compile (if needed) and return the path of the shared library; with
+    ``verbose``, print the compiler's report of a build made now."""
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
-    lib = out_dir / f"libtrw_kernels_{_digest()}.so"
+    lib = library_path()
     if lib.exists():
         return lib
     nvcc = find_nvcc()
     tag = f"{lib.stem}.{os.getpid()}"
-    extra = ("-Xptxas", "-v") if verbose else ()
     objects = [out_dir / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
     procs = [
         subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, *extra, "-I", str(SOURCE_DIR), "-c",
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(SOURCE_DIR), "-c",
              str(SOURCE_DIR / src), "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for src, obj in zip(SOURCES, objects)
@@ -80,9 +91,10 @@ def build_library(verbose: bool = False) -> Path:
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(
                 f"--- {src}\n{out}" for src, out in failed))
+        report = "".join(f"--- nvcc {src}\n{out}" for src, out, _ in logs)
         if verbose:
-            for src, out, _ in logs:
-                print(f"--- nvcc {src}\n{out}", flush=True)
+            print(report, flush=True)
+        (out_dir / f"{tag}.log").write_text(report)
         tmp = out_dir / f"{tag}.so"
         link = subprocess.run(
             [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
@@ -90,6 +102,7 @@ def build_library(verbose: bool = False) -> Path:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(out_dir / f"{tag}.log", lib.with_suffix(".log"))
         os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
     finally:
         for p in procs:
@@ -98,5 +111,6 @@ def build_library(verbose: bool = False) -> Path:
                 p.wait()
         for obj in objects:
             obj.unlink(missing_ok=True)
+        (out_dir / f"{tag}.log").unlink(missing_ok=True)
     return lib
 

@@ -15,12 +15,19 @@
 // Products and sums are float32 whatever the tables' type.  A negative id
 // wraps once (id + N), as table[ids] wraps it in the JAX package.
 //
-// Bound on this card: operations before bytes.  The rows a walk gathers are
-// read once into shared memory (bytes: B*(C+L1)*D plus S*D table elements),
-// but every walk costs C*S*D multiply-adds forward and three times that
-// backward, far above what the gathered bytes pay for.  The design keeps all
-// of it out of device memory: the (C, S) logits of a walk live in registers
-// (K5) or shared memory (K6) and are never written out.
+// Two builds, chosen by the tables' type (explicit dispatch, not a fallback):
+//   bfloat16, the trainer's type: sgns_loss_tc.cu, tiles of many walks on
+//     the tensor cores (mma.sync, bf16 in, float32 accumulate), cp.async
+//     gathers, float4 atomics.  Its header states the design.
+//   float32: this file, the CUDA-core loops below.  TF32 would not keep the
+//     kernels within 1e-5 / 1e-4 of the plain version; a bf16x3 split that
+//     would let float32 share the tensor-core build is a later item.
+//
+// The float32 build.  Bound on this card: operations before bytes.  The rows
+// a walk gathers are read once into shared memory, but every walk costs
+// C*S*D multiply-adds forward and three times that backward on the CUDA
+// cores.  The (C, S) logits of a walk live in registers (K5) or shared
+// memory (K6) and are never written out.
 //
 // One block of 256 threads takes walks blockIdx.x, blockIdx.x + gridDim.x,
 // ...; the negative rows are staged in shared memory once per block.
@@ -39,12 +46,9 @@
 //       block instead of C*S*D a walk.
 // Shared negatives that do not fit (shared memory, or the register tile of
 // K6) are taken in chunks: one kernel launch per chunk, the positive term
-// with the first.  The simple float32 CUDA-core version; tensor cores (wgmma
-// on bf16 tiles) and TMA gathers are left for a later change.
+// with the first.
 
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "sgns_loss.cuh"
 
 namespace trw {
 
@@ -55,42 +59,6 @@ constexpr int kAccPerThread = 128;  // K6 register tile of the negatives' gradie
 constexpr int kReduceThreads = 1024;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// log(sigmoid(x)), stable: min(x, 0) - log1p(exp(-|x|)).
-__device__ __forceinline__ float log_sigmoid(float x) {
-  return fminf(x, 0.0f) - log1pf(expf(-fabsf(x)));
-}
-
-// sigmoid(x) from exp(-|x|), never overflowing.
-__device__ __forceinline__ float sigmoid(float x) {
-  float e = expf(-fabsf(x));
-  float r = 1.0f / (1.0f + e);
-  return x >= 0.0f ? r : e * r;
-}
-
-__host__ __device__ inline int round_up(int x, int m) {
-  return (x + m - 1) / m * m;
-}
-
-// Node id -> row: a negative id wraps once, and the result is clamped so that
-// no id, however wrong, reads outside the table.
-__device__ __forceinline__ int64_t table_row(int32_t id, int32_t num_nodes) {
-  int64_t r = id < 0 ? (int64_t)id + num_nodes : (int64_t)id;
-  return r < 0 ? 0 : (r >= num_nodes ? (int64_t)num_nodes - 1 : r);
-}
-
-struct LossShape {
-  int32_t num_walks;   // B
-  int32_t length1;     // L1 = L + 1
-  int32_t num_nodes;   // N
-  int32_t dim;         // D
-  int32_t hw;          // window_size / 2
-  int32_t centers;     // C = L1 - 2 * hw
-  float neg_weight;    // num_neg / S
-};
 
 // Shared-memory plan of one block, in 4-byte words; every array starts on a
 // 16-byte boundary.  Rows of u, o, du, do are d4 = round_up(D, 4) floats, the
@@ -148,8 +116,7 @@ __device__ void stage_negatives(const Plan& p, const T* __restrict__ out_emb,
     int s = i / p.vstride, d = i - s * p.vstride;
     float v = (s < chunk && d < dim)
                   ? to_float(out_emb[(int64_t)nids[s] * dim + d]) : 0.0f;
-    if constexpr (sizeof(T) == 2) vneg[i] = __float2bfloat16(v);
-    else vneg[i] = v;
+    vneg[i] = v;
   }
 }
 
@@ -466,15 +433,6 @@ inline int acc_columns(int dim) {
   return d4 <= 128 ? 4 : d4 <= 512 ? 16 : 0;
 }
 
-inline int max_shared_bytes() {
-  int dev = 0, bytes = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return 0;
-  return bytes;
-}
-
 // Largest chunk of the shared negatives one launch can take, 0 if none.
 inline int chunk_size(int length1, int dim, int hw, int num_neg_ids,
                       int elem_bytes, bool backward) {
@@ -532,9 +490,9 @@ int launch_fwd(const LossShape& sh, const int32_t* walks, const void* in_emb,
         s0 == 0, partial);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  reduce_partials_kernel<<<1, kReduceThreads, 0, stream>>>(
-      partial, sh.num_walks, (double)sh.num_walks * (double)sh.centers, loss);
-  return (int)cudaGetLastError();
+  return (int)launch_reduce_partials(
+      partial, sh.num_walks, (double)sh.num_walks * (double)sh.centers, loss,
+      stream);
 }
 
 template <typename T, int ACC_D>
@@ -587,6 +545,37 @@ inline LossShape make_shape(int32_t num_walks, int32_t length1,
                    num_neg / (float)num_neg_ids};
 }
 
+cudaError_t launch_reduce_partials(const float* partial, int32_t n,
+                                   double count, float* loss,
+                                   cudaStream_t stream) {
+  reduce_partials_kernel<<<1, kReduceThreads, 0, stream>>>(partial, n, count,
+                                                           loss);
+  return cudaGetLastError();
+}
+
+// describe() of the float32 build: one walk a block, K5 and K6 (no third
+// kernel).
+template <typename K>
+int describe_one(K kernel, const LossShape& sh, int num_neg_ids,
+                 bool backward, int32_t* row) {
+  int chunk = chunk_size(sh.length1, sh.dim, sh.hw, num_neg_ids, 4, backward);
+  if (chunk == 0) return (int)cudaErrorInvalidValue;
+  size_t smem =
+      make_plan(sh.length1, sh.dim, sh.hw, chunk, 4, backward).bytes;
+  int grid = 0;
+  cudaError_t err = grid_for(kernel, smem, sh.num_walks, &grid);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
+    return (int)err;
+  int32_t vals[tc::kDescribeInts] = {
+      sh.centers, 1, sh.centers, sh.num_walks, chunk,
+      (num_neg_ids + chunk - 1) / chunk, 1, (int32_t)smem, per_sm, grid};
+  for (int i = 0; i < tc::kDescribeInts; ++i) row[i] = vals[i];
+  return (int)cudaSuccess;
+}
+
 }  // namespace trw
 
 // The largest number of shared negatives one launch takes at this shape (the
@@ -595,11 +584,54 @@ inline LossShape make_shape(int32_t num_walks, int32_t length1,
 extern "C" int trw_walk_sgns_chunk(int32_t length1, int32_t dim, int32_t hw,
                                    int32_t num_neg_ids, int32_t elem_bytes,
                                    int32_t backward) {
+  if (elem_bytes == 2)
+    return trw::tc::chunk_size(
+        trw::make_shape(1, length1, 1, dim, hw, num_neg_ids, 1.0f),
+        num_neg_ids, backward != 0);
   return trw::chunk_size(length1, dim, hw, num_neg_ids, elem_bytes,
                          backward != 0);
 }
 
-// K5.  partial is (num_walks,) float32 scratch, loss one float32.
+// Length of K5's float32 partial-sum scratch: one per walk (float32 tables)
+// or per tile (bfloat16).
+extern "C" int64_t trw_walk_sgns_partials(int32_t num_walks, int32_t length1,
+                                          int32_t dim, int32_t hw,
+                                          int32_t num_neg_ids,
+                                          int32_t elem_bytes) {
+  if (elem_bytes == 2)
+    return trw::tc::num_partials(
+        trw::make_shape(num_walks, length1, 1, dim, hw, num_neg_ids, 1.0f),
+        num_neg_ids);
+  return num_walks;
+}
+
+// How the kernels cut this shape: trw::tc::kDescribeInts ints for each of
+// K5, K6's rows pass and K6's negatives pass (the float32 build has no
+// third kernel: zeros), as trw::tc::describe lists them.
+extern "C" int trw_walk_sgns_describe(int32_t num_walks, int32_t length1,
+                                      int32_t num_nodes, int32_t dim,
+                                      int32_t hw, int32_t num_neg_ids,
+                                      int32_t elem_bytes, int32_t* out) {
+  trw::LossShape sh = trw::make_shape(num_walks, length1, num_nodes, dim, hw,
+                                      num_neg_ids, 1.0f);
+  if (elem_bytes == 2) return trw::tc::describe(sh, num_neg_ids, out);
+  if (elem_bytes != 4) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 3 * trw::tc::kDescribeInts; ++i) out[i] = 0;
+  int err = trw::describe_one(trw::walk_sgns_loss_fwd_kernel<float>, sh,
+                              num_neg_ids, false, out);
+  if (err != 0) return err;
+  int cols = trw::acc_columns(dim);
+  return cols == 4 ? trw::describe_one(
+                         trw::walk_sgns_loss_bwd_kernel<float, 4>, sh,
+                         num_neg_ids, true, out + trw::tc::kDescribeInts)
+         : cols == 16 ? trw::describe_one(
+                            trw::walk_sgns_loss_bwd_kernel<float, 16>, sh,
+                            num_neg_ids, true, out + trw::tc::kDescribeInts)
+                      : (int)cudaErrorInvalidValue;
+}
+
+// K5.  partial is float32 scratch of trw_walk_sgns_partials floats, loss one
+// float32.
 extern "C" int trw_walk_sgns_loss_fwd(
     const int32_t* walks, int32_t num_walks, int32_t length1,
     const void* in_emb, const void* out_emb, int32_t num_nodes, int32_t dim,
@@ -612,9 +644,9 @@ extern "C" int trw_walk_sgns_loss_fwd(
                                   num_neg_ids, partial, loss,
                                   (cudaStream_t)stream);
   if (elem_bytes == 2)
-    return trw::launch_fwd<__nv_bfloat16>(sh, walks, in_emb, out_emb, neg_ids,
-                                          num_neg_ids, partial, loss,
-                                          (cudaStream_t)stream);
+    return trw::tc::launch_fwd(sh, walks, in_emb, out_emb, neg_ids,
+                               num_neg_ids, partial, loss,
+                               (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -633,8 +665,8 @@ extern "C" int trw_walk_sgns_loss_bwd(
                                           num_neg_ids, grad_loss, grad_in,
                                           grad_out, (cudaStream_t)stream);
   if (elem_bytes == 2)
-    return trw::launch_bwd_for_dim<__nv_bfloat16>(
-        sh, walks, in_emb, out_emb, neg_ids, num_neg_ids, grad_loss, grad_in,
-        grad_out, (cudaStream_t)stream);
+    return trw::tc::launch_bwd(sh, walks, in_emb, out_emb, neg_ids,
+                               num_neg_ids, grad_loss, grad_in, grad_out,
+                               (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }
