@@ -17,7 +17,11 @@ measures every kernel at the shape the main path gives it; the two loss
 kernels also with float32 tables, each with its tile plan and its device time
 by kernel.  The ``build`` line reports each loss kernel's registers and
 spills (``-Xptxas -v``) and its tensor-core instructions (``cuobjdump
--sass``), and the run fails unless the bfloat16 K5 and K6 hold some.
+-sass``), and the run fails unless the bfloat16 K5 and K6 hold some; it
+also gives the walk kernels' registers and spills, and the ``walk_geometry``
+line K2's threads per block and its resident blocks per SM.  The
+``walk_times`` line times K1 and K2 at the bench shape and with a half and a
+quarter of the walkers.
 
 Every kernel is held against its plain version on all the rows the main path
 gives it.  One thing runs at a smaller depth than the main path, to keep the
@@ -31,7 +35,8 @@ largest deviation from the plain version (0 for the integer kernels; for the
 two float kernels the limits are ``LOSS_REL_LIMIT`` and ``GRAD_REL_LIMIT``
 below), its time, the plain version's time,
 the least time the card could take (``bound_ms``) and, where one PyTorch call
-does the same work, that call's time.  Then come the card's name and power
+does the same work, that call's time; K2's rows add their time over K1's
+of the same run.  Then come the card's name and power
 limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure ends the run with a non-zero exit code; without a CUDA device the
@@ -41,6 +46,7 @@ port (``torch_random_walk_tpu_torch``), never JAX.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import re
 import statistics
@@ -233,18 +239,42 @@ def plain_uniform(graph, targets, seed, walk_length=WALK_LENGTH):
                                           targets, walk_length, key)
 
 
-def plain_biased(graph, targets, seed, mixture: bool, walk_length=WALK_LENGTH):
-    key = prng.derive_key(seed, prng.STREAM_CSR_BIASED)
+def sampler_args(graph, mixture: bool) -> tuple:
+    """(probs, consts, search_iters) of ``walk``'s mixture (graph) or
+    rejection (raw arrays) sampler at P, Q."""
     if mixture:
-        probs, consts, iters = node2vec.NO_PROBS, node2vec.mixture_consts(
-            P, Q, graph.deg_bits), graph.search_iters
-    else:
-        probs, consts, iters = (common.node2vec_accept_probs(P, Q),
-                                node2vec.NO_CONSTS,
-                                common.DEFAULT_SEARCH_ITERS)
+        return (node2vec.NO_PROBS, node2vec.mixture_consts(P, Q, graph.deg_bits),
+                graph.search_iters)
+    return (common.node2vec_accept_probs(P, Q), node2vec.NO_CONSTS,
+            common.DEFAULT_SEARCH_ITERS)
+
+
+def plain_biased(graph, targets, seed, mixture: bool, walk_length=WALK_LENGTH,
+                 walker_offset=0, max_rounds=common.DEFAULT_MAX_ROUNDS):
+    key = prng.derive_key(seed, prng.STREAM_CSR_BIASED)
     return node2vec.node2vec_walk_plain(
-        graph.row_ptr, graph.col_idx, targets, walk_length, key, 0, mixture,
-        probs, consts, iters, common.DEFAULT_MAX_ROUNDS)
+        graph.row_ptr, graph.col_idx, targets, walk_length, key, walker_offset,
+        mixture, *sampler_args(graph, mixture), max_rounds)
+
+
+def walk_calls(graph, targets) -> dict:
+    """The three walks of the main path through the public entry point:
+    uniform (K1), node2vec by the graph's mixture sampler and by the raw
+    arrays' rejection sampler (K2)."""
+    return {
+        "uniform": lambda: tt.walk(graph, target_nodes=targets,
+                                   walk_length=WALK_LENGTH, seed=WALK_SEED),
+        "mixture": lambda: tt.walk(graph, target_nodes=targets, p=P, q=Q,
+                                   walk_length=WALK_LENGTH, seed=WALK_SEED),
+        "rejection": lambda: tt.walk(graph.row_ptr, graph.col_idx, targets,
+                                     p=P, q=Q, walk_length=WALK_LENGTH,
+                                     seed=WALK_SEED),
+    }
+
+
+def walk_digest(walks) -> str:
+    """A fingerprint of a walk tensor, to compare runs and builds."""
+    return hashlib.sha256(walks.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
 def plain_windows(walks, num_nodes, seed):
@@ -312,27 +342,37 @@ def uniform_bound(num_walkers: int, walk_length: int):
                  steps * (THREEFRY_OPS + 8))
 
 
-def biased_bound(graph, walks, rounds: int, mixture: bool):
-    """Least bytes and operations for the rounds this run's data needed.
-    Bytes, each word counted once however often the kernel reads it again:
-    per step the row_ptr words of v and t and the probed words of one binary
-    search over t's row (the same row for every round of the step) and, for
-    the mixture sampler, of one over v's row (its two searches touch the same
-    words); per round one candidate word; the walks written, the targets read.
-    Operations are counted per round, as the kernel must do them.  Search
-    depth is taken as ceil(log2(deg + 1)) of the rows actually visited."""
+def biased_bound(graph, walks, rounds, searches, mixture: bool):
+    """Least bytes and operations for what this run's data needed, from the
+    plain version's per-step ``rounds`` and ``searches``.  Bytes, each word
+    counted once per step however often the kernel reads it again: the two
+    row_ptr words of the row of each walk position 0..L-1 (t's row at a step
+    is v's of the step before), one candidate word for the first hop and one
+    per later round (the mixture's rounds that draw the point mass at t read
+    none, a few per cent of them), the probed words of one binary search over
+    t's row at each step where some round needs it (``searches`` > 0) and,
+    for the mixture, of the lower-bound search for t in v's row at every
+    step; the targets read and the walks written.  Operations per round,
+    the searches per searching round.  Search depth is taken as
+    ceil(log2(deg + 1)) of the rows actually visited."""
     deg = (graph.row_ptr[1:] - graph.row_ptr[:-1]).to(torch.float32)
     depth = torch.log2(deg + 1).ceil()
-    t = walks[:, :-2].to(torch.int64)
-    v = walks[:, 1:-1].to(torch.int64)
-    steps = t.numel()
-    search_t = float(depth[t].sum(dtype=torch.float64))
-    search_v = float(depth[v].sum(dtype=torch.float64)) if mixture else 0.0
-    words = (4 * steps + search_t + search_v + rounds + walks.numel()
-             + walks.shape[0])
-    ops = (rounds * (THREEFRY_OPS + 12 + SEARCH_TRIP_OPS * search_t / steps)
-           + SEARCH_TRIP_OPS * 2 * search_v)
-    return bound(4 * words, ops), search_t / steps
+    depth_t = depth[walks[:, :-2].to(torch.int64)]
+    num_walkers, length1 = walks.shape
+    drawn = float(rounds.sum(dtype=torch.float64))
+    search_t_words = float((depth_t * (searches > 0)).sum(dtype=torch.float64))
+    search_t_trips = float((depth_t * searches).sum(dtype=torch.float64))
+    search_v = (float(depth[walks[:, 1:-1].to(torch.int64)].sum(
+        dtype=torch.float64)) if mixture else 0.0)
+    words = (2 * num_walkers * (length1 - 1) + num_walkers + drawn
+             + search_t_words + search_v + walks.numel() + num_walkers)
+    ops = (drawn * (THREEFRY_OPS + 12)
+           + SEARCH_TRIP_OPS * (search_t_trips + search_v))
+    return bound(4 * words, ops), {
+        "words": words, "search_t_words": search_t_words,
+        "searched_step_share": float((searches > 0).float().mean()),
+        "searching_round_share": float(searches.sum(dtype=torch.float64))
+        / drawn}
 
 
 def windows_bound(num_walks: int, length: int):
@@ -397,19 +437,28 @@ TENSOR_CORE_FUNCTIONS = ("trw_sgns_loss_fwd_bf16",
                          "trw_sgns_loss_bwd_neg_bf16")
 
 
-def sgns_function(name: str) -> str | None:
-    for key in SGNS_FUNCTIONS:
+# The walk kernels' entry functions (K2's two instantiations by template
+# flag, and K1 beside them for its registers).
+WALK_FUNCTIONS = {
+    "node2vec_walk_csr_kernelILb1E": "K2 mixture",
+    "node2vec_walk_csr_kernelILb0E": "K2 rejection",
+    "uniform_walk_csr_kernel": "K1",
+}
+
+
+def function_key(name: str, functions: dict) -> str | None:
+    for key in functions:
         if key in name:
             return key
     return None
 
 
-def ptxas_report(log: str) -> dict:
-    """Registers, spill bytes and static shared memory of each loss kernel
-    from the ``-Xptxas -v`` report of the build."""
+def ptxas_report(log: str, functions: dict) -> dict:
+    """Registers, spill bytes and static shared memory of each function of
+    ``functions`` from the ``-Xptxas -v`` report of the build."""
     found = {}
     for block in log.split("Compiling entry function '")[1:]:
-        key = sgns_function(block.split("'", 1)[0])
+        key = function_key(block.split("'", 1)[0], functions)
         if key is None:
             continue
         regs = re.search(r"Used (\d+) registers", block)
@@ -432,7 +481,7 @@ def sass_report(lib) -> dict:
                           capture_output=True, text=True, timeout=120).stdout
     found = {}
     for block in re.split(r"\n\s*Function : ", sass)[1:]:
-        key = sgns_function(block.split("\n", 1)[0])
+        key = function_key(block.split("\n", 1)[0], SGNS_FUNCTIONS)
         if key is None:
             continue
         ops = Counter(
@@ -453,16 +502,30 @@ def phase_build() -> None:
     lib = build.build_library(verbose=True)
     bindings.library()
     seconds = time.perf_counter() - t0
-    ptxas, sass = ptxas_report(build.build_log()), sass_report(lib)
+    log = build.build_log()
+    ptxas, sass = ptxas_report(log, SGNS_FUNCTIONS), sass_report(lib)
     kernels = {SGNS_FUNCTIONS[k]: {**ptxas.get(k, {}), **sass.get(k, {})}
                for k in SGNS_FUNCTIONS}
+    walk_ptxas = ptxas_report(log, WALK_FUNCTIONS)
     emit("build", seconds=round(seconds, 2), sources=list(build.SOURCES),
-         walk_sgns_loss_kernels=kernels)
+         walk_sgns_loss_kernels=kernels,
+         walk_kernels={WALK_FUNCTIONS[k]: v for k, v in walk_ptxas.items()})
     for key in TENSOR_CORE_FUNCTIONS:
         require(sass.get(key, {}).get("tensor_core_instructions", 0) > 0,
                 f"{SGNS_FUNCTIONS[key]}: no HMMA/HGMMA instruction in its SASS")
     require(all(ptxas.get(k, {}).get("registers") for k in SGNS_FUNCTIONS),
             f"ptxas reported no registers for a loss kernel: {ptxas}")
+    require(all(walk_ptxas.get(k, {}).get("registers")
+                for k in WALK_FUNCTIONS),
+            f"ptxas reported no registers for a walk kernel: {walk_ptxas}")
+    # K2's launch geometry, and how many blocks of 64, 128 and 256 threads
+    # one SM holds at its register count.
+    emit("walk_geometry", kernel="node2vec_walk_csr", geometry={
+        sampler: {"launch": bindings.node2vec_walk_geometry(mixture),
+                  "blocks_per_sm_by_threads": {
+                      n: bindings.node2vec_walk_geometry(mixture, n)[
+                          "blocks_per_sm"] for n in (64, 128, 256)}}
+        for sampler, mixture in (("mixture", True), ("rejection", False))})
 
 
 def phase_small_checks() -> None:
@@ -486,6 +549,19 @@ def phase_small_checks() -> None:
                     walk_length=20, seed=WALK_SEED),
             plain_biased(graph, targets, WALK_SEED, False, 20).walks),
     }
+    # K2 at its loop's edges, walks and exhausted flags: a budget of 1 and 2
+    # rounds (steps that spend it keep v), a walk of 2 steps, an offset.
+    for mixture, name in ((True, "node2vec_walk_csr_mixture"),
+                          (False, "node2vec_walk_csr_rejection")):
+        for walk_length, max_rounds in ((20, 1), (20, 2), (2, 4096)):
+            got = node2vec.biased_walk(
+                graph.row_ptr, graph.col_idx, targets, walk_length, WALK_SEED,
+                5, mixture, *sampler_args(graph, mixture), max_rounds)
+            want = plain_biased(graph, targets, WALK_SEED, mixture,
+                                walk_length, 5, max_rounds)
+            errs[name] = max(errs[name], max_abs_err(
+                [got.walks, got.exhausted.to(torch.int32)],
+                [want.walks, want.exhausted.to(torch.int32)]))
     walks = tt.walk(graph, target_nodes=targets, walk_length=20, seed=5)
     errs["to_windows"] = max_abs_err(
         tt.to_windows(walks, WINDOW, graph.num_nodes, seed=WINDOW_SEED),
@@ -540,25 +616,43 @@ def phase_graph():
     return graph
 
 
+def bench_targets(dev):
+    return (torch.arange(NUM_WALKERS, device=dev) % NUM_NODES).to(torch.int32)
+
+
+def phase_walk_times(graph) -> dict:
+    """K1 and K2 alone through the public entry points, each timed once at
+    the bench shape and with a half and a quarter of the walkers; the times
+    at the bench shape are the ``ms`` of the kernels' rows.  All walkers of
+    the bench shape are resident at once, so a time that halves with them is
+    bound by the work the card does, one that stays by each walker's own
+    chain.  Importing this script and calling ``phase_build()`` and then this
+    on ``phase_graph()`` is the quick check of a change to a walk kernel."""
+    targets = bench_targets(graph.device)
+    by_walkers = {}
+    for part in (1, 2, 4):
+        calls = walk_calls(graph, targets[: NUM_WALKERS // part])
+        by_walkers[NUM_WALKERS // part] = {
+            name: time_ms(fn, iters=9) for name, fn in calls.items()}
+    emit("walk_times", ms_by_walkers=by_walkers,
+         timing="CUDA events, 1 warm-up, median of 9")
+    return by_walkers[NUM_WALKERS]
+
+
 def phase_main_path(graph):
     """The main path once through the public entry points, with the launch
     counts set to 0 just before and read just after."""
     dev = graph.device
-    targets = (torch.arange(NUM_WALKERS, device=dev) % NUM_NODES).to(
-        torch.int32)
+    targets = bench_targets(dev)
     pgraph = tt.PartitionedCSR.from_csr(graph, NUM_SHARDS)
     torch.cuda.synchronize()
 
+    calls = walk_calls(graph, targets)
     bindings.reset_launch_counts()
     out = {}
-    out["uniform"], t_u = wall_ms(lambda: tt.walk(
-        graph, target_nodes=targets, walk_length=WALK_LENGTH, seed=WALK_SEED))
-    out["mixture"], t_m = wall_ms(lambda: tt.walk(
-        graph, target_nodes=targets, p=P, q=Q, walk_length=WALK_LENGTH,
-        seed=WALK_SEED))
-    out["rejection"], t_r = wall_ms(lambda: tt.walk(
-        graph.row_ptr, graph.col_idx, targets, p=P, q=Q,
-        walk_length=WALK_LENGTH, seed=WALK_SEED))
+    out["uniform"], t_u = wall_ms(calls["uniform"])
+    out["mixture"], t_m = wall_ms(calls["mixture"])
+    out["rejection"], t_r = wall_ms(calls["rejection"])
     out["windows"], t_w = wall_ms(lambda: tt.to_windows(
         out["uniform"], WINDOW, NUM_NODES, seed=WINDOW_SEED))
     (out["routed"], info), t_x = wall_ms(lambda: tt.walk_partitioned_routed(
@@ -598,14 +692,17 @@ def phase_main_path(graph):
             "routed: positions missing")
     require(max_abs_err(out["routed"], out["uniform"][:ROUTED_WALKERS]) == 0,
             "routed walks differ from the single-device kernel's")
-    emit("main_path_checks", ok=True, routed=info)
+    emit("main_path_checks", ok=True, routed=info, walk_digests={
+        name: walk_digest(out[name])
+        for name in ("uniform", "mixture", "rejection")})
     return targets, pgraph, out, launches, info, t_x
 
 
 def phase_kernels(graph, targets, pgraph, out, counts, routed_info,
-                  routed_ms):
-    """Every kernel at the main path's shape: time, plain version on the same
-    inputs (time and deviation), bound, and library call where one exists."""
+                  routed_ms, walk_ms):
+    """Every kernel at the main path's shape: time (the walks' from
+    ``phase_walk_times``), plain version on the same inputs (time and
+    deviation), bound, and library call where one exists."""
     rows = []
 
     def row(name, ms, plain_ms, err, bound_pair, library_ms, launches):
@@ -617,32 +714,37 @@ def phase_kernels(graph, targets, pgraph, out, counts, routed_info,
             "bound_by": bound_pair[1], "library_ms": library_ms})
 
     plain, plain_ms = wall_ms(lambda: plain_uniform(graph, targets, WALK_SEED))
-    row("uniform_walk_csr",
-        time_ms(lambda: tt.walk(graph, target_nodes=targets,
-                                walk_length=WALK_LENGTH, seed=WALK_SEED)),
-        plain_ms, max_abs_err(out["uniform"], plain),
+    k1_ms = walk_ms["uniform"]
+    row("uniform_walk_csr", k1_ms, plain_ms, max_abs_err(out["uniform"], plain),
         uniform_bound(NUM_WALKERS, WALK_LENGTH), None,
         counts["uniform_walk_csr"])
     del plain
 
-    for name, key, mixture, call in (
-            ("node2vec_walk_csr_mixture", "mixture", True, lambda: tt.walk(
-                graph, target_nodes=targets, p=P, q=Q,
-                walk_length=WALK_LENGTH, seed=WALK_SEED)),
-            ("node2vec_walk_csr_rejection", "rejection", False,
-             lambda: tt.walk(graph.row_ptr, graph.col_idx, targets, p=P, q=Q,
-                             walk_length=WALK_LENGTH, seed=WALK_SEED))):
+    for name, key, mixture in (
+            ("node2vec_walk_csr_mixture", "mixture", True),
+            ("node2vec_walk_csr_rejection", "rejection", False)):
         plain, plain_ms = wall_ms(lambda: plain_biased(
             graph, targets, WALK_SEED, mixture))
         require(not bool(plain.exhausted.any()), f"{name}: budget ran out")
-        bound_pair, mean_depth = biased_bound(graph, out[key], plain.rounds,
-                                              mixture)
-        row(name, time_ms(call), plain_ms,
-            max_abs_err(out[key], plain.walks), bound_pair, None,
-            counts[name])
-        emit("rounds", kernel=name, walker_rounds=plain.rounds,
-             rounds_per_step=plain.rounds / (NUM_WALKERS * (WALK_LENGTH - 1)),
-             mean_search_depth_of_t=mean_depth)
+        bound_pair, counted = biased_bound(graph, out[key], plain.rounds,
+                                           plain.searches, mixture)
+        ms = walk_ms[key]
+        row(name, ms, plain_ms, max_abs_err(out[key], plain.walks), bound_pair,
+            None, counts[name])
+        # K1 is unchanged, so K2's time over K1's of the same run compares
+        # across cards and runs.
+        rows[-1]["ms_over_uniform_walk_csr"] = ms / k1_ms
+        drawn = int(plain.rounds.sum(dtype=torch.int64))
+        # A lane that draws rounds r and r+1 together (r even) draws one
+        # round more than needed at each step that accepts at an even round.
+        paired_extra = int(((plain.rounds % 2 == 1)
+                            & (plain.rounds < common.DEFAULT_MAX_ROUNDS))
+                           .sum(dtype=torch.int64))
+        emit("rounds", kernel=name, walker_rounds=drawn,
+             rounds_per_step=drawn / plain.rounds.numel(),
+             two_rounds_per_iteration_extra_rounds=paired_extra,
+             two_rounds_per_iteration_extra_share=paired_extra / drawn,
+             bound_counts=counted)
         del plain
 
     walks = out["uniform"]
@@ -696,7 +798,7 @@ def phase_kernels(graph, targets, pgraph, out, counts, routed_info,
 
     steps = NUM_WALKERS * WALK_LENGTH
     emit("rates", walkers=NUM_WALKERS, walk_length=WALK_LENGTH,
-         timing="CUDA events, 1 warm-up, median of 5",
+         timing="CUDA events, 1 warm-up, median of 9 (the walk_times line)",
          node_steps_per_s={r["name"]: steps / (r["ms"] / 1e3)
                            for r in rows[:3]})
 
@@ -955,12 +1057,13 @@ def main() -> int:
     graph = phase_graph()
     (targets, pgraph, out, launches, routed_info,
      routed_ms) = phase_main_path(graph)
+    walk_ms = phase_walk_times(graph)
     sampling_peak = torch.cuda.max_memory_allocated()
     train_launches = phase_train(graph)
     for name in launches:  # both runs of the main path, added up
         launches[name] += train_launches[name]
     rows = phase_kernels(graph, targets, pgraph, out, launches, routed_info,
-                         routed_ms)
+                         routed_ms, walk_ms)
     for r in rows:
         require(r["max_abs_err"] == 0, f"{r['name']} != its plain version at "
                 "the main path's shape")

@@ -16,6 +16,7 @@ from torch_random_walk_tpu.ops import fatwalk as jfatwalk
 from torch_random_walk_tpu.ops import node2vec as jn2v
 from torch_random_walk_tpu.ops.uniform import uniform_walk_csr as j_uniform
 from torch_random_walk_tpu_torch import convert
+from torch_random_walk_tpu_torch.ops import common as tcommon
 from torch_random_walk_tpu_torch.ops import node2vec as tn2v
 from torch_random_walk_tpu_torch.ops.uniform import uniform_walk_csr as t_uniform
 from torch_port_util import eq, need_cuda, power_law_edges
@@ -171,6 +172,45 @@ def test_uniform_walker_offset_chunks_equal_one_launch(graphs, targets):
     eq(torch.cat(parts), want)
 
 
+@pytest.mark.parametrize("mixture", [False, True],
+                         ids=["rejection", "mixture"])
+def test_node2vec_walker_offset_chunks_equal_one_call(graphs, targets,
+                                                      mixture):
+    """A walker's draws are keyed by (walker id, step, round) alone, which
+    lets the kernel run each walker at its own pace: chunks of the batch
+    with their walker offsets give the walks of one call, and each chunk
+    equals the JAX function on the same chunk."""
+    jg, tg = graphs
+    if mixture:
+        def jax_walk(t, offset):
+            return jn2v.node2vec_walk_csr_mixture(
+                jg.row_ptr, jg.col_idx, jnp.asarray(t), 0.5, 2.0, L, 11,
+                jg.layout.deg_bits, walker_offset=offset,
+                search_iters=jg.search_iters)
+
+        def torch_walk(t, offset):
+            return tn2v.node2vec_walk_csr_mixture(
+                tg.row_ptr, tg.col_idx, t, 0.5, 2.0, L, 11, tg.deg_bits,
+                walker_offset=offset, search_iters=tg.search_iters,
+                device="cpu")
+    else:
+        def jax_walk(t, offset):
+            return jn2v.node2vec_walk_csr(jg.row_ptr, jg.col_idx,
+                                          jnp.asarray(t), 0.5, 2.0, L, 11,
+                                          walker_offset=offset)
+
+        def torch_walk(t, offset):
+            return tn2v.node2vec_walk_csr(tg.row_ptr, tg.col_idx, t, 0.5, 2.0,
+                                          L, 11, walker_offset=offset,
+                                          device="cpu")
+    whole = torch_walk(targets, 7)
+    half = B // 2
+    for lo in (0, half):
+        part = torch_walk(targets[lo:lo + half], 7 + lo)
+        eq(part, whole[lo:lo + half].numpy())
+        eq(part, jax_walk(targets[lo:lo + half], 7 + lo))
+
+
 @pytest.mark.parametrize("p,q", [(0.5, 2.0), (4.0, 0.25)])
 def test_rejection_walk_equals_jax(graphs, targets, p, q):
     jg, tg = graphs
@@ -218,6 +258,34 @@ def test_early_exit_search_equals_fixed_trip_count(graphs, targets):
     b = tn2v.node2vec_walk_csr(tg.row_ptr, tg.col_idx, targets, 0.5, 2.0, L,
                                11, search_iters=32, device="cpu")
     eq(a, b.numpy())
+
+
+@pytest.mark.parametrize("mixture", [False, True],
+                         ids=["rejection", "mixture"])
+def test_plain_node2vec_counts_rounds_and_searches(graphs, targets, mixture):
+    """The plain version's per-step counts, which size K2's bound: every
+    step draws at least one round, a search only in a round it draws, and
+    none where the two thresholds are equal (p = q = 1 accepts every
+    candidate at round 0)."""
+    _, tg = graphs
+
+    def counts(p, q):
+        if mixture:
+            args = (tn2v.NO_PROBS, tn2v.mixture_consts(p, q, tg.deg_bits))
+        else:
+            args = (tcommon.node2vec_accept_probs(p, q), tn2v.NO_CONSTS)
+        return tn2v.biased_walk(tg.row_ptr, tg.col_idx, targets, L, 11, 0,
+                                mixture, *args, tg.search_iters,
+                                tcommon.DEFAULT_MAX_ROUNDS, device="cpu")
+
+    biased = counts(0.5, 2.0)
+    assert tuple(biased.rounds.shape) == tuple(biased.searches.shape) == (
+        len(targets), L - 1)
+    assert bool((biased.rounds >= 1).all())
+    assert bool((biased.searches <= biased.rounds).all())
+    assert 0 < int(biased.searches.sum()) < int(biased.rounds.sum())
+    flat = counts(1.0, 1.0)
+    assert bool((flat.rounds == 1).all()) and not bool(flat.searches.any())
 
 
 def test_walk_length_one(graphs, targets):
@@ -318,3 +386,70 @@ def test_walk_kernels_equal_plain_versions(case):
             on_card = out
     assert on_card.is_cuda
     eq(on_card, out.numpy())
+
+
+def _multigraph_hub():
+    """A ring of 50 nodes both ways, with node 0's edge to 1 repeated 70 000
+    times and node 1's edge to 0 six times: a walk 0 -> 1 -> ? sees t = 0
+    seven times in v's row (past the kernel's forward scan), and 1 -> 0 -> ?
+    sees t = 1 70 001 times (past the mixture's 16-bit clamp)."""
+    ring = np.arange(50)
+    src = np.concatenate([ring, (ring + 1) % 50, np.zeros(70_000, np.int64),
+                          np.ones(6, np.int64)])
+    dst = np.concatenate([(ring + 1) % 50, ring, np.ones(70_000, np.int64),
+                          np.zeros(6, np.int64)])
+    return tt.CSRGraph.from_edges(src, dst, num_nodes=50, device="cpu")
+
+
+# case: (graph, walk_length, max_rounds, walker_offset, search_iters; None
+# is the sampler's own)
+K2_EDGE_CASES = {
+    "budget_1": ("power_law", 20, 1, 0, None),
+    "budget_2": ("power_law", 20, 2, 0, None),
+    "length_1": ("power_law", 1, tcommon.DEFAULT_MAX_ROUNDS, 0, None),
+    "length_2": ("power_law", 2, tcommon.DEFAULT_MAX_ROUNDS, 0, None),
+    "zero_edges": ("zero_edges", 5, tcommon.DEFAULT_MAX_ROUNDS, 0, None),
+    "multigraph_hub": ("multigraph_hub", 20, tcommon.DEFAULT_MAX_ROUNDS, 0,
+                       None),
+    "walker_offset": ("power_law", 20, tcommon.DEFAULT_MAX_ROUNDS, 100_003,
+                      None),
+    "search_cut_short": ("multigraph_hub", 20, tcommon.DEFAULT_MAX_ROUNDS, 0,
+                         2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mixture", [False, True],
+                         ids=["rejection", "mixture"])
+@pytest.mark.parametrize("case", list(K2_EDGE_CASES))
+def test_node2vec_kernel_edges_equal_plain_version(case, mixture):
+    """K2 against its plain version, walks and exhausted flags, tolerance 0,
+    where the free-running loop has its edges: the round budget spent at a
+    step (the step-boundary branch keeps v), walks of 1 and 2 steps, no edges
+    at all, a multiplicity beyond the forward scan and the 16-bit clamp, a
+    walker offset, and searches cut short by a small ``search_iters``."""
+    need_cuda()
+    kind, walk_length, max_rounds, offset, iters = K2_EDGE_CASES[case]
+    if kind == "power_law":
+        g = tt.synthetic_power_law(3000, 8, seed=2, device="cpu")
+    elif kind == "zero_edges":
+        g = tt.CSRGraph.from_arrays(np.zeros(9, np.int64),
+                                    np.zeros(0, np.int64), device="cpu")
+    else:
+        g = _multigraph_hub()
+    t = np.random.default_rng(4).integers(0, g.num_nodes, 2048)
+    t[:512] = np.arange(512) % 2  # walks from the hub's ends
+    if mixture:
+        sampler = (tn2v.NO_PROBS, tn2v.mixture_consts(0.5, 2.0, g.deg_bits),
+                   iters or g.search_iters)
+    else:
+        sampler = (tcommon.node2vec_accept_probs(0.5, 2.0), tn2v.NO_CONSTS,
+                   iters or tcommon.DEFAULT_SEARCH_ITERS)
+    got, want = (tn2v.biased_walk(g.row_ptr, g.col_idx, t, walk_length, 6,
+                                  offset, mixture, *sampler, max_rounds,
+                                  device=dev) for dev in (None, "cpu"))
+    assert got.walks.is_cuda
+    eq(got.walks, want.walks.numpy())
+    eq(got.exhausted, want.exhausted.numpy())
+    if max_rounds <= 2:
+        assert bool(want.exhausted.any())  # the budget did run out

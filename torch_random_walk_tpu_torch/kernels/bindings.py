@@ -49,6 +49,7 @@ def library(verbose: bool = False) -> ctypes.CDLL:
             _PTR, _PTR, _I32, _I64, _PTR, _PTR, _PTR, _I32, _I32, _U32, _U32,
             _U32, _I32, _F32, _F32, _F32, _U32, _U32, _U32, _U32, _U32, _I32,
             _I32, _PTR]
+        lib.trw_node2vec_walk_geometry.argtypes = [_I32, _I32, _PTR]
         lib.trw_to_windows.argtypes = [
             _PTR, _I64, _I32, _I32, _U32, _U32, _U32, _PTR, _PTR, _PTR, _PTR]
         lib.trw_all_to_all_chunks.argtypes = [
@@ -64,7 +65,8 @@ def library(verbose: bool = False) -> ctypes.CDLL:
             _PTR, _I32, _I32, _PTR, _PTR, _I32, _I32, _I32, _PTR, _I32, _I32,
             _F32, _PTR, _PTR, _PTR, _PTR]
         for fn in (lib.trw_uniform_walk_csr, lib.trw_node2vec_walk_csr,
-                   lib.trw_to_windows, lib.trw_all_to_all_chunks,
+                   lib.trw_node2vec_walk_geometry, lib.trw_to_windows,
+                   lib.trw_all_to_all_chunks,
                    lib.trw_walk_sgns_chunk, lib.trw_walk_sgns_describe,
                    lib.trw_walk_sgns_loss_fwd, lib.trw_walk_sgns_loss_bwd):
             fn.restype = ctypes.c_int
@@ -149,6 +151,16 @@ def node2vec_walk_csr(row_ptr, col_idx, targets, walk_length: int,
             walker_offset & 0xFFFFFFFF, int(mixture), *probs, *consts,
             search_iters, max_rounds)
     return walks, exhausted.bool()
+
+
+def node2vec_walk_geometry(mixture: bool, threads: int = 0) -> dict:
+    """K2's launch geometry on the current card: ``threads`` per block (the
+    launch's own when 0) and how many such blocks one SM holds at once."""
+    out = (ctypes.c_int32 * 2)()
+    rc = library().trw_node2vec_walk_geometry(int(mixture), int(threads), out)
+    if rc != 0:
+        raise RuntimeError(f"node2vec_walk_geometry: CUDA error code {rc}")
+    return {"threads": out[0], "blocks_per_sm": out[1]}
 
 
 def to_windows(walks, window_size: int, num_nodes: int, key: tuple[int, int]):

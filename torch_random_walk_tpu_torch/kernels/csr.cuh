@@ -61,12 +61,26 @@ __device__ __forceinline__ int64_t bound(const Csr& g, int64_t lo, int64_t hi,
   return lo;
 }
 
-// Is cand an out-neighbour of t?
-__device__ __forceinline__ bool is_neighbor(const Csr& g, int32_t cand,
-                                            int32_t t, int iters) {
-  Row r = row_of(g, t);
-  int64_t lo = bound(g, r.start, r.end, cand, false, iters);
-  return lo < r.end && col_at(g, lo) == cand;
+// Is cand an out-neighbour of t, whose row `rt` the caller holds?  The search
+// is bound(g, rt.start, rt.end, cand, false, iters), answered as
+// ops/common.py::is_neighbor_csr answers it: lo < end && col[lo] == cand.
+// Where the search converges, the last probe that moved hi read col[lo], so
+// no further load is needed; only a search cut short by `iters` reads it.
+__device__ __forceinline__ bool is_neighbor(const Csr& g, Row rt, int32_t cand,
+                                            int iters) {
+  int64_t lo = rt.start, hi = rt.end;
+  bool hit = false;
+  for (int it = 0; it < iters && lo < hi; ++it) {
+    int64_t mid = (lo + hi) >> 1;
+    int32_t val = col_at(g, mid);
+    if (val < cand) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+      hit = val == cand;
+    }
+  }
+  return lo < hi ? col_at(g, lo) == cand : hit;
 }
 
 }  // namespace trw

@@ -1,5 +1,6 @@
-// K2: node2vec p/q-biased CSR random walks, one thread per walker, each
-// running its own round loop.  One kernel, a template flag for the sampler.
+// K2: node2vec p/q-biased CSR random walks, one thread per walker, each lane
+// running free through its own walk.  One kernel, a template flag for the
+// sampler.
 //
 // Replaces two XLA hot loops of the JAX package, neither of them Pallas:
 //   MIXTURE == false  ops/node2vec.py::node2vec_walk_csr (rejection sampler,
@@ -12,12 +13,42 @@
 // (key, wid, step, round), so a private loop that stops at the first accepted
 // round gives the same walk.
 //
-// Bound on this card: bytes, and latency before bytes.  A round is a chain of
-// dependent random reads: the candidate's col word, then a binary search over
-// t's sorted row.  Trip counts differ per walker, so warps diverge; the
-// design accepts that and keeps many independent walkers in flight.  The
-// multiplicity of t in v's row (mixture) is found once per step, not once per
-// round.
+// Bound on this card: chains of dependent random reads, and the load slots
+// they take.  A round reads a candidate's col word, then, for some draws,
+// binary-searches t's sorted row; a step boundary reads the new v's row
+// bounds and, for the mixture, searches v's row for t.  A warp waits for the
+// longest chain among its lanes.  At the bench shape (131 072 walkers, all
+// resident) a quarter of the walkers still take two thirds of the time: the
+// chains, not the bytes, set it (chip_smoke.py's walk_times line).
+//
+// What the design does about it:
+// - Free-running lanes (the structure of ops/fatwalk.py::_node2vec_freerun):
+//   one loop per lane, one round (s, rnd) of the lane's own step per
+//   iteration.  The lane that accepts (or spends its budget) does the step's
+//   boundary work in the same iteration: stores out[s], shifts t <- v <- sel,
+//   loads the new v's row bounds and, for the mixture, the multiplicity of t
+//   in that row.  A warp runs the largest total of rounds over its lanes, not
+//   the sum over steps of each step's largest (rounds per step are geometric:
+//   3.92 for rejection, 1.97 for the mixture at the bench shape).
+// - No search where the draw decides alone: with thresholds {x1, x2} for a
+//   neighbour of t or not, a draw below min(x1, x2) accepts and one at or
+//   above max(x1, x2) rejects either way (the acceptance band of
+//   _node2vec_freerun).  At p = 0.5, q = 2 that skips three quarters of the
+//   rejection sampler's searches and half of the mixture's.
+// - t's row bounds are v's of the step before, carried in registers, and the
+//   search answers from its last probe (csr.cuh::is_neighbor).
+// - The multiplicity of t in v's row is one lower-bound search and a scan of
+//   at most kScan words; a second search runs only past that.
+// - The walk is stored a whole 32-byte sector at a time from eight registers
+//   (RowWriter), which cut both samplers' time by a quarter on the H100.
+//   The likely cause (no counters on the card to show it): single 4-byte
+//   stores leave the 42 MB of walks in partly written sectors, which L2
+//   must fill from device memory when it evicts them.
+// Measured and not kept (PERF.md): 64 or 256 threads a block (no
+// change), staging 16 bytes in shared memory or 64 bytes in registers
+// (slower than 32), one load per lane per iteration as a state machine
+// (slower: the warp issues every phase's code each iteration), two rejection
+// rounds per iteration (no change), candidate reads past L1 (no change).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -25,6 +56,9 @@
 #include "csr.cuh"
 
 namespace trw {
+
+constexpr int kThreads = 128;
+constexpr int64_t kScan = 4;
 
 struct BiasedParams {
   // rejection: float32 acceptance thresholds (ops/common.py::
@@ -34,6 +68,72 @@ struct BiasedParams {
   uint32_t mi, ei, wt_i, w1_i, w2_i;
   int32_t search_iters;
   int32_t max_rounds;
+};
+
+// The mixture's integer masses of one step: the point mass at t and the
+// row's total.
+struct StepMass {
+  uint32_t spike, total;
+};
+
+// Multiplicity of t in v's row, as ops/node2vec.py::_count_in_row gives it
+// (upper minus lower bound, both by `iters` halvings), clamped to 16 bits.
+__device__ __forceinline__ uint32_t multiplicity(const Csr& g, Row rv,
+                                                 int32_t t, int iters) {
+  int64_t lo = bound(g, rv.start, rv.end, t, false, iters);
+  uint32_t deg = rv.deg();
+  bool converged = iters >= 32 || (iters >= 0 && (deg >> iters) == 0);
+  int64_t hi;
+  if (converged) {
+    // lo is t's first index: count the run forward, and search on only
+    // past kScan (upper bounds of [lo, end) and of the row are one index).
+    hi = lo;
+    int64_t stop = min(rv.end, lo + kScan);
+    while (hi < stop && col_at(g, hi) == t) ++hi;
+    if (hi == lo + kScan && hi < rv.end && col_at(g, hi) == t)
+      hi = bound(g, hi, rv.end, t, true, iters);
+  } else {
+    hi = bound(g, rv.start, rv.end, t, true, iters);
+  }
+  return min((uint32_t)(hi - lo), 0xFFFFu);
+}
+
+template <bool MIXTURE>
+__device__ __forceinline__ StepMass step_mass(const Csr& g, Row rv, int32_t t,
+                                              const BiasedParams& prm) {
+  if (!MIXTURE) return {0, 0};
+  uint32_t spike = prm.ei * multiplicity(g, rv, t, prm.search_iters);
+  return {spike, prm.mi * rv.deg() + spike};
+}
+
+// A lane's walk positions, held in registers and stored a 32-byte sector at a
+// time where the row's alignment allows (scalar stores at its ragged ends):
+// a sector written whole needs no fill from device memory when L2 evicts it.
+struct RowWriter {
+  int32_t* out;
+  int32_t align;  // word offset of out[0] within its sector
+  int32_t last;
+  int32_t r[8];   // r[7] is the newest position
+  __device__ __forceinline__ void put(int32_t s, int32_t val) {
+#pragma unroll
+    for (int k = 0; k < 7; ++k) r[k] = r[k + 1];
+    r[7] = val;
+    int32_t slot = (align + s) & 7;
+    if (slot == 7 || s == last) {
+      int32_t first = s - slot;
+      if (slot == 7 && first >= 0) {
+        int4* dst = reinterpret_cast<int4*>(out + first);
+        dst[0] = make_int4(r[0], r[1], r[2], r[3]);
+        dst[1] = make_int4(r[4], r[5], r[6], r[7]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          int32_t p = s - 7 + k;
+          if (p >= max(first, 0)) out[p] = r[k];
+        }
+      }
+    }
+  }
 };
 
 template <bool MIXTURE>
@@ -47,84 +147,91 @@ __global__ void node2vec_walk_csr_kernel(Csr g, const int32_t* __restrict__ targ
   if (tid >= num_walkers) return;
   uint32_t wid = (uint32_t)tid + walker_offset;
   int32_t* out = walks + tid * ((int64_t)walk_length + 1);
-  const bool has_edges = g.num_edges > 0;
 
+  RowWriter w{out, (int32_t)(((uintptr_t)out >> 2) & 7), walk_length, {}};
   int32_t t = targets[tid];
-  out[0] = t;
+  if (g.num_edges == 0) {  // no edges: every walker stays in place
+    for (int32_t s = 0; s <= walk_length; ++s) out[s] = t;
+    exhausted[tid] = 0;
+    return;
+  }
+  w.put(0, t);
   // First hop: a plain uniform draw at (step 1, round 0).
+  Row rt = row_of(g, t);
   int32_t v = t;
-  if (has_edges) {
+  {
     uint32_t bits = threefry2x32(k0, k1, wid, step_round_counter(1, 0)).x0;
+    uint32_t deg = rt.deg();
     if (MIXTURE) {
-      Row r = row_of(g, t);
-      uint32_t deg = r.deg();
       uint32_t pos = randint(bits, max(prm.mi * deg, 1u));
-      if (deg > 0) v = col_at(g, r.start + (int64_t)(int32_t)(pos / prm.mi));
-    } else {
-      v = sample_neighbor(g, t, bits);
+      if (deg > 0) v = col_at(g, rt.start + (int64_t)(int32_t)(pos / prm.mi));
+    } else if (deg > 0) {
+      v = col_at(g, rt.start + (int64_t)randint(bits, deg));
     }
   }
-  out[1] = v;  // walk_length >= 1 is checked by the wrapper
+  w.put(1, v);  // walk_length >= 1 is checked by the wrapper
 
+  // Thresholds for a candidate other than t: neighbour of t or not.
+  const float p_lo = fminf(prm.prob_1, prm.prob_2);
+  const float p_hi = fmaxf(prm.prob_1, prm.prob_2);
+  const uint32_t w_lo = min(prm.w1_i, prm.w2_i);
+  const uint32_t w_hi = max(prm.w1_i, prm.w2_i);
+
+  Row rv = row_of(g, v);
+  StepMass mass = step_mass<MIXTURE>(g, rv, t, prm);
   bool any_exhausted = false;
-  for (int32_t s = 2; s <= walk_length; ++s) {
-    int32_t sel = v;
-    bool resolved = !has_edges;
-    if (has_edges) {
-      Row rv = row_of(g, v);
-      uint32_t deg = rv.deg();
-      uint32_t g_spike = 0, g_total = 0;
-      if (MIXTURE) {
-        uint32_t mult = (uint32_t)(bound(g, rv.start, rv.end, t, true, prm.search_iters) -
-                                   bound(g, rv.start, rv.end, t, false, prm.search_iters));
-        mult = min(mult, 0xFFFFu);
-        g_spike = prm.ei * mult;
-        g_total = prm.mi * deg + g_spike;
-      }
-      for (int32_t rnd = 0; rnd < prm.max_rounds; ++rnd) {
-        U32x2 b = threefry2x32(k0, k1, wid, step_round_counter(s, (uint32_t)rnd));
-        int32_t cand;
-        bool accept;
-        if (MIXTURE) {
-          uint32_t pos = randint(b.x0, max(g_total, 1u));
-          bool dead = deg == 0;
-          bool spike = pos < g_spike && !dead;
-          if (dead) {
-            cand = v;
-            accept = true;
-          } else if (spike) {
-            cand = t;
-            accept = true;
-          } else {
-            uint32_t base = pos - g_spike;
-            uint32_t sub = base % prm.mi;
-            cand = col_at(g, rv.start + (int64_t)(int32_t)(base / prm.mi));
-            uint32_t thr = cand == t ? prm.wt_i
-                           : (is_neighbor(g, cand, t, prm.search_iters) ? prm.w1_i
+  int32_t s = 2, rnd = 0;
+  while (s <= walk_length) {
+    U32x2 b = threefry2x32(k0, k1, wid, step_round_counter(s, (uint32_t)rnd));
+    uint32_t deg = rv.deg();
+    int32_t cand;
+    bool accept;
+    if (MIXTURE) {
+      uint32_t pos = randint(b.x0, max(mass.total, 1u));
+      if (deg == 0) {
+        cand = v;
+        accept = true;
+      } else if (pos < mass.spike) {
+        cand = t;
+        accept = true;
+      } else {
+        uint32_t base = pos - mass.spike;
+        uint32_t sub = base % prm.mi;
+        cand = col_at(g, rv.start + (int64_t)(int32_t)(base / prm.mi));
+        if (cand == t) accept = sub < prm.wt_i;
+        else if (sub < w_lo) accept = true;
+        else if (sub >= w_hi) accept = false;
+        else accept = sub < (is_neighbor(g, rt, cand, prm.search_iters) ? prm.w1_i
                                                                         : prm.w2_i);
-            accept = sub < thr;
-          }
-        } else {
-          cand = deg > 0 ? col_at(g, rv.start + (int64_t)randint(b.x0, deg)) : v;
-          float r = uniform24(b.x1);
-          float thr = cand == t ? prm.prob_0
-                      : (is_neighbor(g, cand, t, prm.search_iters) ? prm.prob_1
-                                                                   : prm.prob_2);
-          accept = r < thr;
-        }
-        if (accept) {
-          sel = cand;
-          resolved = true;
-          break;
-        }
       }
+    } else {
+      cand = deg > 0 ? col_at(g, rv.start + (int64_t)randint(b.x0, deg)) : v;
+      float r = uniform24(b.x1);
+      if (cand == t) accept = r < prm.prob_0;
+      else if (r < p_lo) accept = true;
+      else if (r >= p_hi) accept = false;
+      else accept = r < (is_neighbor(g, rt, cand, prm.search_iters) ? prm.prob_1
+                                                                    : prm.prob_2);
     }
-    // Round budget spent: the walker keeps v, as the JAX oracles do, and is
-    // reported so that the graph entry point can mark the walk incomplete.
-    any_exhausted |= !resolved;
-    out[s] = sel;
-    t = v;
-    v = sel;
+    accept = accept && rnd < prm.max_rounds;
+    if (accept || rnd + 1 >= prm.max_rounds) {
+      // Step boundary.  Round budget spent: the walker keeps v, as the JAX
+      // oracles do, and is reported so that the graph entry point can mark
+      // the walk incomplete.
+      any_exhausted |= !accept;
+      int32_t sel = accept ? cand : v;
+      w.put(s, sel);
+      t = v;
+      rt = rv;
+      v = sel;
+      rnd = 0;
+      if (++s <= walk_length) {
+        rv = row_of(g, v);
+        mass = step_mass<MIXTURE>(g, rv, t, prm);
+      }
+    } else {
+      ++rnd;
+    }
   }
   exhausted[tid] = any_exhausted ? 1 : 0;
 }
@@ -142,7 +249,7 @@ extern "C" int trw_node2vec_walk_csr(const int32_t* row_ptr, const int32_t* col_
                                      uint32_t w1_i, uint32_t w2_i,
                                      int32_t search_iters, int32_t max_rounds,
                                      void* stream) {
-  const int threads = 128;
+  const int threads = trw::kThreads;
   const unsigned blocks = (unsigned)((num_walkers + threads - 1) / threads);
   trw::Csr g{row_ptr, col_idx, num_nodes, num_edges};
   trw::BiasedParams prm{prob_0, prob_1, prob_2, mi, ei, wt_i, w1_i, w2_i,
@@ -158,4 +265,21 @@ extern "C" int trw_node2vec_walk_csr(const int32_t* row_ptr, const int32_t* col_
         walker_offset, prm);
   }
   return (int)cudaGetLastError();
+}
+
+// Launch geometry of K2: out[0] = threads per block (those of the launch
+// above when `threads` <= 0), out[1] = blocks of that size resident on one
+// SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int trw_node2vec_walk_geometry(int32_t mixture, int32_t threads,
+                                          int32_t* out) {
+  int n = threads > 0 ? threads : trw::kThreads;
+  int blocks = 0;
+  cudaError_t err =
+      mixture ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &blocks, trw::node2vec_walk_csr_kernel<true>, n, 0)
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &blocks, trw::node2vec_walk_csr_kernel<false>, n, 0);
+  out[0] = n;
+  out[1] = blocks;
+  return (int)err;
 }

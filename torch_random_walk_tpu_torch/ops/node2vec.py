@@ -35,7 +35,12 @@ NO_PROBS = (0.0, 0.0, 0.0)
 class BiasedWalks(NamedTuple):
     walks: torch.Tensor      # (B, L+1) int32
     exhausted: torch.Tensor  # (B,) bool: a step spent the whole round budget
-    rounds: int | None       # walker-rounds drawn (plain version only)
+    # Plain version only, (B, L-1) int32 by walker and step 2..L: the rounds
+    # drawn, and those of them whose draw needs a search of t's row (a
+    # candidate other than t with its draw between the two thresholds, the
+    # only rounds where being a neighbour of t decides).
+    rounds: torch.Tensor | None
+    searches: torch.Tensor | None
 
 
 def mixture_consts(p: float, q: float, deg_bits: int) -> tuple:
@@ -80,11 +85,15 @@ def node2vec_walk_plain(row_ptr, col_idx, target_nodes, walk_length, key,
     wid = common.walker_ids(num_walkers, walker_offset, dev)
     if col_idx.shape[0] == 0:  # no edges: every walker stays in place
         stay = target_nodes.to(torch.int32)[:, None].repeat(1, walk_length + 1)
+        none = torch.zeros(num_walkers, walk_length - 1, dtype=torch.int32,
+                           device=dev)
         return BiasedWalks(stay, torch.zeros(num_walkers, dtype=torch.bool,
-                                             device=dev), 0)
+                                             device=dev), none, none)
     prob_0, prob_1, prob_2 = (torch.tensor(x, dtype=torch.float32, device=dev)
                               for x in probs)
     mi, ei, wt_i, w1_i, w2_i = consts
+    p_lo, p_hi = torch.minimum(prob_1, prob_2), torch.maximum(prob_1, prob_2)
+    w_lo, w_hi = min(w1_i, w2_i), max(w1_i, w2_i)
     cur0 = target_nodes.to(torch.int64)
 
     # First hop: a plain uniform draw at (step 1, round 0).
@@ -100,7 +109,7 @@ def node2vec_walk_plain(row_ptr, col_idx, target_nodes, walk_length, key,
 
     cols = [cur0, first]
     exhausted = torch.zeros(num_walkers, dtype=torch.bool, device=dev)
-    rounds = torch.zeros((), dtype=torch.int64, device=dev)
+    rounds, searches = [], []
     t, v = cur0, first
     for step in range(2, walk_length + 1):
         if mixture:
@@ -114,8 +123,10 @@ def node2vec_walk_plain(row_ptr, col_idx, target_nodes, walk_length, key,
         resolved = torch.zeros(num_walkers, dtype=torch.bool, device=dev)
         sel = v
         rnd = 0
+        step_rounds = torch.zeros(num_walkers, dtype=torch.int32, device=dev)
+        step_searches = torch.zeros_like(step_rounds)
         while rnd < max_rounds and not bool(resolved.all()):
-            rounds += (~resolved).sum()
+            step_rounds += ~resolved
             b_cand, b_acc = prng.counter_bits(
                 key, wid, prng.step_round_counter(step, rnd))
             if mixture:
@@ -132,6 +143,7 @@ def node2vec_walk_plain(row_ptr, col_idx, target_nodes, walk_length, key,
                 accept = spike | dead | torch.where(
                     cand == t, sub < wt_i,
                     torch.where(nbr, sub < w1_i, sub < w2_i))
+                band = ~spike & ~dead & (sub >= w_lo) & (sub < w_hi)
             else:
                 cand = common.sample_csr_neighbor(row_ptr, col_idx, v, b_cand)
                 r = prng.uniform_from_bits(b_acc)
@@ -140,15 +152,22 @@ def node2vec_walk_plain(row_ptr, col_idx, target_nodes, walk_length, key,
                 accept = torch.where(
                     cand == t, r < prob_0,
                     torch.where(nbr, r < prob_1, r < prob_2))
+                band = (r >= p_lo) & (r < p_hi)
+            step_searches += ~resolved & band & (cand != t)
             sel = torch.where(~resolved & accept, cand, sel)
             resolved = resolved | accept
             rnd += 1
         # Round budget spent: the walker keeps v, as the JAX oracles do.
         exhausted |= ~resolved
+        rounds.append(step_rounds)
+        searches.append(step_searches)
         cols.append(sel)
         t, v = v, sel
     walks = torch.stack(cols[: walk_length + 1], dim=1).to(torch.int32)
-    return BiasedWalks(walks, exhausted, int(rounds))
+    per_step = [torch.stack(x, dim=1) if x else
+                torch.zeros(num_walkers, 0, dtype=torch.int32, device=dev)
+                for x in (rounds, searches)]
+    return BiasedWalks(walks, exhausted, *per_step)
 
 
 def biased_walk(row_ptr, col_idx, target_nodes, walk_length, seed,
@@ -166,7 +185,7 @@ def biased_walk(row_ptr, col_idx, target_nodes, walk_length, seed,
             int(max_rounds))
     if dev.type == "cuda":
         walks, exhausted = bindings.node2vec_walk_csr(*args)
-        return BiasedWalks(walks, exhausted, None)
+        return BiasedWalks(walks, exhausted, None, None)
     common.check_walk_length(walk_length)
     return node2vec_walk_plain(*args)
 
