@@ -18,10 +18,13 @@ kernels also with float32 tables, each with its tile plan and its device time
 by kernel.  The ``build`` line reports each loss kernel's registers and
 spills (``-Xptxas -v``) and its tensor-core instructions (``cuobjdump
 -sass``), and the run fails unless the bfloat16 K5 and K6 hold some; it
-also gives the walk kernels' registers and spills, and the ``walk_geometry``
-line K2's threads per block and its resident blocks per SM.  The
-``walk_times`` line times K1 and K2 at the bench shape and with a half and a
-quarter of the walkers.
+also gives the walk kernels' registers and spills, the INT32-pipe
+instructions of one Threefry call counted in the SASS of a probe kernel, and
+the ``walk_geometry`` line K2's threads per block and its resident blocks
+per SM.  The ``walk_times`` line times K1 and K2 at the bench shape and with a
+half and a quarter of the walkers.  The small checks also walk a graph built
+with ``build_fat=False``, which must take the rejection sampler with the
+graph's own search depth.
 
 Every kernel is held against its plain version on all the rows the main path
 gives it.  One thing runs at a smaller depth than the main path, to keep the
@@ -34,9 +37,12 @@ sampling run and the training run, each counted from zero, added up), its
 largest deviation from the plain version (0 for the integer kernels; for the
 two float kernels the limits are ``LOSS_REL_LIMIT`` and ``GRAD_REL_LIMIT``
 below), its time, the plain version's time,
-the least time the card could take (``bound_ms``) and, where one PyTorch call
-does the same work, that call's time; K2's rows add their time over K1's
-of the same run.  Then come the card's name and power
+the least time the card could take (``bound_ms``: bytes over the memory
+rate, or integer operations over SMs x 64 INT32 results a clock x the
+maximum SM clock that nvidia-smi reports, whichever is larger) and, where
+one PyTorch call does the same work, that call's time; K2's rows add their
+time over K1's of the same run, and every row its launches in the sampling
+and in the training run apart.  Then come the card's name and power
 limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure ends the run with a non-zero exit code; without a CUDA device the
@@ -74,6 +80,7 @@ P, Q = 0.5, 2.0
 NUM_SHARDS, ROUTED_WALKERS = 8, 32_768
 WALK_SEED, WINDOW_SEED = 1, 2
 PROFILED_WALK_LENGTH = 10
+WALK_REPS = 4  # walk calls queued back to back for their device time
 
 # The fused train step of the JAX package's bench.py: its Node2VecConfig and
 # its 65 536 start nodes a step.
@@ -87,15 +94,22 @@ TRAIN_WALKERS, TRAIN_STEPS = 65_536, 3
 LOSS_REL_LIMIT, GRAD_REL_LIMIT = 1e-5, 1e-4
 
 # Peaks of one H100 SXM at its full 700 W limit (NVIDIA data sheet): device
-# memory rate, and the float32/int32 rate outside the tensor cores, which is
-# the rate of the kernels' integer arithmetic.
+# memory rate; dense tensor-core peaks by table type (bfloat16; float32
+# tables as TF32).
 HBM_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 67e12
-# Dense tensor-core peaks by table type (bfloat16; float32 tables as TF32).
 TENSOR_FLOPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 495e12}
-# Integer operations of one Threefry-2x32 call (20 rounds of add, rotate as
-# two shifts and an or, xor; 5 key injections) and of one binary-search trip.
-THREEFRY_OPS = 20 * 5 + 5 * 3 + 2
+# The walk and window kernels' arithmetic is 32-bit integer work (Threefry's
+# adds, xors and rotates, index arithmetic).  A Hopper SM retires 64 INT32
+# results a clock (half its 128 FP32 lanes), so the card's integer rate is
+# SMs x 64 x its maximum SM clock; phase_device() reads the clock from
+# nvidia-smi and sets INT_OPS_PER_S.
+INT32_RESULTS_PER_SM_CLOCK = 64
+INT_OPS_PER_S: float | None = None
+# INT32-pipe instructions of one Threefry-2x32 call, counted by phase_build()
+# in the SASS of a probe kernel (threefry_sass_ops()); and of one
+# binary-search trip (compare, select, halve, address: an estimate, not
+# counted).
+THREEFRY_OPS: int | None = None
 SEARCH_TRIP_OPS = 6
 
 KERNEL_FACTS = {
@@ -324,10 +338,15 @@ def loss_errors(in_emb, out_emb, walks, neg_ids, window):
 # --- bounds -------------------------------------------------------------------
 
 def bound(bytes_moved: float, operations: float,
-          ops_per_s: float = SCALAR_OPS_PER_S) -> tuple[float, str]:
+          ops_per_s: float | None = None) -> tuple[float, str]:
     """(least time in ms, what bounds it) for work that must move
     ``bytes_moved`` and do ``operations`` at the card's peak ``ops_per_s``
-    (by default its scalar integer rate)."""
+    (by default its integer rate, ``INT_OPS_PER_S``)."""
+    if ops_per_s is None:
+        require(INT_OPS_PER_S is not None and THREEFRY_OPS is not None,
+                "phase_device() and phase_build() set the integer rate and "
+                "the Threefry count before any bound")
+        ops_per_s = INT_OPS_PER_S
     by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     by_ops = operations / ops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
@@ -414,11 +433,18 @@ def sgns_bound(dtype: torch.dtype, backward: bool, walks, neg_ids):
 # --- phases -------------------------------------------------------------------
 
 def phase_device() -> str:
+    global INT_OPS_PER_S
     smi = run_text(["nvidia-smi", "--query-gpu=name,power.limit",
                     "--format=csv,noheader"]).splitlines()[0]
+    max_sm_mhz = float(run_text(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"]).splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    INT_OPS_PER_S = sms * INT32_RESULTS_PER_SM_CLOCK * max_sm_mhz * 1e6
     nvcc = run_text([build.find_nvcc(), "--version"]).splitlines()[-1]
     emit("device", name=torch.cuda.get_device_name(0), smi=smi, nvcc=nvcc,
-         torch=torch.__version__, cuda=torch.version.cuda)
+         torch=torch.__version__, cuda=torch.version.cuda, sms=sms,
+         max_sm_clock_mhz=max_sm_mhz, int_ops_per_s=INT_OPS_PER_S)
     return smi
 
 
@@ -497,7 +523,51 @@ def sass_report(lib) -> dict:
     return found
 
 
+# Instructions of a probe's SASS that are not Threefry's arithmetic: its
+# loads, stores, moves and control flow.
+NOT_ARITHMETIC = {"LDG", "STG", "LDC", "S2R", "CS2R", "EXIT", "BRA", "NOP",
+                  "MOV", "RET"}
+
+
+def threefry_sass_ops() -> tuple[int, int, dict]:
+    """Integer instructions of one Threefry-2x32 call in the SASS that nvcc
+    gives for this card, as the walk kernels call it: the key as kernel
+    parameters, the counter words from memory.  A funnel shift (one rotate)
+    counts as one instruction, as does a three-input add or logic op.
+    Returns (instructions on the INT32 pipe, IMAD instructions, opcode
+    histogram of the whole probe).  nvcc issues a share of the adds as
+    IMAD.IADD, which runs on the FMA pipe beside the INT32 one, so only the
+    first count bounds the time at the INT32 rate (counting both would give
+    a bound that a Threefry-only kernel beats on the H100: PERF.md).
+    Uniform-datapath instructions (U*, once a warp) and the probe's loads,
+    stores and moves are left out."""
+    probe_dir = build.build_dir()
+    probe_dir.mkdir(parents=True, exist_ok=True)
+    src, cubin = probe_dir / "threefry_probe.cu", probe_dir / "threefry_probe.cubin"
+    src.write_text(
+        '#include "threefry.cuh"\n'
+        'extern "C" __global__ void threefry_probe(uint32_t k0, uint32_t k1,\n'
+        '    const uint32_t* c, uint32_t* out) {\n'
+        '  trw::U32x2 r = trw::threefry2x32(k0, k1, c[0], c[1]);\n'
+        '  out[0] = r.x0;\n  out[1] = r.x1;\n}\n')
+    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-I",
+                    str(build.SOURCE_DIR), "-cubin", "-o", str(cubin),
+                    str(src)], check=True, capture_output=True, timeout=120)
+    cuobjdump = str(Path(build.find_nvcc()).parent / "cuobjdump")
+    sass = run_text([cuobjdump, "-sass", str(cubin)])
+    ops = Counter(re.findall(
+        r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)", sass))
+    arithmetic = {op: n for op, n in ops.items()
+                  if not op.startswith("U")
+                  and op.split(".")[0] not in NOT_ARITHMETIC
+                  and not op.startswith("IMAD.MOV")}
+    fma_pipe = sum(n for op, n in arithmetic.items() if op.startswith("IMAD"))
+    return (sum(arithmetic.values()) - fma_pipe, fma_pipe,
+            dict(sorted(ops.items())))
+
+
 def phase_build() -> None:
+    global THREEFRY_OPS
     t0 = time.perf_counter()
     lib = build.build_library(verbose=True)
     bindings.library()
@@ -507,9 +577,15 @@ def phase_build() -> None:
     kernels = {SGNS_FUNCTIONS[k]: {**ptxas.get(k, {}), **sass.get(k, {})}
                for k in SGNS_FUNCTIONS}
     walk_ptxas = ptxas_report(log, WALK_FUNCTIONS)
+    THREEFRY_OPS, threefry_fma, threefry_sass = threefry_sass_ops()
     emit("build", seconds=round(seconds, 2), sources=list(build.SOURCES),
          walk_sgns_loss_kernels=kernels,
-         walk_kernels={WALK_FUNCTIONS[k]: v for k, v in walk_ptxas.items()})
+         walk_kernels={WALK_FUNCTIONS[k]: v for k, v in walk_ptxas.items()},
+         threefry_int32_pipe_ops=THREEFRY_OPS,
+         threefry_fma_pipe_ops=threefry_fma,
+         threefry_probe_sass=threefry_sass)
+    require(30 <= THREEFRY_OPS <= 200,
+            f"Threefry counted as {THREEFRY_OPS} instructions: {threefry_sass}")
     for key in TENSOR_CORE_FUNCTIONS:
         require(sass.get(key, {}).get("tensor_core_instructions", 0) > 0,
                 f"{SGNS_FUNCTIONS[key]}: no HMMA/HGMMA instruction in its SASS")
@@ -562,6 +638,20 @@ def phase_small_checks() -> None:
             errs[name] = max(errs[name], max_abs_err(
                 [got.walks, got.exhausted.to(torch.int32)],
                 [want.walks, want.exhausted.to(torch.int32)]))
+    # A graph the JAX package leaves without fat tables: walk(graph, p, q)
+    # runs the rejection kernel with the graph's own search depth, not the
+    # mixture.
+    thin = tt.CSRGraph.from_arrays(graph.row_ptr, graph.col_idx,
+                                   sort_rows=False, build_fat=False)
+    require(graph.fat and not thin.fat, "build_fat=False left fat tables")
+    errs["node2vec_walk_csr_rejection"] = max(
+        errs["node2vec_walk_csr_rejection"], max_abs_err(
+            tt.walk(thin, target_nodes=targets, p=P, q=Q, walk_length=20,
+                    seed=WALK_SEED),
+            node2vec.biased_walk(
+                thin.row_ptr, thin.col_idx, targets, 20, WALK_SEED, 0, False,
+                common.node2vec_accept_probs(P, Q), node2vec.NO_CONSTS,
+                thin.search_iters, common.DEFAULT_MAX_ROUNDS).walks))
     walks = tt.walk(graph, target_nodes=targets, walk_length=20, seed=5)
     errs["to_windows"] = max_abs_err(
         tt.to_windows(walks, WINDOW, graph.num_nodes, seed=WINDOW_SEED),
@@ -620,23 +710,31 @@ def bench_targets(dev):
     return (torch.arange(NUM_WALKERS, device=dev) % NUM_NODES).to(torch.int32)
 
 
-def phase_walk_times(graph) -> dict:
-    """K1 and K2 alone through the public entry points, each timed once at
-    the bench shape and with a half and a quarter of the walkers; the times
-    at the bench shape are the ``ms`` of the kernels' rows.  All walkers of
-    the bench shape are resident at once, so a time that halves with them is
-    bound by the work the card does, one that stays by each walker's own
-    chain.  Importing this script and calling ``phase_build()`` and then this
-    on ``phase_graph()`` is the quick check of a change to a walk kernel."""
+def phase_walk_times(graph) -> tuple[dict, dict]:
+    """K1 and K2 alone through the public entry points, each timed at the
+    bench shape and with a half and a quarter of the walkers, two ways: the
+    entry point's time (CUDA events around one call on an idle stream, which
+    holds the host's tens of microseconds of Python before the launch) and
+    the device time of calls queued behind a spin kernel (``queued_ms``).
+    The device times at the bench shape are the ``ms`` of the kernels' rows.
+    All walkers of the bench shape are resident at once, so a time that
+    halves with them is bound by the work the card does, one that stays by
+    each walker's own chain.  Importing this script and calling
+    ``phase_build()`` and then this on ``phase_graph()`` is the quick check
+    of a change to a walk kernel."""
     targets = bench_targets(graph.device)
-    by_walkers = {}
+    entry, device = {}, {}
     for part in (1, 2, 4):
         calls = walk_calls(graph, targets[: NUM_WALKERS // part])
-        by_walkers[NUM_WALKERS // part] = {
+        entry[NUM_WALKERS // part] = {
             name: time_ms(fn, iters=9) for name, fn in calls.items()}
-    emit("walk_times", ms_by_walkers=by_walkers,
-         timing="CUDA events, 1 warm-up, median of 9")
-    return by_walkers[NUM_WALKERS]
+        device[NUM_WALKERS // part] = {
+            name: queued_ms(fn, WALK_REPS) for name, fn in calls.items()}
+    emit("walk_times", ms_by_walkers=entry, device_ms_by_walkers=device,
+         timing="entry point: CUDA events, 1 warm-up, median of 9",
+         device_timing=f"{WALK_REPS} calls queued behind a spin kernel, "
+                       "median of 5, per call")
+    return device[NUM_WALKERS], entry[NUM_WALKERS]
 
 
 def phase_main_path(graph):
@@ -699,10 +797,11 @@ def phase_main_path(graph):
 
 
 def phase_kernels(graph, targets, pgraph, out, counts, routed_info,
-                  routed_ms, walk_ms):
-    """Every kernel at the main path's shape: time (the walks' from
-    ``phase_walk_times``), plain version on the same inputs (time and
-    deviation), bound, and library call where one exists."""
+                  routed_ms, walk_ms, walk_entry_ms):
+    """Every kernel at the main path's shape: time (the walks' device time
+    from ``phase_walk_times``, with their entry points' time beside it),
+    plain version on the same inputs (time and deviation), bound, and
+    library call where one exists."""
     rows = []
 
     def row(name, ms, plain_ms, err, bound_pair, library_ms, launches):
@@ -718,6 +817,7 @@ def phase_kernels(graph, targets, pgraph, out, counts, routed_info,
     row("uniform_walk_csr", k1_ms, plain_ms, max_abs_err(out["uniform"], plain),
         uniform_bound(NUM_WALKERS, WALK_LENGTH), None,
         counts["uniform_walk_csr"])
+    rows[-1]["entry_point_ms"] = walk_entry_ms["uniform"]
     del plain
 
     for name, key, mixture in (
@@ -731,8 +831,7 @@ def phase_kernels(graph, targets, pgraph, out, counts, routed_info,
         ms = walk_ms[key]
         row(name, ms, plain_ms, max_abs_err(out[key], plain.walks), bound_pair,
             None, counts[name])
-        # K1 is unchanged, so K2's time over K1's of the same run compares
-        # across cards and runs.
+        rows[-1]["entry_point_ms"] = walk_entry_ms[key]
         rows[-1]["ms_over_uniform_walk_csr"] = ms / k1_ms
         drawn = int(plain.rounds.sum(dtype=torch.int64))
         # A lane that draws rounds r and r+1 together (r even) draws one
@@ -798,7 +897,8 @@ def phase_kernels(graph, targets, pgraph, out, counts, routed_info,
 
     steps = NUM_WALKERS * WALK_LENGTH
     emit("rates", walkers=NUM_WALKERS, walk_length=WALK_LENGTH,
-         timing="CUDA events, 1 warm-up, median of 9 (the walk_times line)",
+         timing="device time of calls queued behind a spin kernel (the "
+                "walk_times line)",
          node_steps_per_s={r["name"]: steps / (r["ms"] / 1e3)
                            for r in rows[:3]})
 
@@ -1015,10 +1115,13 @@ def phase_sgns_kernels(graph, counts):
         return {k: torch.zeros(shape, dtype=torch.float32, device=dev)
                 for k in ("in_emb", "out_emb")}
 
+    def train_walk():
+        return tt.walk(graph, target_nodes=targets,
+                       walk_length=cfg.walk_length, seed=WALK_SEED)
+
     emit("train_step_parts", timing="CUDA events, 1 warm-up, median of 5",
-         walk_ms=time_ms(lambda: tt.walk(
-             graph, target_nodes=targets, walk_length=cfg.walk_length,
-             seed=WALK_SEED)),
+         walk_ms=time_ms(train_walk),
+         walk_device_ms=queued_ms(train_walk, WALK_REPS),
          shared_negatives_ms=time_ms(lambda: skipgram.shared_negative_ids(
              WALK_SEED, cfg.shared_negatives, NUM_NODES)),
          loss_fwd_ms=found["torch.bfloat16"]["fwd_ms"],
@@ -1057,13 +1160,15 @@ def main() -> int:
     graph = phase_graph()
     (targets, pgraph, out, launches, routed_info,
      routed_ms) = phase_main_path(graph)
-    walk_ms = phase_walk_times(graph)
+    walk_ms, walk_entry_ms = phase_walk_times(graph)
     sampling_peak = torch.cuda.max_memory_allocated()
     train_launches = phase_train(graph)
+    by_run = {name: {"sampling": launches[name], "train": train_launches[name]}
+              for name in launches}
     for name in launches:  # both runs of the main path, added up
         launches[name] += train_launches[name]
     rows = phase_kernels(graph, targets, pgraph, out, launches, routed_info,
-                         routed_ms, walk_ms)
+                         routed_ms, walk_ms, walk_entry_ms)
     for r in rows:
         require(r["max_abs_err"] == 0, f"{r['name']} != its plain version at "
                 "the main path's shape")
@@ -1075,6 +1180,11 @@ def main() -> int:
         "walk_sgns_loss_fwd", "walk_sgns_loss_bwd"], "a kernel row is missing")
     require(all(r["launches"] > 0 for r in rows),
             "a kernel was never launched on the main path")
+    for r in rows:
+        r["launches_by_run"] = by_run[r["name"]]
+    require(by_run["uniform_walk_csr"] == {"sampling": 1,
+                                           "train": 1 + TRAIN_STEPS},
+            "K1: one launch in sampling and one a train step expected")
     torch.cuda.synchronize()
     emit("done", seconds=round(time.perf_counter() - t0, 1),
          peak_device_gib=round(max(sampling_peak,

@@ -5,6 +5,7 @@ and negatives must equal JAX's value for value (tolerance 0); the losses of
 three chained ``epoch_step``s agree to rtol 1e-4 (float32 tables: only the
 order of float32 sums differs).  Everything runs on the CPU."""
 
+import jax
 import jax.numpy as jnp
 import networkx as nx
 import numpy as np
@@ -20,7 +21,10 @@ from torch_random_walk_tpu.models.skipgram import (
 )
 from torch_random_walk_tpu.ops import fatwalk
 from torch_random_walk_tpu.ops.fatwalk import FatMeta
-from torch_random_walk_tpu.ops.node2vec import node2vec_walk_csr_mixture
+from torch_random_walk_tpu.ops.node2vec import (
+    node2vec_walk_csr,
+    node2vec_walk_csr_mixture,
+)
 from torch_random_walk_tpu_torch import convert
 from torch_port_util import eq, power_law_edges
 
@@ -98,6 +102,30 @@ def test_three_epoch_steps_match_jax(graphs, p, q):
     for name in ("in_emb", "out_emb"):
         np.testing.assert_allclose(got[name], np.asarray(params[name]),
                                    rtol=1e-3, atol=1e-5)
+
+
+def test_sample_without_fat_tables_gives_the_jax_step_walks(graphs):
+    """On a graph built with ``build_fat=False`` the JAX ``epoch_step`` takes
+    its ``_jnp_step``, whose biased walks are ``node2vec_walk_csr`` with
+    ``graph.search_iters`` (no mixture, no -1 mark); ``sample`` must give
+    those walks."""
+    jg, _ = graphs
+    row_ptr, col_idx = np.asarray(jg.row_ptr), np.asarray(jg.col_idx)
+    thin = trw.CSRGraph.from_arrays(row_ptr, col_idx, build_fat=False)
+    assert thin.edge_tab is None
+    tn2v = tt.Node2Vec(
+        convert.csr_from_numpy(row_ptr, col_idx, build_fat=False,
+                               device="cpu"),
+        tt.Node2VecConfig(p=0.5, q=2.0, **CONFIG), device="cpu")
+    targets = np.random.default_rng(33).integers(0, N, B).astype(np.int32)
+    jax_walks = jax.jit(node2vec_walk_csr, static_argnums=(3, 4, 5),
+                        static_argnames=("search_iters",))
+    for epoch in range(2):
+        seed = tn2v.step_seed(epoch)
+        walks, _ = tn2v.sample(targets, epoch)
+        eq(walks, jax_walks(thin.row_ptr, thin.col_idx, jnp.asarray(targets),
+                            0.5, 2.0, CONFIG["walk_length"], jnp.uint32(seed),
+                            search_iters=thin.search_iters))
 
 
 def barbell():

@@ -11,11 +11,14 @@ import torch
 
 import torch_random_walk_tpu as trw
 import torch_random_walk_tpu_torch as tt
+from torch_random_walk_tpu.graph.csr import PackedLayout
+from torch_random_walk_tpu.graph.csr import _bits_for as j_bits_for
 from torch_random_walk_tpu.graph.datasets import synthetic_power_law as j_power_law
 from torch_random_walk_tpu.ops import fatwalk as jfatwalk
 from torch_random_walk_tpu.ops import node2vec as jn2v
 from torch_random_walk_tpu.ops.uniform import uniform_walk_csr as j_uniform
 from torch_random_walk_tpu_torch import convert
+from torch_random_walk_tpu_torch.graph.csr import fat_tables_fit
 from torch_random_walk_tpu_torch.ops import common as tcommon
 from torch_random_walk_tpu_torch.ops import node2vec as tn2v
 from torch_random_walk_tpu_torch.ops.uniform import uniform_walk_csr as t_uniform
@@ -362,6 +365,85 @@ def test_small_round_budget_graph_entry_marks_last_column(ring_graphs):
         search_iters=tg.search_iters, max_rounds=1, device="cpu"), oracle)
 
 
+# --- graphs without the JAX package's fat tables -----------------------------
+
+# (num_nodes, num_edges, max_degree): node, start and degree fields of the
+# packed row on both sides of 64 bits, a 32-bit field, no nodes, no edges.
+FAT_SHAPES = {
+    "64_bits": (2 ** 26, 1_200_000_000, 127),        # 26 + 31 + 7
+    "65_bits": (2 ** 26, 1_200_000_000, 128),        # 26 + 31 + 8
+    "start_31_bits": (1000, 2 ** 31 - 1, 10),
+    "start_32_bits": (1000, 2 ** 31, 10),
+    "node_32_bits": (2 ** 31 + 1, 2 ** 20, 4),
+    "small": (300, 1800, 40),
+    "no_edges": (8, 0, 0),
+    "no_nodes": (0, 0, 0),
+}
+
+
+@pytest.mark.parametrize("shape", list(FAT_SHAPES))
+def test_fat_predicate_equals_jax_packed_layout(shape):
+    """The port decides from (N, E, max_degree) alone what the JAX
+    ``from_arrays`` decides by building a ``PackedLayout``."""
+    n, e, d = FAT_SHAPES[shape]
+    want = bool(n and e and PackedLayout(j_bits_for(n), j_bits_for(e + 1),
+                                         j_bits_for(d + 1)).fits)
+    assert fat_tables_fit(n, e, d) == want
+    assert want == (shape in ("64_bits", "start_31_bits", "small"))
+
+
+@pytest.fixture(scope="module")
+def thin_graphs(ring_graphs):
+    """The ring graph built with ``build_fat=False`` by both packages."""
+    jg, _ = ring_graphs
+    row_ptr, col_idx = np.asarray(jg.row_ptr), np.asarray(jg.col_idx)
+    return (trw.CSRGraph.from_arrays(row_ptr, col_idx, build_fat=False),
+            tt.CSRGraph.from_arrays(row_ptr, col_idx, build_fat=False,
+                                    device="cpu"))
+
+
+def test_build_fat_flag_and_graph_size_decide_fat(graphs, thin_graphs):
+    jg, tg = graphs
+    assert tg.fat and jg.edge_tab is not None
+    jthin, tthin = thin_graphs
+    assert not tthin.fat and jthin.edge_tab is None
+    cg = convert.csr_from_numpy(np.asarray(jthin.row_ptr),
+                                np.asarray(jthin.col_idx), build_fat=False,
+                                device="cpu")
+    assert not cg.fat
+    empty = tt.CSRGraph.from_edges([], [], num_nodes=4, device="cpu")
+    assert not empty.fat
+    assert tt.CSRGraph(tg.row_ptr, tg.col_idx, N, tg.num_edges,
+                       tg.max_degree).fat
+
+
+@pytest.mark.parametrize("p,q", [(0.5, 2.0), (1.0, 1.0)],
+                         ids=["p0.5-q2", "uniform"])
+def test_graph_without_fat_tables_walks_like_jax(thin_graphs, p, q):
+    """Without fat tables the JAX graph entry runs the rejection sampler
+    with ``graph.search_iters`` (or the uniform walk); so does the port's."""
+    jg, tg = thin_graphs
+    t = np.arange(B, dtype=np.int32) % tg.num_nodes
+    eq(tt.walk(tg, target_nodes=t, p=p, q=q, walk_length=L, seed=9,
+               device="cpu"),
+       trw.walk(jg, target_nodes=jnp.asarray(t), p=p, q=q, walk_length=L,
+                seed=9))
+
+
+def test_graph_without_fat_tables_marks_no_walk(thin_graphs):
+    """With a round budget of 1 the rejection walks keep v where it ran out
+    and write no -1: the oracle with the same budget and search depth."""
+    jg, tg = thin_graphs
+    t = np.arange(B, dtype=np.int32)
+    want = np.asarray(jn2v.node2vec_walk_csr(
+        jg.row_ptr, jg.col_idx, jnp.asarray(t), 4.0, 0.25, L, 8,
+        search_iters=jg.search_iters, max_rounds=1))
+    assert (want[:, 2:] == want[:, 1:-1]).any()  # budgets did run out
+    assert (want >= 0).all()
+    eq(tt.walk(tg, target_nodes=t, p=4.0, q=0.25, walk_length=L, seed=8,
+               max_rounds=1, device="cpu"), want)
+
+
 # --- the kernels against their plain versions (on the card only) -----------
 
 @pytest.mark.cuda
@@ -386,6 +468,35 @@ def test_walk_kernels_equal_plain_versions(case):
             on_card = out
     assert on_card.is_cuda
     eq(on_card, out.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph_kind", ["dead_ends", "zero_edges"])
+@pytest.mark.parametrize("walkers", [1, 33, 4097])
+@pytest.mark.parametrize("length", [1, 7, 8, 9, 16, 80])
+def test_uniform_kernel_edges_equal_plain_version(length, walkers, graph_kind):
+    """K1 against its plain version, tolerance 0, where its row writer has
+    its edges: it stores each walk a 32-byte sector at a time from
+    registers, and rows of L+1 words start at every word of a sector (L+1
+    not a multiple of 8, L = 1, the train step's L = 16), with one, a
+    ragged warp and many walkers; with and without a walker offset, on a
+    graph with dead ends and on one without edges, from targets outside
+    [0, N) (clamped as the JAX gathers clamp them)."""
+    need_cuda()
+    if graph_kind == "zero_edges":
+        g = tt.CSRGraph.from_arrays(np.zeros(9, np.int64),
+                                    np.zeros(0, np.int64), device="cpu")
+    else:
+        src, dst = power_law_edges(3000, 6, seed=5)  # last quarter: dead ends
+        g = tt.CSRGraph.from_edges(src, dst, num_nodes=3000, device="cpu")
+    t = np.random.default_rng(length * walkers).integers(
+        -3, g.num_nodes + 3, walkers).astype(np.int32)
+    for offset in (0, 100_003):
+        got, want = (t_uniform(g.row_ptr, g.col_idx, t, length, 6,
+                               walker_offset=offset, device=dev)
+                     for dev in (None, "cpu"))
+        assert got.is_cuda
+        eq(got, want.numpy())
 
 
 def _multigraph_hub():

@@ -21,11 +21,15 @@ from torch_random_walk_tpu_torch.parallel.partition import PartitionedCSR
 from torch_random_walk_tpu_torch.utils.device import resolve_device
 
 
-def csr_from_numpy(row_ptr, col_idx, device=None) -> CSRGraph:
+def csr_from_numpy(row_ptr, col_idx, build_fat: bool = True,
+                   device=None) -> CSRGraph:
     """(num_nodes + 1,) row offsets and (num_edges,) neighbour ids, rows
-    already sorted (every JAX ``CSRGraph`` constructor guarantees it)."""
+    already sorted (every JAX ``CSRGraph`` constructor guarantees it).
+    ``build_fat`` as the JAX graph was built (``graph.edge_tab is not
+    None`` for a graph at hand)."""
     return CSRGraph.from_arrays(np.asarray(row_ptr), np.asarray(col_idx),
-                                sort_rows=False, device=device)
+                                sort_rows=False, build_fat=build_fat,
+                                device=device)
 
 
 def partitioned_from_numpy(node_meta, col, num_nodes: int, num_shards: int,

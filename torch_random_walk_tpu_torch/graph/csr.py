@@ -10,7 +10,9 @@ Invariants the walk kernels rely on:
   raise there.
 
 The packed "fat" tables of the JAX package are not built here: the CUDA
-kernels read ``row_ptr`` and ``col_idx`` directly.
+kernels read ``row_ptr`` and ``col_idx`` directly.  Whether the JAX package
+would build them for a graph is kept all the same (``CSRGraph.fat``), because
+it picks the biased sampler of ``walk(graph, p, q)``.
 """
 
 from __future__ import annotations
@@ -28,12 +30,29 @@ def _bits_for(n: int) -> int:
     return max(1, int(n - 1).bit_length()) if n > 1 else 1
 
 
+def fat_tables_fit(num_nodes: int, num_edges: int, max_degree: int) -> bool:
+    """Would the JAX package pack this graph into its fat tables?  Its packed
+    row holds (node, start, deg) in two 32-bit words: the three field widths
+    must sum to at most 64 bits and each must stay below 32
+    (``torch_random_walk_tpu/graph/csr.py::PackedLayout.fits``).  A graph with
+    no node or no edge gets no tables."""
+    if not (num_nodes and num_edges):
+        return False
+    widths = (_bits_for(num_nodes), _bits_for(num_edges + 1),
+              _bits_for(max_degree + 1))
+    return sum(widths) <= 64 and max(widths) <= 31
+
+
 @dataclasses.dataclass(frozen=True)
 class CSRGraph:
     """Compressed-sparse-row adjacency on one device.
 
     row_ptr: (num_nodes + 1,) int32 row offsets into col_idx.
     col_idx: (num_edges,) int32 neighbour ids, sorted within each row.
+    fat: True where the JAX package's ``CSRGraph`` of the same arrays holds
+        fat tables (``edge_tab is not None``).  ``walk(graph, p, q)`` then
+        takes the mixture sampler, as the JAX fat engine does, and the
+        rejection sampler otherwise.  No table is built here.
     """
 
     row_ptr: torch.Tensor
@@ -41,6 +60,7 @@ class CSRGraph:
     num_nodes: int
     num_edges: int
     max_degree: int
+    fat: bool = True
 
     @property
     def device(self) -> torch.device:
@@ -61,7 +81,9 @@ class CSRGraph:
 
     @classmethod
     def from_arrays(cls, row_ptr, col_idx, sort_rows: bool = True,
-                    device=None) -> "CSRGraph":
+                    build_fat: bool = True, device=None) -> "CSRGraph":
+        """``build_fat=False`` gives the graph the JAX package builds with
+        the same flag: no fat tables, so biased walks by rejection."""
         dev = resolve_device(device)
         row_ptr = _as_int64(row_ptr, dev)
         col_idx = _as_int64(col_idx, dev)
@@ -87,7 +109,9 @@ class CSRGraph:
         return cls(row_ptr=row_ptr.to(torch.int32).contiguous(),
                    col_idx=col_idx.to(torch.int32).contiguous(),
                    num_nodes=num_nodes, num_edges=num_edges,
-                   max_degree=max_degree)
+                   max_degree=max_degree,
+                   fat=build_fat and fat_tables_fit(num_nodes, num_edges,
+                                                    max_degree))
 
     @classmethod
     def from_edges(cls, src, dst, num_nodes: int | None = None,
@@ -121,10 +145,12 @@ class CSRGraph:
         counts = torch.bincount(src, minlength=num_nodes)
         row_ptr = torch.zeros(num_nodes + 1, dtype=torch.int64, device=dev)
         torch.cumsum(counts, 0, out=row_ptr[1:])
+        max_degree = int(counts.max()) if num_nodes else 0
         return cls(row_ptr=row_ptr.to(torch.int32),
                    col_idx=col_idx.to(torch.int32).contiguous(),
                    num_nodes=num_nodes, num_edges=num_edges,
-                   max_degree=int(counts.max()) if num_nodes else 0)
+                   max_degree=max_degree,
+                   fat=fat_tables_fit(num_nodes, num_edges, max_degree))
 
 
 def _as_int64(x, device: torch.device) -> torch.Tensor:

@@ -1,5 +1,6 @@
-// CSR row access shared by the walk kernels.  row_ptr and col_idx are int32
-// (graphs below 2^31 edges); all index arithmetic is done in 64 bits.
+// CSR row access and the walk-row writer shared by the walk kernels.  row_ptr
+// and col_idx are int32 (graphs below 2^31 edges); all index arithmetic is
+// done in 64 bits.
 #pragma once
 
 #include <cstdint>
@@ -82,5 +83,37 @@ __device__ __forceinline__ bool is_neighbor(const Csr& g, Row rt, int32_t cand,
   }
   return lo < hi ? col_at(g, lo) == cand : hit;
 }
+
+// A lane's walk positions, held in registers and stored a 32-byte sector at a
+// time where the row's alignment allows (scalar stores at its ragged ends):
+// a sector written whole needs no fill from device memory when L2 evicts it.
+// put(s, v) is called once for each s = 0..last, in order.  K1 and K2 share
+// it.
+struct RowWriter {
+  int32_t* out;
+  int32_t align;  // word offset of out[0] within its sector
+  int32_t last;
+  int32_t r[8];   // r[7] is the newest position
+  __device__ __forceinline__ void put(int32_t s, int32_t val) {
+#pragma unroll
+    for (int k = 0; k < 7; ++k) r[k] = r[k + 1];
+    r[7] = val;
+    int32_t slot = (align + s) & 7;
+    if (slot == 7 || s == last) {
+      int32_t first = s - slot;
+      if (slot == 7 && first >= 0) {
+        int4* dst = reinterpret_cast<int4*>(out + first);
+        dst[0] = make_int4(r[0], r[1], r[2], r[3]);
+        dst[1] = make_int4(r[4], r[5], r[6], r[7]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          int32_t p = s - 7 + k;
+          if (p >= max(first, 0)) out[p] = r[k];
+        }
+      }
+    }
+  }
+};
 
 }  // namespace trw

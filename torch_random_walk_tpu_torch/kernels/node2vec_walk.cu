@@ -40,10 +40,11 @@
 // - The multiplicity of t in v's row is one lower-bound search and a scan of
 //   at most kScan words; a second search runs only past that.
 // - The walk is stored a whole 32-byte sector at a time from eight registers
-//   (RowWriter), which cut both samplers' time by a quarter on the H100.
-//   The likely cause (no counters on the card to show it): single 4-byte
-//   stores leave the 42 MB of walks in partly written sectors, which L2
-//   must fill from device memory when it evicts them.
+//   (csr.cuh::RowWriter, shared with K1), which cut both samplers' time by
+//   a quarter on the H100.  The likely cause (no counters on the card to
+//   show it): single 4-byte stores leave the 42 MB of walks in partly
+//   written sectors, which L2 must fill from device memory when it evicts
+//   them.
 // Measured and not kept (PERF.md): 64 or 256 threads a block (no
 // change), staging 16 bytes in shared memory or 64 bytes in registers
 // (slower than 32), one load per lane per iteration as a state machine
@@ -105,36 +106,6 @@ __device__ __forceinline__ StepMass step_mass(const Csr& g, Row rv, int32_t t,
   uint32_t spike = prm.ei * multiplicity(g, rv, t, prm.search_iters);
   return {spike, prm.mi * rv.deg() + spike};
 }
-
-// A lane's walk positions, held in registers and stored a 32-byte sector at a
-// time where the row's alignment allows (scalar stores at its ragged ends):
-// a sector written whole needs no fill from device memory when L2 evicts it.
-struct RowWriter {
-  int32_t* out;
-  int32_t align;  // word offset of out[0] within its sector
-  int32_t last;
-  int32_t r[8];   // r[7] is the newest position
-  __device__ __forceinline__ void put(int32_t s, int32_t val) {
-#pragma unroll
-    for (int k = 0; k < 7; ++k) r[k] = r[k + 1];
-    r[7] = val;
-    int32_t slot = (align + s) & 7;
-    if (slot == 7 || s == last) {
-      int32_t first = s - slot;
-      if (slot == 7 && first >= 0) {
-        int4* dst = reinterpret_cast<int4*>(out + first);
-        dst[0] = make_int4(r[0], r[1], r[2], r[3]);
-        dst[1] = make_int4(r[4], r[5], r[6], r[7]);
-      } else {
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          int32_t p = s - 7 + k;
-          if (p >= max(first, 0)) out[p] = r[k];
-        }
-      }
-    }
-  }
-};
 
 template <bool MIXTURE>
 __global__ void node2vec_walk_csr_kernel(Csr g, const int32_t* __restrict__ targets,

@@ -6,12 +6,36 @@
 //   bits = threefry(key, wid, s << 16).x0
 //   next = deg(cur) > 0 ? col[start(cur) + mulhi(bits, deg(cur))] : cur
 //
-// Bound on this card: bytes, and latency before bytes.  Every step is a chain
-// of dependent random reads (two row_ptr words, one col word), so a walker
-// cannot run ahead of its own memory latency; the design answers that with
-// parallelism alone: one independent thread per walker, 128-thread blocks, as
-// many walkers in flight as the card holds.  Each thread writes its own row
-// of the (B, L+1) output, which is not coalesced; kept simple on purpose.
+// Bound on this card: the chains of dependent random reads, once the stores
+// are whole sectors.  Every step reads cur's two row_ptr words, then one col
+// word that depends on them, and the next step depends on that word.  At the
+// bench shape (131 072 walkers, L = 80) all walkers are resident at once
+// (an SM holds 16 blocks of 128), so the card's throughput of random reads, not
+// each walker's latency, sets the time: it falls with the walkers.  Timed
+// apart in copies of this kernel (PERF.md): the reads alone (walk
+// computed, only column L stored) take three quarters of the new kernel's
+// time; the old 4-byte stores alone took 0.6 of the reads' time, and
+// contended with them; Threefry alone and whole-sector stores alone take a
+// tenth of the kernel's time each.
+//
+// What the design does about it:
+// - Each walk row is stored a whole 32-byte sector at a time from eight
+//   registers (csr.cuh::RowWriter, shared with K2).  The old kernel stored
+//   one 4-byte word a step: a warp's store touched 32 sectors (rows are
+//   (L+1)*4 bytes apart) and wrote an eighth of each, and L2 had to fill
+//   those partly written sectors from device memory.  That halved K1's time
+//   on the H100.
+// - Nothing else: the random reads are as the walk needs them.
+// Measured and not kept (PERF.md): streaming stores (__stcs) and an
+// L2::evict_first store policy (no change beyond the run-to-run spread:
+// the 42 MB of walks do not push the graph out of L2 enough to matter),
+// L2::evict_last loads of row_ptr (5 % faster, but the lines keep their
+// priority after the launch and speed up or crowd the kernels that follow,
+// which is global state this kernel must not leave), two walkers a thread
+// interleaved (no change: the walkers are all resident already), the row
+// bounds as one aligned 8-byte load from a per-graph (start, end) table
+// (slower: the 16 MB table takes more of L2 than the 8 MB row_ptr), 64 or
+// 256 threads a block (no change).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -29,14 +53,15 @@ __global__ void uniform_walk_csr_kernel(Csr g, const int32_t* __restrict__ targe
   if (tid >= num_walkers) return;
   uint32_t wid = (uint32_t)tid + walker_offset;
   int32_t* out = walks + tid * ((int64_t)walk_length + 1);
+  RowWriter w{out, (int32_t)(((uintptr_t)out >> 2) & 7), walk_length, {}};
   int32_t cur = targets[tid];
-  out[0] = cur;
+  w.put(0, cur);
   for (int32_t s = 1; s <= walk_length; ++s) {
     if (g.num_edges > 0) {
       uint32_t bits = threefry2x32(k0, k1, wid, step_round_counter(s, 0)).x0;
       cur = sample_neighbor(g, cur, bits);
     }
-    out[s] = cur;
+    w.put(s, cur);
   }
 }
 

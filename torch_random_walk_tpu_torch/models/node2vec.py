@@ -108,7 +108,10 @@ class Node2Vec:
                 + (int(epoch) & prng.MASK32) * _EPOCH_STRIDE) & prng.MASK32
 
     def sample(self, targets, epoch: int):
-        """The walks and shared negatives of one epoch step."""
+        """The walks and shared negatives of one epoch step.  The walks go
+        through ``walk(graph, ...)``, so their sampler follows ``graph.fat``
+        as the JAX ``epoch_step`` follows ``edge_tab``: the mixture of the
+        fat engine, or ``node2vec_walk_csr`` with ``graph.search_iters``."""
         cfg = self.config
         seed = self.step_seed(epoch)
         walks = walk(self.graph, target_nodes=targets, p=cfg.p, q=cfg.q,

@@ -1,9 +1,12 @@
 """Public walk entry point (twin of ``torch_random_walk_tpu/ops/walk.py::walk``).
 
 Dispatch, as in the JAX package: p == q == 1 selects the uniform walk; a
-``CSRGraph`` selects the mixture sampler scaled by ``graph.deg_bits``; raw
-(row_ptr, col_idx) arrays select the rejection sampler with the conservative
-search depth.  The two biased forms are two deliberate bitstreams.
+``CSRGraph`` with fat tables (``graph.fat``, the JAX package's
+``edge_tab is not None``) selects the mixture sampler scaled by
+``graph.deg_bits``; a ``CSRGraph`` without them selects the rejection sampler
+with ``graph.search_iters``; raw (row_ptr, col_idx) arrays select the
+rejection sampler with the conservative search depth.  The mixture and the
+rejection sampler are two deliberate bitstreams.
 """
 
 from __future__ import annotations
@@ -26,10 +29,10 @@ def walk(row_ptr, col_idx=None, target_nodes=None, p=1.0, q=1.0,
     """Random walks from ``target_nodes``: (B, walk_length + 1) int32.
 
     The first argument may be a ``CSRGraph`` instead of (row_ptr, col_idx).
-    ``device=None`` means the card.  With a ``CSRGraph``, a walker whose
+    ``device=None`` means the card.  On a fat ``CSRGraph``, a walker whose
     round budget (``max_rounds`` per step) runs out gets -1 in its last
-    column, the JAX graph entry's mark of an incomplete walk; the raw-array
-    form keeps the walker in place for that step, as the JAX oracle does.
+    column, the JAX fat engine's mark of an incomplete walk; the rejection
+    forms keep the walker in place for that step, as the JAX oracle does.
     """
     if target_nodes is None:
         raise ValueError("target_nodes is required")
@@ -43,6 +46,11 @@ def walk(row_ptr, col_idx=None, target_nodes=None, p=1.0, q=1.0,
             return uniform_walk_csr(graph.row_ptr, graph.col_idx,
                                     target_nodes, walk_length, seed,
                                     device=dev)
+        if not graph.fat:
+            return node2vec_walk_csr(graph.row_ptr, graph.col_idx,
+                                     target_nodes, p, q, walk_length, seed,
+                                     search_iters=graph.search_iters,
+                                     max_rounds=max_rounds, device=dev)
         out = biased_walk(
             graph.row_ptr, graph.col_idx, target_nodes, walk_length, seed, 0,
             True, NO_PROBS, mixture_consts(float(p), float(q),
