@@ -18,13 +18,19 @@ kernels also with float32 tables, each with its tile plan and its device time
 by kernel.  The ``build`` line reports each loss kernel's registers and
 spills (``-Xptxas -v``) and its tensor-core instructions (``cuobjdump
 -sass``), and the run fails unless the bfloat16 K5 and K6 hold some; it
-also gives the walk kernels' registers and spills, the INT32-pipe
-instructions of one Threefry call counted in the SASS of a probe kernel, and
+also gives the walk, window and exchange kernels' registers, spills and
+stack frames, the instructions of one Threefry call counted in the SASS of a
+probe kernel (by pipe; its rotates and xors set the bounds' operation
+count), K3's instructions a slot counted the same way in its own SASS, and
 the ``walk_geometry`` line K2's threads per block and its resident blocks
 per SM.  The ``walk_times`` line times K1 and K2 at the bench shape and with a
-half and a quarter of the walkers.  The small checks also walk a graph built
-with ``build_fat=False``, which must take the rejection sampler with the
-graph's own search depth.
+half and a quarter of the walkers; the ``windows_times`` and
+``exchange_kernel`` lines time K3 and K4 (K4 beside an empty kernel launched
+the same way, the floor of a launch, and beside the library call, as device
+time and with the host in the way).  The small checks also walk a graph
+built with ``build_fat=False``, which must take the rejection sampler with
+the graph's own search depth, and hold K3 and K4 against their plain
+versions at the edges of their launch plans.
 
 Every kernel is held against its plain version on all the rows the main path
 gives it.  One thing runs at a smaller depth than the main path, to keep the
@@ -105,10 +111,10 @@ TENSOR_FLOPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 495e12}
 # nvidia-smi and sets INT_OPS_PER_S.
 INT32_RESULTS_PER_SM_CLOCK = 64
 INT_OPS_PER_S: float | None = None
-# INT32-pipe instructions of one Threefry-2x32 call, counted by phase_build()
-# in the SASS of a probe kernel (threefry_sass_ops()); and of one
-# binary-search trip (compare, select, halve, address: an estimate, not
-# counted).
+# Instructions of one Threefry-2x32 call that only the INT32 pipe executes
+# (its rotates and xors), counted by phase_build() in the SASS of a probe
+# kernel (threefry_sass_ops()); and of one binary-search trip (compare,
+# select, halve, address: an estimate, not counted).
 THREEFRY_OPS: int | None = None
 SEARCH_TRIP_OPS = 6
 
@@ -181,8 +187,12 @@ def wall_ms(fn):
 def queued_ms(fn, reps: int, iters: int = 5) -> float:
     """Median device time of one call of ``fn`` when ``reps`` calls run back
     to back on the device: they are issued while a long spin kernel holds the
-    stream, so the time between the two events holds no wait for the host."""
+    stream, so the time between the two events holds no wait for the host.
+    One call first, alone, so that no first-use cost (an allocation) holds
+    up the issue."""
     spin_cycles = 60_000_000
+    fn()
+    torch.cuda.synchronize()
     times = []
     for _ in range(iters + 1):
         before = torch.cuda.Event(enable_timing=True)
@@ -395,10 +405,14 @@ def biased_bound(graph, walks, rounds, searches, mixture: bool):
 
 
 def windows_bound(num_walks: int, length: int):
+    """The walks read once, targets, positives and negatives written once;
+    one Threefry call a slot.  The rest of a slot's work (its draw's mulhi,
+    the slot counter, the window's index arithmetic) can issue to the FMA
+    pipe or is shared by a window's slots, so it is not counted."""
     num_win = num_walks * (length - WINDOW + 1)
     slots = num_win * (WINDOW - 1)
     return bound(4 * (num_walks * length + num_win + 2 * slots),
-                 slots * (THREEFRY_OPS + 10))
+                 slots * THREEFRY_OPS)
 
 
 def exchange_bound(num_shards: int, cap: int, width: int):
@@ -472,6 +486,16 @@ WALK_FUNCTIONS = {
 }
 
 
+# K3's two instantiations (W = 5, any other W) and K4's for D <= 8 (the
+# routed leg's), by word width.
+EXCHANGE_WINDOW_FUNCTIONS = {
+    "to_windows_kernelILi4E": "K3 W=5",
+    "to_windows_kernelILi0E": "K3 any W",
+    "all_to_all_chunks_kernelILi8E5uint4": "K4 D<=8, 16-byte words",
+    "all_to_all_chunks_kernelILi8EjE": "K4 D<=8, 4-byte words",
+}
+
+
 def function_key(name: str, functions: dict) -> str | None:
     for key in functions:
         if key in name:
@@ -490,24 +514,39 @@ def ptxas_report(log: str, functions: dict) -> dict:
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           block)
+        stack = re.search(r"(\d+) bytes stack frame", block)
         smem = re.search(r"(\d+) bytes smem", block)
         found[key] = {
             "registers": int(regs.group(1)) if regs else None,
             "spill_store_bytes": int(spill.group(1)) if spill else None,
             "spill_load_bytes": int(spill.group(2)) if spill else None,
+            "stack_frame_bytes": int(stack.group(1)) if stack else None,
             "static_smem_bytes": int(smem.group(1)) if smem else 0}
     return found
 
 
-def sass_report(lib) -> dict:
-    """Per loss kernel, its tensor-core instructions (HMMA/HGMMA) and its
-    atomic reductions in the SASS of the built library."""
+def library_sass(lib) -> str:
+    """``cuobjdump -sass`` of the built library."""
     cuobjdump = str(Path(build.find_nvcc()).parent / "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
+    return subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
                           capture_output=True, text=True, timeout=120).stdout
+
+
+def sass_functions(sass: str) -> dict:
+    """Each function's SASS, by the (mangled) name cuobjdump gives it."""
     found = {}
     for block in re.split(r"\n\s*Function : ", sass)[1:]:
-        key = function_key(block.split("\n", 1)[0], SGNS_FUNCTIONS)
+        name, body = block.split("\n", 1)
+        found[name.strip()] = body
+    return found
+
+
+def sass_report(functions: dict) -> dict:
+    """Per loss kernel, its tensor-core instructions (HMMA/HGMMA) and its
+    atomic reductions in the SASS of the built library."""
+    found = {}
+    for name, block in functions.items():
+        key = function_key(name, SGNS_FUNCTIONS)
         if key is None:
             continue
         ops = Counter(
@@ -523,24 +562,53 @@ def sass_report(lib) -> dict:
     return found
 
 
-# Instructions of a probe's SASS that are not Threefry's arithmetic: its
-# loads, stores, moves and control flow.
-NOT_ARITHMETIC = {"LDG", "STG", "LDC", "S2R", "CS2R", "EXIT", "BRA", "NOP",
-                  "MOV", "RET"}
+# Integer opcodes that issue to the INT32 pipe: adds, logic, shifts and
+# funnel shifts (one rotate), address arithmetic, compares and selects.
+# IMAD (multiply-add, and the IMAD.IADD / IMAD.SHL forms nvcc picks for some
+# adds and shifts) issues to the FMA pipe beside it; moves, conversions,
+# loads, stores, control flow and the uniform datapath (U*, once a warp) are
+# not counted.
+INT32_PIPE_OPCODES = ("IADD3", "VIADD", "LOP3", "SHF", "LEA", "ISETP", "SEL",
+                      "PRMT", "IABS", "IMNMX", "VIMNMX", "FLO", "POPC",
+                      "BMSK", "SGXT")
 
 
-def threefry_sass_ops() -> tuple[int, int, dict]:
+# Of those, the ones with no FMA-pipe form: funnel shifts (rotates) and
+# three-input logic.  An add can issue as IADD3 (INT32 pipe) or IMAD.IADD
+# (FMA pipe), as nvcc chooses.
+INT32_ONLY_OPCODES = ("SHF", "LOP3")
+
+
+def pipe_counts(sass: str) -> dict:
+    """Of one function's SASS, each instruction counted once where it stands
+    (a loop body once): its INT32-pipe instructions, those of them that have
+    no FMA-pipe form, its IMAD instructions other than IMAD.MOV, and the
+    opcode histogram."""
+    ops = Counter(re.findall(
+        r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)", sass))
+
+    def count(opcodes):
+        return sum(n for op, n in ops.items() if op.split(".")[0] in opcodes)
+    return {"int32_pipe_ops": count(INT32_PIPE_OPCODES),
+            "int32_only_ops": count(INT32_ONLY_OPCODES),
+            "fma_pipe_ops": sum(n for op, n in ops.items()
+                                if op.startswith("IMAD")
+                                and not op.startswith("IMAD.MOV")),
+            "opcodes": dict(sorted(ops.items()))}
+
+
+def threefry_sass_ops() -> dict:
     """Integer instructions of one Threefry-2x32 call in the SASS that nvcc
     gives for this card, as the walk kernels call it: the key as kernel
     parameters, the counter words from memory.  A funnel shift (one rotate)
     counts as one instruction, as does a three-input add or logic op.
-    Returns (instructions on the INT32 pipe, IMAD instructions, opcode
-    histogram of the whole probe).  nvcc issues a share of the adds as
-    IMAD.IADD, which runs on the FMA pipe beside the INT32 one, so only the
-    first count bounds the time at the INT32 rate (counting both would give
-    a bound that a Threefry-only kernel beats on the H100: PERF.md).
-    Uniform-datapath instructions (U*, once a warp) and the probe's loads,
-    stores and moves are left out."""
+    Returns ``pipe_counts`` of the probe.  Its rotates and xors
+    (``int32_only_ops``) run on the INT32 pipe alone; its adds issue as
+    IADD3 on that pipe or as IMAD.IADD on the FMA pipe beside it, and there
+    are fewer of them than rotates and xors, so the FMA pipe can take them
+    all: the rotates and xors bound the time at the INT32 rate.  (Counting
+    more gives a bound that kernels beat on the H100: all 68 instructions a
+    Threefry-only kernel, the 51 of nvcc's INT32 split K3: PERF.md.)"""
     probe_dir = build.build_dir()
     probe_dir.mkdir(parents=True, exist_ok=True)
     src, cubin = probe_dir / "threefry_probe.cu", probe_dir / "threefry_probe.cubin"
@@ -554,16 +622,22 @@ def threefry_sass_ops() -> tuple[int, int, dict]:
                     str(build.SOURCE_DIR), "-cubin", "-o", str(cubin),
                     str(src)], check=True, capture_output=True, timeout=120)
     cuobjdump = str(Path(build.find_nvcc()).parent / "cuobjdump")
-    sass = run_text([cuobjdump, "-sass", str(cubin)])
-    ops = Counter(re.findall(
-        r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)", sass))
-    arithmetic = {op: n for op, n in ops.items()
-                  if not op.startswith("U")
-                  and op.split(".")[0] not in NOT_ARITHMETIC
-                  and not op.startswith("IMAD.MOV")}
-    fma_pipe = sum(n for op, n in arithmetic.items() if op.startswith("IMAD"))
-    return (sum(arithmetic.values()) - fma_pipe, fma_pipe,
-            dict(sorted(ops.items())))
+    return pipe_counts(run_text([cuobjdump, "-sass", str(cubin)]))
+
+
+def windows_sass_report(functions: dict) -> dict:
+    """K3's entry functions: ``pipe_counts`` of each.  The W = 5 function
+    does one window of 4 slots a thread, with no loop, so its counts over 4
+    are a slot's (``per_slot``)."""
+    found = {}
+    for name, block in functions.items():
+        if "to_windows_kernel" not in name:
+            continue
+        found[name] = counts = pipe_counts(block)
+        if "to_windows_kernelILi4E" in name:
+            counts["per_slot"] = {k: counts[k] / 4 for k in (
+                "int32_pipe_ops", "int32_only_ops", "fma_pipe_ops")}
+    return found
 
 
 def phase_build() -> None:
@@ -573,19 +647,26 @@ def phase_build() -> None:
     bindings.library()
     seconds = time.perf_counter() - t0
     log = build.build_log()
-    ptxas, sass = ptxas_report(log, SGNS_FUNCTIONS), sass_report(lib)
+    functions = sass_functions(library_sass(lib))
+    ptxas, sass = ptxas_report(log, SGNS_FUNCTIONS), sass_report(functions)
     kernels = {SGNS_FUNCTIONS[k]: {**ptxas.get(k, {}), **sass.get(k, {})}
                for k in SGNS_FUNCTIONS}
     walk_ptxas = ptxas_report(log, WALK_FUNCTIONS)
-    THREEFRY_OPS, threefry_fma, threefry_sass = threefry_sass_ops()
+    k3_k4_ptxas = ptxas_report(log, EXCHANGE_WINDOW_FUNCTIONS)
+    threefry = threefry_sass_ops()
+    THREEFRY_OPS = threefry["int32_only_ops"]
     emit("build", seconds=round(seconds, 2), sources=list(build.SOURCES),
          walk_sgns_loss_kernels=kernels,
          walk_kernels={WALK_FUNCTIONS[k]: v for k, v in walk_ptxas.items()},
-         threefry_int32_pipe_ops=THREEFRY_OPS,
-         threefry_fma_pipe_ops=threefry_fma,
-         threefry_probe_sass=threefry_sass)
+         exchange_windows_kernels={EXCHANGE_WINDOW_FUNCTIONS[k]: v
+                                   for k, v in k3_k4_ptxas.items()},
+         threefry_int32_only_ops=THREEFRY_OPS,
+         threefry_int32_pipe_ops=threefry["int32_pipe_ops"],
+         threefry_fma_pipe_ops=threefry["fma_pipe_ops"],
+         threefry_probe_sass=threefry["opcodes"],
+         windows_sass=windows_sass_report(functions))
     require(30 <= THREEFRY_OPS <= 200,
-            f"Threefry counted as {THREEFRY_OPS} instructions: {threefry_sass}")
+            f"Threefry counted as {THREEFRY_OPS} instructions: {threefry}")
     for key in TENSOR_CORE_FUNCTIONS:
         require(sass.get(key, {}).get("tensor_core_instructions", 0) > 0,
                 f"{SGNS_FUNCTIONS[key]}: no HMMA/HGMMA instruction in its SASS")
@@ -656,12 +737,26 @@ def phase_small_checks() -> None:
     errs["to_windows"] = max_abs_err(
         tt.to_windows(walks, WINDOW, graph.num_nodes, seed=WINDOW_SEED),
         plain_windows(walks, graph.num_nodes, WINDOW_SEED))
+    # K3's other instantiation (any W), and windows as long as the walk.
+    key = prng.derive_key(WINDOW_SEED, prng.STREAM_WINDOWS_SG)
+    for w, length in ((2, 21), (3, 21), (8, 21), (5, 5), (8, 8)):
+        part = walks[:, :length].contiguous()
+        errs["to_windows"] = max(errs["to_windows"], max_abs_err(
+            tt.to_windows(part, w, graph.num_nodes, seed=WINDOW_SEED),
+            windows.to_windows_plain(part, w, graph.num_nodes, key)))
     worst = 0
     rng = np.random.default_rng(6)
-    for cap, width in [(128, 3), (5, 3), (256, 14)]:  # 16- and 4-byte paths
-        x = rng.integers(-2**31, 2**31, (NUM_SHARDS, NUM_SHARDS, cap, width))
-        outboxes = [torch.tensor(x[s], dtype=torch.int32, device=graph.device)
-                    for s in range(NUM_SHARDS)]
+    # 16- and 4-byte words, 1 to 16 shards, and buffers one word off a
+    # 16-byte boundary (4-byte words).
+    for shards, cap, width, offset in [
+            (8, 128, 3, 0), (8, 5, 3, 0), (8, 256, 14, 0), (1, 2048, 3, 0),
+            (2, 1, 14, 0), (16, 128, 3, 0), (8, 2048, 3, 1)]:
+        x = rng.integers(-2**31, 2**31, (shards, shards, cap, width))
+        outboxes = []
+        for s in range(shards):
+            buf = torch.empty(x[s].size + offset, dtype=torch.int32,
+                              device=graph.device)[offset:]
+            outboxes.append(buf.view(x[s].shape).copy_(torch.from_numpy(x[s])))
         worst = max(worst, max_abs_err(
             exchange.all_to_all_chunks(outboxes),
             exchange.all_to_all_chunks_plain(outboxes)))
@@ -735,6 +830,133 @@ def phase_walk_times(graph) -> tuple[dict, dict]:
          device_timing=f"{WALK_REPS} calls queued behind a spin kernel, "
                        "median of 5, per call")
     return device[NUM_WALKERS], entry[NUM_WALKERS]
+
+
+def bench_walks(graph):
+    """The uniform walks of the bench shape (K1), K3's input on the main
+    path."""
+    return tt.walk(graph, target_nodes=bench_targets(graph.device),
+                   walk_length=WALK_LENGTH, seed=WALK_SEED)
+
+
+def phase_exchange_windows_times(walks) -> dict:
+    """K3 and K4 at the main path's shapes.  K3, ``to_windows`` of the bench
+    walks: device time of WALK_REPS calls queued behind a spin kernel
+    (``queued_ms``; the row's ``ms``) and the entry point's time (CUDA events
+    around one call).  K4, D=8 chunks of the routed leg's capacity and R=3:
+    device time of 100 launches queued the same way (the row's ``ms``) and
+    the time a launch takes with the host in the way (back-to-back launches
+    on an idle stream), beside the plain version, the library call and an
+    empty kernel launched through the same path, on K4's grid and on one
+    block: the floor of a launch (left out in a tree from before the empty
+    kernel).  Importing this script and calling ``phase_device()``,
+    ``phase_build()`` and then this on ``bench_walks(phase_graph())`` is the
+    quick check of a change to either kernel."""
+    def windows_call():
+        return tt.to_windows(walks, WINDOW, NUM_NODES, seed=WINDOW_SEED)
+
+    k3 = {"device_ms": queued_ms(windows_call, WALK_REPS),
+          "entry_ms": time_ms(windows_call)}
+    emit("windows_times", shape=list(walks.shape), window=WINDOW, **k3,
+         device_timing=f"{WALK_REPS} calls queued behind a spin kernel, "
+                       "median of 5, per call",
+         entry_timing="CUDA events around one call, 1 warm-up, median of 5")
+
+    cap = tt.RoutedConfig.for_walk(ROUTED_WALKERS, NUM_SHARDS,
+                                   WALK_LENGTH).pair_capacity
+    shape = (NUM_SHARDS, cap, 3)
+    outboxes = [torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32,
+                              device=walks.device) for _ in range(NUM_SHARDS)]
+    inboxes = [torch.empty_like(o) for o in outboxes]
+    exchange_chunks = exchange.ChunkExchange(outboxes, inboxes)
+    stacked = torch.stack(outboxes)
+    reps = 100
+
+    def repeat(fn):
+        def run():
+            for _ in range(reps):
+                fn()
+        return run
+
+    calls = {
+        "kernel": exchange_chunks,
+        "plain": lambda: exchange.all_to_all_chunks_plain(outboxes),
+        "library": lambda: stacked.transpose(0, 1).contiguous(),
+    }
+    geometry = None
+    if hasattr(bindings, "empty_kernel"):
+        plan = exchange_chunks._table.plan
+        index = torch.cuda.current_device()
+        geometry = {"grid": [plan.pieces, NUM_SHARDS, NUM_SHARDS],
+                    "threads": plan.threads, "loads_per_thread": plan.loads,
+                    "word_bytes": 16 if plan.vec else 4}
+        calls["empty_kernel_k4_grid"] = lambda: bindings.empty_kernel(
+            index, (plan.pieces, NUM_SHARDS, NUM_SHARDS), plan.threads)
+        calls["empty_kernel_one_block"] = lambda: bindings.empty_kernel(
+            index, (1, 1, 1), 32)
+    device_ms = {k: queued_ms(fn, reps) for k, fn in calls.items()}
+    issued_ms = {k: time_ms(repeat(fn)) / reps for k, fn in calls.items()}
+    err = max_abs_err(inboxes, exchange.all_to_all_chunks_plain(outboxes))
+    emit("exchange_kernel", shape=shape, launches_per_timing=reps,
+         geometry=geometry, max_abs_err=err,
+         device_ms_per_launch=device_ms,
+         device_ms_method="CUDA events around launches issued while a spin "
+                          "kernel holds the stream, median of 5",
+         host_bound_ms_per_launch=issued_ms,
+         host_bound_ms_method="CUDA events around back-to-back launches on "
+                              "an idle stream, median of 5",
+         floor_is="empty_kernel_*: a kernel that does nothing, launched "
+                  "through the same ctypes path as K4")
+    require(err == 0, "the exchange kernel differs from its plain version")
+    return {"to_windows": k3, "all_to_all_chunks": {
+        "shape": shape, "device_ms": device_ms, "host_bound_ms": issued_ms,
+        "max_abs_err": err}}
+
+
+def phase_routed_times(graph, runs: int = 3) -> list[dict]:
+    """The routed leg of the main path (D=8 shards, ROUTED_WALKERS walkers,
+    full walk length) ``runs`` times after one warm-up, on the host clock,
+    each with the host time spent inside the exchange's calls (K4's launch
+    path); and the host time of one small PyTorch operation in this process
+    (2000 in-place adds, synchronised), which sets the pace of the leg's
+    thousands of launches a phase and differs from process to process on a
+    shared host.  Importing this script and calling ``phase_device()``,
+    ``phase_build()`` and then this on ``phase_graph()`` in two copies of
+    the tree, A B B A in one call, compares what a change does to the leg."""
+    pgraph = tt.PartitionedCSR.from_csr(graph, NUM_SHARDS)
+    targets = bench_targets(graph.device)[:ROUTED_WALKERS]
+    spent = [0.0]
+    call = exchange.ChunkExchange.__call__
+
+    def timed_call(self):
+        t0 = time.perf_counter()
+        out = call(self)
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    def leg():
+        return tt.walk_partitioned_routed(pgraph, targets, WALK_LENGTH,
+                                          seed=WALK_SEED)
+
+    leg()
+    legs = []
+    exchange.ChunkExchange.__call__ = timed_call
+    try:
+        for _ in range(runs):
+            spent[0] = 0.0
+            (_, info), ms = wall_ms(leg)
+            legs.append({"leg_ms": ms, "exchange_host_ms": spent[0] * 1e3,
+                         "phases": info["phases"]})
+    finally:
+        exchange.ChunkExchange.__call__ = call
+    x = torch.zeros(16, device=graph.device)
+    _, ops_ms = wall_ms(lambda: [x.add_(1) for _ in range(2000)])
+    emit("routed_times", walkers=ROUTED_WALKERS, shards=NUM_SHARDS,
+         legs=legs, small_op_host_us=ops_ms * 1e3 / 2000,
+         small_op_is="2000 in-place "
+         "adds on a 16-element tensor, synchronised: us per op",
+         timing="host clock around one leg, after one warm-up")
+    return legs
 
 
 def phase_main_path(graph):
@@ -847,53 +1069,23 @@ def phase_kernels(graph, targets, pgraph, out, counts, routed_info,
         del plain
 
     walks = out["uniform"]
+    times = phase_exchange_windows_times(walks)
     plain, plain_ms = wall_ms(
         lambda: plain_windows(walks, NUM_NODES, WINDOW_SEED))
-    row("to_windows",
-        time_ms(lambda: tt.to_windows(walks, WINDOW, NUM_NODES,
-                                      seed=WINDOW_SEED)),
-        plain_ms, max_abs_err(out["windows"], plain),
+    row("to_windows", times["to_windows"]["device_ms"], plain_ms,
+        max_abs_err(out["windows"], plain),
         windows_bound(NUM_WALKERS, WALK_LENGTH + 1), None,
         counts["to_windows"])
+    rows[-1]["entry_point_ms"] = times["to_windows"]["entry_ms"]
     del plain
 
-    # K4 at the routed leg's chunk shape.  One launch is a few microseconds,
-    # so ``ms`` is device time of launches queued back to back; the time per
-    # launch with the host in the way is printed beside it.
-    cap = tt.RoutedConfig.for_walk(ROUTED_WALKERS, NUM_SHARDS,
-                                   WALK_LENGTH).pair_capacity
-    shape = (NUM_SHARDS, cap, 3)
-    outboxes = [torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32,
-                              device=graph.device) for _ in range(NUM_SHARDS)]
-    inboxes = [torch.empty_like(o) for o in outboxes]
-    exchange_chunks = exchange.ChunkExchange(outboxes, inboxes)
-    stacked = torch.stack(outboxes)
-    reps = 100
-
-    def repeat(fn):
-        def run():
-            for _ in range(reps):
-                fn()
-        return run
-
-    calls = {
-        "kernel": exchange_chunks,
-        "plain": lambda: exchange.all_to_all_chunks_plain(outboxes),
-        "library": lambda: stacked.transpose(0, 1).contiguous(),
-    }
-    device_ms = {k: queued_ms(fn, reps) for k, fn in calls.items()}
-    issued_ms = {k: time_ms(repeat(fn)) / reps for k, fn in calls.items()}
+    exchange_times = times["all_to_all_chunks"]
+    device_ms = exchange_times["device_ms"]
     row("all_to_all_chunks", device_ms["kernel"], device_ms["plain"],
-        max_abs_err(inboxes, exchange.all_to_all_chunks_plain(outboxes)),
-        exchange_bound(*shape), device_ms["library"],
-        counts["all_to_all_chunks"])
-    emit("exchange_kernel", shape=shape, launches_per_timing=reps,
-         device_ms_per_launch=device_ms,
-         device_ms_method="CUDA events around launches issued while a spin "
-                          "kernel holds the stream, median of 5",
-         host_bound_ms_per_launch=issued_ms,
-         host_bound_ms_method="CUDA events around back-to-back launches on "
-                              "an idle stream, median of 5")
+        exchange_times["max_abs_err"], exchange_bound(*exchange_times["shape"]),
+        device_ms["library"], counts["all_to_all_chunks"])
+    rows[-1]["host_bound_ms"] = exchange_times["host_bound_ms"]["kernel"]
+    cap = exchange_times["shape"][1]
 
     steps = NUM_WALKERS * WALK_LENGTH
     emit("rates", walkers=NUM_WALKERS, walk_length=WALK_LENGTH,

@@ -19,6 +19,7 @@ from torch_random_walk_tpu.parallel.partition_v2 import (
     walk_partitioned_routed as j_walk_routed,
 )
 from torch_random_walk_tpu_torch import convert
+from torch_random_walk_tpu_torch.kernels import bindings
 from torch_random_walk_tpu_torch.ops.common import compact_indices
 from torch_random_walk_tpu_torch.ops.uniform import uniform_walk_csr
 from torch_random_walk_tpu_torch.parallel.exchange import (
@@ -162,14 +163,84 @@ def test_routed_walkers_must_divide_by_shards(graphs):
                                    device="cpu")
 
 
+def k4_block_copy(plan, x):
+    """Python mirror of K4's block -> (src, dst, range) mapping
+    (kernels/exchange.cu::all_to_all_chunks_kernel): block (piece, dst, src)
+    copies the words piece * threads * loads + k * threads + t (k < loads,
+    t < threads) of chunk (src, dst) below ``elems``, in words of 16 bytes
+    where ``plan.vec``.  Applies it to the stacked outboxes ``x`` (D, D, C,
+    R) and returns the stacked inboxes, checking that every word is written
+    exactly once."""
+    d = plan.num_shards
+    words = x.reshape(d, d, plan.elems, -1)  # (src, dst, elems, 4 or 1)
+    inbox = np.zeros_like(words)
+    written = np.zeros((d, d, plan.elems), dtype=np.int64)
+    piece, k, t = np.meshgrid(np.arange(plan.pieces), np.arange(plan.loads),
+                              np.arange(plan.threads), indexing="ij")
+    idx = (piece * plan.threads * plan.loads + k * plan.threads + t).ravel()
+    for dst in range(d):
+        for src in range(d):
+            i = idx[idx < plan.elems]
+            inbox[dst, src, i] = words[src, dst, i]
+            np.add.at(written[dst, src], i, 1)
+    assert (written == 1).all()
+    return inbox.reshape(x.shape)
+
+
+@pytest.mark.parametrize("shards", [1, 2, 8, 16])
+@pytest.mark.parametrize("cap,width", [(1, 14), (5, 3), (128, 3), (2048, 3)])
+def test_exchange_block_mapping_mirror_equals_jax_layout(shards, cap, width):
+    """K4's mapping, mirrored on the CPU, gives the layout of
+    lax.all_to_all(split_axis=0, concat_axis=0) over the stacked shards (the
+    function of pallas_all_to_all, to which
+    test_all_to_all_chunks_equals_pallas_kernel holds the port)."""
+    rng = np.random.default_rng(shards * 1000 + cap)
+    x = rng.integers(-2**31, 2**31, (shards, shards, cap, width))
+    x = x.astype(np.int32)
+    want = np.asarray(jnp.swapaxes(jnp.asarray(x), 0, 1))
+    words = cap * width
+    for vec in {words % 4 == 0, False}:
+        plan = bindings.exchange_plan(shards, words, vec)
+        assert plan.elems * (4 if vec else 1) == words
+        np.testing.assert_array_equal(k4_block_copy(plan, x), want)
+
+
+def test_exchange_refuses_more_than_256_shards():
+    assert bindings.exchange_plan(256, 12, True).num_shards == 256
+    with pytest.raises(ValueError, match="1 to 256 shards"):
+        bindings.exchange_plan(257, 12, True)
+    boxes = [torch.zeros((257, 1, 3), dtype=torch.int32) for _ in range(257)]
+    with pytest.raises(ValueError, match="1 to 256 shards"):
+        bindings.chunk_pointer_table(boxes, boxes)
+
+
 @pytest.mark.cuda
 def test_exchange_kernel_equals_plain_version():
     need_cuda()
     rng = np.random.default_rng(5)
-    for cap, width in [(128, 3), (5, 3), (256, 14)]:  # 16-byte and 4-byte paths
-        x = rng.integers(-2**31, 2**31, (8, 8, cap, width)).astype(np.int32)
-        outboxes = [torch.from_numpy(x[s]).cuda() for s in range(8)]
-        got = all_to_all_chunks(outboxes)
-        want = all_to_all_chunks_plain(outboxes)
-        for g, w in zip(got, want, strict=True):
-            eq(g, w.cpu().numpy())
+    for shards in (1, 2, 8, 16):
+        for cap in (1, 5, 128, 2048):
+            for width in (3, 14):
+                # offset 1: every buffer one word off a 16-byte boundary, so
+                # the 4-byte path runs whatever the chunk size
+                for offset in (0, 1):
+                    x = rng.integers(-2**31, 2**31,
+                                     (shards, shards, cap, width))
+                    outboxes = []
+                    for s in range(shards):
+                        buf = torch.empty(x[s].size + offset,
+                                          dtype=torch.int32, device="cuda")
+                        outboxes.append(buf[offset:].view(x[s].shape).copy_(
+                            torch.from_numpy(x[s])))
+                    inboxes = [
+                        torch.empty(x[s].size + offset, dtype=torch.int32,
+                                    device="cuda")[offset:].view(x[s].shape)
+                        for s in range(shards)]
+                    got = all_to_all_chunks(outboxes, inboxes)
+                    want = all_to_all_chunks_plain(outboxes)
+                    for g, w in zip(got, want, strict=True):
+                        eq(g, w.cpu().numpy())
+    big = [torch.zeros((257, 1, 3), dtype=torch.int32, device="cuda")
+           for _ in range(257)]
+    with pytest.raises(ValueError, match="1 to 256 shards"):
+        all_to_all_chunks(big)

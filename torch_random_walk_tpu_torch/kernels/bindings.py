@@ -51,9 +51,10 @@ def library(verbose: bool = False) -> ctypes.CDLL:
             _I32, _PTR]
         lib.trw_node2vec_walk_geometry.argtypes = [_I32, _I32, _PTR]
         lib.trw_to_windows.argtypes = [
-            _PTR, _I64, _I32, _I32, _U32, _U32, _U32, _PTR, _PTR, _PTR, _PTR]
-        lib.trw_all_to_all_chunks.argtypes = [
-            _PTR, _PTR, _I32, _I64, _I32, _PTR]
+            _PTR, _I64, _I32, _I32, _U32, _U32, _U32, _U32, _U32, _U32, _U32,
+            _U32, _I32, _I32, _PTR, _PTR, _PTR, _PTR]
+        lib.trw_all_to_all_chunks.argtypes = [_PTR, _PTR]
+        lib.trw_empty_kernel.argtypes = [_I32, _I32, _I32, _I32, _PTR]
         lib.trw_walk_sgns_chunk.argtypes = [_I32] * 6
         lib.trw_walk_sgns_partials.argtypes = [_I32] * 6
         lib.trw_walk_sgns_partials.restype = ctypes.c_int64
@@ -66,7 +67,7 @@ def library(verbose: bool = False) -> ctypes.CDLL:
             _F32, _PTR, _PTR, _PTR, _PTR]
         for fn in (lib.trw_uniform_walk_csr, lib.trw_node2vec_walk_csr,
                    lib.trw_node2vec_walk_geometry, lib.trw_to_windows,
-                   lib.trw_all_to_all_chunks,
+                   lib.trw_all_to_all_chunks, lib.trw_empty_kernel,
                    lib.trw_walk_sgns_chunk, lib.trw_walk_sgns_describe,
                    lib.trw_walk_sgns_loss_fwd, lib.trw_walk_sgns_loss_bwd):
             fn.restype = ctypes.c_int
@@ -89,10 +90,24 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(name: str, fn, device: torch.device, *args) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*args, stream)
+def _device_index(device: torch.device) -> int:
+    if device.index is None:
+        return torch.cuda.current_device()
+    return device.index
+
+
+def _call(fn, device_index: int, *args) -> int:
+    """``fn(*args, stream)`` with PyTorch's current stream of the card, which
+    is made current only where it is not."""
+    if torch.cuda.current_device() == device_index:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device_index))
+    with torch.cuda.device(device_index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device_index))
+
+
+def _launch(name: str, fn, device_index: int, *args) -> None:
+    """``_call``, raising if the launch was refused, and count the launch."""
+    rc = _call(fn, device_index, *args)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"code {rc}")
@@ -120,8 +135,9 @@ def uniform_walk_csr(row_ptr, col_idx, targets, walk_length: int,
     if num_walkers == 0:
         return walks
     _launch("uniform_walk_csr", library().trw_uniform_walk_csr,
-            targets.device, row_ptr.data_ptr(), col_idx.data_ptr(),
-            row_ptr.shape[0] - 1, col_idx.shape[0], targets.data_ptr(),
+            _device_index(targets.device), row_ptr.data_ptr(),
+            col_idx.data_ptr(), row_ptr.shape[0] - 1, col_idx.shape[0],
+            targets.data_ptr(),
             walks.data_ptr(), num_walkers, walk_length, key[0], key[1],
             walker_offset & 0xFFFFFFFF)
     return walks
@@ -144,7 +160,8 @@ def node2vec_walk_csr(row_ptr, col_idx, targets, walk_length: int,
         return walks, exhausted.bool()
     name = ("node2vec_walk_csr_mixture" if mixture
             else "node2vec_walk_csr_rejection")
-    _launch(name, library().trw_node2vec_walk_csr, targets.device,
+    _launch(name, library().trw_node2vec_walk_csr,
+            _device_index(targets.device),
             row_ptr.data_ptr(), col_idx.data_ptr(), row_ptr.shape[0] - 1,
             col_idx.shape[0], targets.data_ptr(), walks.data_ptr(),
             exhausted.data_ptr(), num_walkers, walk_length, key[0], key[1],
@@ -163,9 +180,66 @@ def node2vec_walk_geometry(mixture: bool, threads: int = 0) -> dict:
     return {"threads": out[0], "blocks_per_sm": out[1]}
 
 
-def to_windows(walks, window_size: int, num_nodes: int, key: tuple[int, int]):
+# Walk words a group of K3's launch may span (blockIdx.y), so that every index
+# inside a group, a thread's window index plus its block's 255 others
+# included, stays below 2^31.
+WINDOW_GROUP_WORDS = 2 ** 31 - 256
+WINDOW_THREADS = 256  # K3's threads a block, one window each: kWindowThreads
+
+
+class WindowsPlan(NamedTuple):
+    """K3's launch: the walks cut into ``groups`` of ``group_walks`` walks
+    (the last may hold fewer), ``blocks`` blocks of ``WINDOW_THREADS``
+    windows a group; window u of a group lies in its walk
+    ``u * magic >> shift`` (= u // per_walk), and the group's windows and
+    slots mod 2^32 advance by ``group_windows`` and ``group_slots``."""
+
+    per_walk: int
+    group_walks: int
+    groups: int
+    blocks: int
+    group_windows: int
+    group_slots: int
+    magic: int
+    shift: int
+
+
+def division_magic(divisor: int) -> tuple[int, int]:
+    """(magic, shift) with ``u * magic >> shift == u // divisor`` for every
+    0 <= u < 2^31 and magic < 2^32: shift = 31 + ceil(log2 divisor), magic =
+    ceil(2^shift / divisor).  The error of the product, under divisor / 2^31,
+    never reaches the next multiple."""
+    if not 0 < divisor < 2 ** 31:
+        raise ValueError(f"divisor must be in (0, 2^31), got {divisor}")
+    shift = 31 + (divisor - 1).bit_length()
+    return -(-(1 << shift) // divisor), shift
+
+
+def windows_plan(num_walks: int, length: int, window: int,
+                 group_words: int = WINDOW_GROUP_WORDS) -> WindowsPlan:
+    """K3's launch for ``num_walks`` walks of ``length`` words and windows of
+    ``window``; ``group_words`` bounds the walk words of one group."""
+    if length > group_words:
+        raise ValueError(f"walks of {length} words do not fit one group of "
+                         f"{group_words}")
+    per_walk = length - window + 1
+    group_walks = max(1, min(num_walks, group_words // length))
+    groups = -(-num_walks // group_walks)
+    if groups > 65535:
+        raise ValueError(f"{num_walks} walks need {groups} groups, more than "
+                         "a grid holds")
+    group_windows = group_walks * per_walk
+    return WindowsPlan(per_walk, group_walks, groups,
+                       -(-group_windows // WINDOW_THREADS), group_windows,
+                       group_windows * (window - 1) & 0xFFFFFFFF,
+                       *division_magic(per_walk))
+
+
+def to_windows(walks, window_size: int, num_nodes: int, key: tuple[int, int],
+               group_words: int = WINDOW_GROUP_WORDS):
     """K3.  (num_walks, length) int32 walks -> targets (num_win,), positives
-    and negatives (num_win, W-1), all int32."""
+    and negatives (num_win, W-1), all int32.  ``group_words`` as in
+    ``windows_plan``: a test passes a small one to run many groups."""
     _check("walks", walks, torch.int32, 2)
     num_walks, length = walks.shape
     if not 2 <= window_size <= length:
@@ -180,31 +254,76 @@ def to_windows(walks, window_size: int, num_nodes: int, key: tuple[int, int]):
     neg = torch.empty((num_win, window_size - 1), dtype=torch.int32, device=dev)
     if num_win == 0:
         return targets, pos, neg
-    _launch("to_windows", library().trw_to_windows, dev, walks.data_ptr(),
-            num_win * (window_size - 1), length, window_size, num_nodes,
-            key[0], key[1], targets.data_ptr(), pos.data_ptr(),
-            neg.data_ptr())
+    plan = windows_plan(num_walks, length, window_size, group_words)
+    _launch("to_windows", library().trw_to_windows, _device_index(dev),
+            walks.data_ptr(), num_walks, length, window_size, num_nodes,
+            key[0], key[1], plan.magic, plan.shift, plan.group_walks,
+            plan.group_windows, plan.group_slots, plan.groups, plan.blocks,
+            targets.data_ptr(), pos.data_ptr(), neg.data_ptr())
     return targets, pos, neg
 
 
-class ChunkTable(NamedTuple):
-    """What K4 needs to exchange one fixed set of buffers: the (2, D) int64
-    device table of their base pointers, and the launch geometry.  Holding
-    the buffers keeps the pointers valid."""
+# K4 passes 2 * D base pointers as kernel parameters (4 KB at most); its
+# block and the words a thread copies.  The values of exchange.cu's
+# kMaxShards, kExchangeThreads and kLoads.
+MAX_SHARDS = 256
+EXCHANGE_THREADS, EXCHANGE_LOADS = 256, 4
 
-    pointers: torch.Tensor
-    buffers: tuple
+
+class ExchangePlan(NamedTuple):
+    """K4's launch: a grid of (``pieces``, D, D) blocks of ``threads``; block
+    (x, dst, src) copies words [x * threads * loads, (x + 1) * threads *
+    loads) of chunk (src, dst), ``elems`` words of 16 bytes (``vec``) or of 4
+    bytes, thread t of it the words x * threads * loads + k * threads + t."""
+
     num_shards: int
-    words: int
     vec: int
+    elems: int
+    pieces: int
+    threads: int
+    loads: int
+
+
+def exchange_plan(num_shards: int, words: int, vec: bool) -> ExchangePlan:
+    """K4's launch for D shards and chunks of ``words`` 32-bit words."""
+    if not 0 < num_shards <= MAX_SHARDS:
+        raise ValueError(f"the exchange takes 1 to {MAX_SHARDS} shards, got "
+                         f"{num_shards}")
+    elems = words // 4 if vec else words
+    per_block = EXCHANGE_THREADS * EXCHANGE_LOADS
+    return ExchangePlan(num_shards, int(vec), elems, -(-elems // per_block),
+                        EXCHANGE_THREADS, EXCHANGE_LOADS)
+
+
+class _ExchangeLaunch(ctypes.Structure):
+    """``TrwExchangeLaunch`` of ``kernels/exchange.cu``."""
+
+    _fields_ = [("num_shards", ctypes.c_int32), ("vec", ctypes.c_int32),
+                ("words", ctypes.c_int64),
+                ("bases", ctypes.c_void_p * (2 * MAX_SHARDS))]
+
+
+class ChunkTable(NamedTuple):
+    """What K4 needs to exchange one fixed set of buffers: its launch's
+    arguments packed once (``launch`` holds them, ``address`` is where), the
+    card, and the plan.  Holding the buffers keeps the pointers valid."""
+
+    launch: _ExchangeLaunch
+    address: int
+    buffers: tuple
+    device_index: int
+    plan: ExchangePlan
 
 
 def chunk_pointer_table(outboxes, inboxes) -> ChunkTable:
-    """Check one (D, C, R) int32 outbox and inbox per shard and build their
+    """Check one (D, C, R) int32 outbox and inbox per shard and pack their
     ``ChunkTable``."""
     num_shards = len(outboxes)
     if num_shards == 0 or len(inboxes) != num_shards:
         raise ValueError("need one outbox and one inbox per shard")
+    if num_shards > MAX_SHARDS:
+        raise ValueError(f"the exchange takes 1 to {MAX_SHARDS} shards, got "
+                         f"{num_shards}")
     dev, shape = outboxes[0].device, tuple(outboxes[0].shape)
     if len(shape) != 3 or shape[0] != num_shards:
         raise ValueError(f"each buffer must be (D={num_shards}, C, R), got "
@@ -220,21 +339,31 @@ def chunk_pointer_table(outboxes, inboxes) -> ChunkTable:
         raise ValueError("outboxes and inboxes must be distinct buffers")
     words = shape[1] * shape[2]
     # 16-byte copies where every chunk starts on a 16-byte boundary.
-    vec = int(words % 4 == 0 and all(b.data_ptr() % 16 == 0 for b in buffers))
-    ptrs = [[b.data_ptr() for b in outboxes], [b.data_ptr() for b in inboxes]]
-    return ChunkTable(torch.tensor(ptrs, dtype=torch.int64, device=dev),
-                      buffers, num_shards, words, vec)
+    vec = words % 4 == 0 and all(b.data_ptr() % 16 == 0 for b in buffers)
+    launch = _ExchangeLaunch(num_shards, int(vec), words)
+    for i, b in enumerate(buffers):
+        launch.bases[i] = b.data_ptr()
+    return ChunkTable(launch, ctypes.addressof(launch), buffers,
+                      _device_index(dev), exchange_plan(num_shards, words, vec))
 
 
 def all_to_all_chunks(table: ChunkTable) -> None:
     """K4.  Copies outboxes[src][dst] into inboxes[dst][src] for every pair
     of the buffers ``table`` was built for, in one launch."""
-    if table.words == 0:
+    if table.plan.elems == 0:
         return
     _launch("all_to_all_chunks", library().trw_all_to_all_chunks,
-            table.pointers.device, table.pointers.data_ptr(),
-            table.pointers.data_ptr() + 8 * table.num_shards,
-            table.num_shards, table.words, table.vec)
+            table.device_index, table.address)
+
+
+def empty_kernel(device_index: int, grid: tuple[int, int, int],
+                 threads: int) -> None:
+    """An empty kernel on ``grid`` blocks of ``threads``, launched through the
+    same path as the kernels: the floor of a launch.  A measurement probe, on
+    no path of the package; it counts nothing."""
+    rc = _call(library().trw_empty_kernel, device_index, *grid, threads)
+    if rc != 0:
+        raise RuntimeError(f"empty_kernel: CUDA error code {rc}")
 
 
 _TABLE_DTYPES = (torch.float32, torch.bfloat16)
@@ -293,8 +422,8 @@ def walk_sgns_loss_fwd(in_emb, out_emb, walks, neg_ids, window_size: int,
                           device=walks.device)
     loss = torch.empty((), dtype=torch.float32, device=walks.device)
     _launch("walk_sgns_loss_fwd", library().trw_walk_sgns_loss_fwd,
-            walks.device, *args, float(num_neg), partial.data_ptr(),
-            loss.data_ptr())
+            _device_index(walks.device), *args, float(num_neg),
+            partial.data_ptr(), loss.data_ptr())
     return loss
 
 
@@ -309,8 +438,8 @@ def walk_sgns_loss_bwd(in_emb, out_emb, walks, neg_ids, window_size: int,
     grad_out = torch.zeros(in_emb.shape, dtype=torch.float32,
                            device=walks.device)
     _launch("walk_sgns_loss_bwd", library().trw_walk_sgns_loss_bwd,
-            walks.device, *args, float(num_neg), grad_loss.data_ptr(),
-            grad_in.data_ptr(), grad_out.data_ptr())
+            _device_index(walks.device), *args, float(num_neg),
+            grad_loss.data_ptr(), grad_in.data_ptr(), grad_out.data_ptr())
     return grad_in, grad_out
 
 
