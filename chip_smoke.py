@@ -12,7 +12,14 @@ partitioned engine over 8 shards with 32 768 walkers), then the training
 half of the main path on the same graph: ``Node2Vec`` at the bench
 configuration (dim 128, walk length 16, window 5, bfloat16 tables, 256 shared
 negatives, 65 536 start nodes a step), one warm step and three chained steps
-through ``epoch_step`` and one step with p=0.5, q=2.  It checks the results and
+through ``epoch_step`` and one step with p=0.5, q=2; last, the edge-list and
+KG-triples families derived from the same graph as the JAX package's
+``bench.py --families all`` derives them (the edge list (heads, col_idx) and
+the triples with 16 pseudo relations; padding N, restart, seed 7):
+``walk_edge_list`` through the graph entry and the raw arrays, uniform (K7)
+and p=0.5 q=2 (K8), ``walk_triples`` (K9) and both triple window generators
+at W=5 (K10), on the graph and on a copy whose last quarter of nodes has no
+out-edges.  It checks the results and
 measures every kernel at the shape the main path gives it; the two loss
 kernels also with float32 tables, each with its tile plan and its device time
 by kernel.  The ``build`` line reports each loss kernel's registers and
@@ -30,7 +37,10 @@ the same way, the floor of a launch, and beside the library call, as device
 time and with the host in the way).  The small checks also walk a graph
 built with ``build_fat=False``, which must take the rejection sampler with
 the graph's own search depth, and hold K3 and K4 against their plain
-versions at the edges of their launch plans.
+versions at the edges of their launch plans, and K7-K10 against theirs on
+small graphs with dead ends (``family_kernels_small``: padding -1 and N,
+restart both ways, targets outside [0, N), round budgets of 1 and 2, L = 1,
+7, 8, 9, 80 and B = 1, 33, 4 097, W = 1, 2, 5).
 
 Every kernel is held against its plain version on all the rows the main path
 gives it.  One thing runs at a smaller depth than the main path, to keep the
@@ -39,7 +49,8 @@ checks, and at walk length 10 (23 phases instead of 163) under the profiler.
 
 Every phase prints one JSON line.  The line before the last two is
 ``{"kernels": [...]}`` with, per kernel, its launches on the main path (the
-sampling run and the training run, each counted from zero, added up), its
+sampling run and the training run, each counted from zero, added up; for
+K7-K10 the families' run, counted from zero), its
 largest deviation from the plain version (0 for the integer kernels; for the
 two float kernels the limits are ``LOSS_REL_LIMIT`` and ``GRAD_REL_LIMIT``
 below), its time, the plain version's time,
@@ -74,7 +85,14 @@ import torch
 import torch_random_walk_tpu_torch as tt
 from torch_random_walk_tpu_torch.kernels import bindings, build
 from torch_random_walk_tpu_torch.models import skipgram
-from torch_random_walk_tpu_torch.ops import common, node2vec, uniform, windows
+from torch_random_walk_tpu_torch.ops import (
+    common,
+    edge_list_walk,
+    node2vec,
+    triples_walk,
+    uniform,
+    windows,
+)
 from torch_random_walk_tpu_torch.parallel import exchange
 from torch_random_walk_tpu_torch.utils import prng
 
@@ -87,6 +105,16 @@ NUM_SHARDS, ROUTED_WALKERS = 8, 32_768
 WALK_SEED, WINDOW_SEED = 1, 2
 PROFILED_WALK_LENGTH = 10
 WALK_REPS = 4  # walk calls queued back to back for their device time
+
+# The edge-list and KG-triples families of the JAX package's bench.py
+# (``--families all``): both derived from the bench CSR graph, the edge list
+# as (heads, col_idx), the triples with 16 pseudo relations (heads *
+# 2654435761 mod 16); padding N, restart, seed 7, the bench's walkers and
+# walk length; triple windows of 5.
+FAMILY_SEED, NUM_RELATIONS, RELATION_MULT = 7, 16, 2654435761
+FAMILY_KERNELS = ("uniform_walk_edge_list", "biased_walk_edge_list",
+                  "uniform_walk_triples", "to_windows_triples",
+                  "to_windows_triples_cbow")
 
 # The fused train step of the JAX package's bench.py: its Node2VecConfig and
 # its 65 536 start nodes a step.
@@ -146,6 +174,28 @@ KERNEL_FACTS = {
         "torch_random_walk_tpu_torch/kernels/sgns_loss.cu",
         "torch_random_walk_tpu/models/skipgram.py:241 (value_and_grad of "
         "walk_loss_fn, XLA program, no Pallas counterpart)"),
+    "uniform_walk_edge_list": (
+        "torch_random_walk_tpu_torch/kernels/edge_list_walk.cu",
+        "torch_random_walk_tpu/ops/fatwalk.py:1092 (uniform_walk_edge_list_fat"
+        "; oracle ops/edge_list_walk.py:28; XLA loop, no Pallas "
+        "counterpart)"),
+    "biased_walk_edge_list": (
+        "torch_random_walk_tpu_torch/kernels/edge_list_walk.cu",
+        "torch_random_walk_tpu/ops/fatwalk.py:1362 (node2vec_walk_edge_list_"
+        "freerun through node2vec_walk_edge_list_fat:1185; oracle "
+        "ops/edge_list_walk.py:51; XLA loop, no Pallas counterpart)"),
+    "uniform_walk_triples": (
+        "torch_random_walk_tpu_torch/kernels/triples.cu",
+        "torch_random_walk_tpu/ops/fatwalk.py:1138 (uniform_walk_triples_fat"
+        "; oracle ops/triples_walk.py:25; XLA loop, no Pallas counterpart)"),
+    "to_windows_triples": (
+        "torch_random_walk_tpu_torch/kernels/triples.cu",
+        "torch_random_walk_tpu/ops/windows.py:126 (_triples_targets_and_"
+        "windows:91; XLA program, no Pallas counterpart)"),
+    "to_windows_triples_cbow": (
+        "torch_random_walk_tpu_torch/kernels/triples.cu",
+        "torch_random_walk_tpu/ops/windows.py:142 (_triples_targets_and_"
+        "windows:91; XLA program, no Pallas counterpart)"),
 }
 INTEGER_KERNELS = ("uniform_walk_csr", "node2vec_walk_csr_mixture",
                    "node2vec_walk_csr_rejection", "to_windows",
@@ -496,6 +546,18 @@ EXCHANGE_WINDOW_FUNCTIONS = {
 }
 
 
+# K7-K10's entry functions (K8, K9 and K10 by template flag).
+FAMILY_FUNCTIONS = {
+    "uniform_walk_edge_list_kernel": "K7",
+    "biased_walk_edge_list_kernelILb1E": "K8 fat",
+    "biased_walk_edge_list_kernelILb0E": "K8 oracle",
+    "uniform_walk_triples_kernelILb1E": "K9 fat",
+    "uniform_walk_triples_kernelILb0E": "K9 oracle",
+    "to_windows_triples_kernelILb0E": "K10 skip-gram",
+    "to_windows_triples_kernelILb1E": "K10 CBOW",
+}
+
+
 def function_key(name: str, functions: dict) -> str | None:
     for key in functions:
         if key in name:
@@ -653,6 +715,7 @@ def phase_build() -> None:
                for k in SGNS_FUNCTIONS}
     walk_ptxas = ptxas_report(log, WALK_FUNCTIONS)
     k3_k4_ptxas = ptxas_report(log, EXCHANGE_WINDOW_FUNCTIONS)
+    family_ptxas = ptxas_report(log, FAMILY_FUNCTIONS)
     threefry = threefry_sass_ops()
     THREEFRY_OPS = threefry["int32_only_ops"]
     emit("build", seconds=round(seconds, 2), sources=list(build.SOURCES),
@@ -660,6 +723,8 @@ def phase_build() -> None:
          walk_kernels={WALK_FUNCTIONS[k]: v for k, v in walk_ptxas.items()},
          exchange_windows_kernels={EXCHANGE_WINDOW_FUNCTIONS[k]: v
                                    for k, v in k3_k4_ptxas.items()},
+         family_kernels={FAMILY_FUNCTIONS[k]: v
+                         for k, v in family_ptxas.items()},
          threefry_int32_only_ops=THREEFRY_OPS,
          threefry_int32_pipe_ops=threefry["int32_pipe_ops"],
          threefry_fma_pipe_ops=threefry["fma_pipe_ops"],
@@ -675,6 +740,9 @@ def phase_build() -> None:
     require(all(walk_ptxas.get(k, {}).get("registers")
                 for k in WALK_FUNCTIONS),
             f"ptxas reported no registers for a walk kernel: {walk_ptxas}")
+    require(all(family_ptxas.get(k, {}).get("registers")
+                for k in FAMILY_FUNCTIONS),
+            f"ptxas reported no registers for K7-K10: {family_ptxas}")
     # K2's launch geometry, and how many blocks of 64, 128 and 256 threads
     # one SM holds at its register count.
     emit("walk_geometry", kernel="node2vec_walk_csr", geometry={
@@ -1340,6 +1408,455 @@ def phase_sgns_kernels(graph, counts):
     return rows
 
 
+# --- the edge-list and KG-triples families (K7-K10) ---------------------------
+
+def family_graphs(graph, dead_quarter: bool = False):
+    """The bench families derived from a CSR graph as the JAX package's
+    bench.py derives them: the edge list (heads, col_idx) and the triples
+    (heads, heads * 2654435761 mod 16, col_idx).  With ``dead_quarter`` the
+    last quarter of the nodes loses its out-edges (dead ends, padding moves
+    and restarts)."""
+    n = graph.num_nodes
+    heads = torch.repeat_interleave(
+        torch.arange(n, device=graph.device),
+        (graph.row_ptr[1:] - graph.row_ptr[:-1]).to(torch.int64))
+    tails = graph.col_idx.to(torch.int64)
+    if dead_quarter:
+        keep = heads < (3 * n) // 4
+        heads, tails = heads[keep], tails[keep]
+    el = tt.EdgeListGraph.from_arrays(torch.stack([heads, tails], dim=1),
+                                      num_nodes=n)
+    rels = heads * RELATION_MULT % NUM_RELATIONS
+    tg = tt.TriplesGraph.from_arrays(torch.stack([heads, rels, tails], dim=1),
+                                     num_entities=n)
+    return el, tg
+
+
+def family_walk_calls(el, tg, targets, pad: int) -> dict:
+    """The family walks of the main path through the public entry points:
+    both edge-list entries, uniform (K7) and p=0.5 q=2 (K8, the graph's fat
+    semantics and the raw arrays' oracle), and the triples graph entry
+    (K9)."""
+    kw = dict(walk_length=WALK_LENGTH, seed=FAMILY_SEED, padding_idx=pad,
+              restart=True)
+    raw = (el.edge_list, el.node_edge_index, targets)
+    return {
+        "edge_uniform": lambda: tt.walk_edge_list(el, target_nodes=targets,
+                                                  **kw),
+        "edge_biased": lambda: tt.walk_edge_list(el, target_nodes=targets,
+                                                 p=P, q=Q, **kw),
+        "edge_uniform_raw": lambda: tt.walk_edge_list(*raw, **kw),
+        "edge_biased_raw": lambda: tt.walk_edge_list(*raw, p=P, q=Q, **kw),
+        "triples": lambda: tt.walk_triples(
+            tg, target_nodes=targets, walk_length=WALK_LENGTH,
+            seed=FAMILY_SEED, padding_idx=pad),
+    }
+
+
+def family_window_calls(tg, walks, pad: int) -> dict:
+    """K10 on the triples walks, both generators, W = WINDOW."""
+    return {
+        "windows_sg": lambda: tt.to_windows_triples(
+            walks, WINDOW, tg.num_entities, pad, tg.triples, seed=WINDOW_SEED),
+        "windows_cbow": lambda: tt.to_windows_triples_cbow(
+            walks, WINDOW, tg.num_entities, pad, tg.triples, seed=WINDOW_SEED),
+    }
+
+
+def plain_edge_uniform(el, targets, pad, restart=True, seed=FAMILY_SEED,
+                       walk_length=WALK_LENGTH, walker_offset=0):
+    key = prng.derive_key(seed, prng.STREAM_EDGE_UNIFORM)
+    return edge_list_walk.uniform_walk_edge_list_plain(
+        el.edge_list, el.node_edge_index, targets, walk_length, key, pad,
+        restart, walker_offset)
+
+
+def plain_edge_biased(el, targets, pad, fat: bool, restart=True,
+                      seed=FAMILY_SEED, walk_length=WALK_LENGTH,
+                      max_rounds=common.DEFAULT_MAX_ROUNDS, walker_offset=0):
+    """Plain K8 with the search depth of the entry that takes these
+    semantics (the graph's for ``fat``, the raw arrays' otherwise)."""
+    key = prng.derive_key(seed, prng.STREAM_EDGE_BIASED)
+    iters = el.search_iters if fat else common.DEFAULT_SEARCH_ITERS
+    return edge_list_walk.biased_walk_edge_list_plain(
+        el.edge_list, el.node_edge_index, targets, walk_length, key, pad,
+        restart, common.node2vec_accept_probs(P, Q), iters, max_rounds, fat,
+        walker_offset)
+
+
+def plain_triples(tg, targets, pad, fat: bool, seed=FAMILY_SEED,
+                  walk_length=WALK_LENGTH, walker_offset=0):
+    key = prng.derive_key(seed, prng.STREAM_TRIPLES)
+    return triples_walk.uniform_walk_triples_plain(
+        tg.triples, tg.relation_tail_index, targets, walk_length, key, pad,
+        fat, walker_offset)
+
+
+def plain_triple_windows(tg, walks, pad, cbow: bool, window=WINDOW,
+                         table=None, seed=WINDOW_SEED):
+    stream = (prng.STREAM_WINDOWS_TRIPLES_CBOW if cbow
+              else prng.STREAM_WINDOWS_TRIPLES_SG)
+    return windows.to_windows_triples_plain(
+        walks, window, pad, tg.triples if table is None else table,
+        prng.derive_key(seed, stream), cbow)
+
+
+def phase_family_small_checks() -> None:
+    """K7-K10 against their plain versions at small sizes, tolerance 0: a
+    power-law graph whose last quarter of nodes has no out-edges and the
+    grid-world KG, padding -1 and N, restart both ways, targets outside
+    [0, N), round budgets of 1 and 2, L = 1, 7, 8, 9, 80 and B = 1, 33,
+    4 097, windows of 1, 2 and 5 (and a table of two triples, where CBOW's
+    draws collide)."""
+    base = tt.synthetic_power_law(20_000, 8, seed=3)
+    el, tg = family_graphs(base, dead_quarter=True)
+    grid = tt.synthetic_grid_kg(60, seed=2)[0]
+    n = base.num_nodes
+    dev = base.device
+    rng = np.random.default_rng(11)
+
+    def targets(num, high):
+        return torch.tensor(rng.integers(-3, high + 3, num), dtype=torch.int32,
+                            device=dev)
+
+    errs = dict.fromkeys(FAMILY_KERNELS, 0)
+    cases = 0
+    for length in (1, 7, 8, 9, 80):
+        for num in (1, 33, 4097):
+            t = targets(num, n)
+            for pad, restart in ((-1, True), (n, False)):
+                got = edge_list_walk.uniform_walk_edge_list(
+                    el.edge_list, el.node_edge_index, t, length, FAMILY_SEED,
+                    pad, restart, walker_offset=5)
+                want = plain_edge_uniform(el, t, pad, restart,
+                                          walk_length=length, walker_offset=5)
+                errs["uniform_walk_edge_list"] = max(
+                    errs["uniform_walk_edge_list"], max_abs_err(got, want))
+                cases += 1
+    for fat in (True, False):
+        for length, num, rounds, pad, restart in (
+                (20, 4097, 1, -1, True), (20, 4097, 2, n, False),
+                (9, 4097, 4096, -1, False), (8, 33, 4096, n, True),
+                (7, 1, 4096, -1, True), (1, 4097, 4096, n, True),
+                (80, 4097, 4096, n, True)):
+            t = targets(num, n)
+            got = edge_list_walk.biased_walk(
+                el.edge_list, el.node_edge_index, t, P, Q, length,
+                FAMILY_SEED, pad, restart,
+                el.search_iters if fat else common.DEFAULT_SEARCH_ITERS,
+                rounds, fat, walker_offset=5)
+            want = plain_edge_biased(el, t, pad, fat, restart,
+                                     walk_length=length, max_rounds=rounds,
+                                     walker_offset=5)
+            errs["biased_walk_edge_list"] = max(
+                errs["biased_walk_edge_list"], max_abs_err(
+                    [got.walks, got.exhausted.to(torch.int32)],
+                    [want.walks, want.exhausted.to(torch.int32)]))
+            cases += 1
+    triple_walks = {}
+    for graph in (tg, grid):
+        for fat in (True, False):
+            for length in (1, 7, 8, 9, 80):
+                for num in (1, 33, 4097):
+                    t = targets(num, graph.num_entities)
+                    pad = graph.num_entities if num == 33 else -1
+                    got = triples_walk.uniform_walk_triples(
+                        graph.triples, graph.relation_tail_index, t, length,
+                        pad, True, FAMILY_SEED, walker_offset=5, fat=fat)
+                    want = plain_triples(graph, t, pad, fat,
+                                         walk_length=length, walker_offset=5)
+                    errs["uniform_walk_triples"] = max(
+                        errs["uniform_walk_triples"], max_abs_err(got, want))
+                    cases += 1
+                    if fat and num == 4097 and length in (9, 80):
+                        triple_walks[graph is grid, pad] = (graph, got)
+    for (_, pad), (graph, walks) in triple_walks.items():
+        two = graph.triples[:2].contiguous()
+        for window in (1, 2, 5):
+            for cbow in (False, True):
+                name = "to_windows_triples_cbow" if cbow else "to_windows_triples"
+                gen = tt.to_windows_triples_cbow if cbow else tt.to_windows_triples
+                for table in (graph.triples, two):
+                    got = gen(walks, window, graph.num_entities, pad, table,
+                              seed=WINDOW_SEED)
+                    want = plain_triple_windows(graph, walks, pad, cbow,
+                                                window, table)
+                    errs[name] = max(errs[name], max_abs_err(got, want))
+                    cases += 1
+    torch.cuda.synchronize()
+    emit("family_kernels_small", max_abs_err=errs, tolerance=0, cases=cases)
+    require(all(e == 0 for e in errs.values()), f"K7-K10 != plain: {errs}")
+
+
+def edge_hops_ok(el, walks, targets, pad: int, restart: bool = True) -> bool:
+    """Every hop of every 64th walk is an edge, or, from padding or a node
+    without out-edges, a move to the jump node or to padding."""
+    sample = walks[::64].to(torch.int64)
+    a, b = sample[:, :-1].reshape(-1), sample[:, 1:].reshape(-1)
+    jump = (targets[::64].to(torch.int64)[:, None].expand(-1, walks.shape[1] - 1)
+            .reshape(-1) if restart else torch.full_like(a, pad))
+    _, _, has = common.edge_ranges(el.node_edge_index, a)
+    has &= a != pad
+    edge = common.is_neighbor_edge(b, a, el.edge_list, el.node_edge_index, pad,
+                                   el.search_iters)
+    return bool(torch.where(has, edge, (b == jump) | (b == pad)).all())
+
+
+def triple_hops_ok(tg, walks, pad: int) -> bool:
+    """Every (head, relation, tail) step of every 64th walk is a triple of
+    the graph, or (padding, padding) after padding or a head without
+    triples."""
+    n, r = tg.num_entities, tg.num_relations
+    trip = tg.triples.to(torch.int64)
+    keys = (trip[:, 0] * r + trip[:, 1]) * n + trip[:, 2]  # sorted
+    w = walks[::64].to(torch.int64)
+    h, rel, tail = (w[:, 0:-1:2].reshape(-1), w[:, 1::2].reshape(-1),
+                    w[:, 2::2].reshape(-1))
+    _, _, has = common.edge_ranges(tg.relation_tail_index, h)
+    has &= (h != pad) & (h >= 0) & (h < n)
+    q = (h * r + rel) * n + tail
+    at = torch.searchsorted(keys, q).clamp(max=keys.numel() - 1)
+    found = keys[at] == q
+    return bool(torch.where(has, found, (rel == pad) & (tail == pad)).all())
+
+
+def family_bound_walks(steps_words: int, num_walkers: int, walk_length: int,
+                       row_words: int):
+    """Least bytes of a family walk: ``steps_words`` words read a step, the
+    targets read, the walks of ``row_words`` words written; one Threefry
+    call a step."""
+    steps = num_walkers * walk_length
+    return bound(4 * (steps_words * steps + num_walkers
+                      + num_walkers * row_words),
+                 steps * THREEFRY_OPS)
+
+
+def edge_biased_bound(el, walks, rounds, searches):
+    """K8's least bytes and operations for what this run's data needed (as
+    ``biased_bound`` counts K2's): the 2-word range of each walk position
+    0..L-1, one tail word for the first hop and one a later round, the
+    probed tails of one binary search over t's range at each step where
+    some round needs it, the targets read and the walks written; one
+    Threefry call and the acceptance a round, the search trips."""
+    index = el.node_edge_index.to(torch.int64)
+    deg = torch.where(index[:, 0] >= 0, index[:, 1] - index[:, 0] + 1,
+                      0).to(torch.float32)
+    depth = torch.log2(deg + 1).ceil()
+    t_nodes = walks[:, :-2].to(torch.int64).clamp(0, el.num_nodes - 1)
+    depth_t = depth[t_nodes]
+    num_walkers, length1 = walks.shape
+    drawn = float(rounds.sum(dtype=torch.float64))
+    search_words = float((depth_t * (searches > 0)).sum(dtype=torch.float64))
+    search_trips = float((depth_t * searches).sum(dtype=torch.float64))
+    words = (2 * num_walkers * (length1 - 1) + num_walkers + drawn
+             + search_words + walks.numel())
+    return bound(4 * words, drawn * (THREEFRY_OPS + 12)
+                 + SEARCH_TRIP_OPS * search_trips), {
+        "walker_rounds": drawn, "rounds_per_step": drawn / rounds.numel(),
+        "search_t_words": search_words,
+        "searched_step_share": float((searches > 0).float().mean())}
+
+
+def triple_windows_bound(tg, walks, cbow: bool):
+    """K10's least bytes: the walks read once, the outputs written once,
+    and each distinct triple row that the needed draws touch (12 bytes a
+    row, counted once however many draws share it); one Threefry call a
+    needed draw.  Skip-gram needs all 2W draws a window; CBOW needs its
+    draws up to the first that differs from the target triple (all four
+    where each collides)."""
+    num_walks, width = walks.shape
+    per_walk = (width - 1) // 2
+    num_win = num_walks * per_walk
+    draws = windows.CBOW_TRIPLE_ROUNDS if cbow else 2 * WINDOW
+    key = prng.derive_key(WINDOW_SEED, prng.STREAM_WINDOWS_TRIPLES_CBOW if cbow
+                          else prng.STREAM_WINDOWS_TRIPLES_SG)
+    idx = prng.randint_from_bits(
+        windows._neg_bits(key, num_win * draws, walks.device),
+        tg.num_triples).view(num_win, draws)
+    if cbow:
+        rel_pos = 1 + 2 * torch.arange(per_walk, device=walks.device)
+        target = torch.stack([walks[:, rel_pos - 1], walks[:, rel_pos],
+                              walks[:, rel_pos + 1]], dim=-1).reshape(-1, 1, 3)
+        collides = (tg.triples[idx] == target).all(dim=-1)
+        # draw k is needed where draws 0..k-1 all collided
+        needed = torch.cat([torch.ones_like(collides[:, :1]),
+                            collides[:, :-1].cummin(dim=1).values], dim=1)
+        idx = idx[needed]
+        del target, collides, needed
+    used = idx.numel()
+    rows = torch.unique(idx).numel()
+    del idx
+    out_words = num_win * (3 + 6 * WINDOW + (3 if cbow else 6 * WINDOW))
+    return bound(4 * (walks.numel() + out_words) + 12 * rows,
+                 used * THREEFRY_OPS), rows, used
+
+
+def check_family_outputs(el, tg, out, targets, pad, label: str) -> dict:
+    """Shapes, the -1 mark absent, every hop an edge or a padding move,
+    every output equal to its plain version (tolerance 0); returns the
+    plain versions' host-clock times and K8's bound counts."""
+    plain_ms, errs = {}, {}
+    want_u, plain_ms["uniform_walk_edge_list"] = wall_ms(
+        lambda: plain_edge_uniform(el, targets, pad))
+    errs["uniform_walk_edge_list"] = max_abs_err(
+        [out["edge_uniform"], out["edge_uniform_raw"]], [want_u, want_u])
+    del want_u
+    # With padding N and targets in [0, N), no walker ever holds an id
+    # outside [0, N), so the fat and the oracle membership tests agree and
+    # one plain run is the plain version of both entries (the small checks
+    # hold both semantics apart).
+    want_b, plain_ms["biased_walk_edge_list"] = wall_ms(
+        lambda: plain_edge_biased(el, targets, pad, True))
+    require(not bool(want_b.exhausted.any()), f"{label}: K8 budget ran out")
+    errs["biased_walk_edge_list"] = max_abs_err(
+        [out["edge_biased"], out["edge_biased_raw"]],
+        [want_b.walks, want_b.walks])
+    k8_bound = edge_biased_bound(el, want_b.walks, want_b.rounds,
+                                 want_b.searches)
+    del want_b
+    want_t, plain_ms["uniform_walk_triples"] = wall_ms(
+        lambda: plain_triples(tg, targets, pad, tg.fat))
+    errs["uniform_walk_triples"] = max_abs_err(out["triples"], want_t)
+    del want_t
+    for name, key, cbow in (("to_windows_triples", "windows_sg", False),
+                            ("to_windows_triples_cbow", "windows_cbow", True)):
+        want, plain_ms[name] = wall_ms(lambda: plain_triple_windows(
+            tg, out["triples"], pad, cbow))
+        errs[name] = max_abs_err(out[key], want)
+        del want
+    num_win = NUM_WALKERS * WALK_LENGTH
+    for name in ("edge_uniform", "edge_biased", "edge_uniform_raw",
+                 "edge_biased_raw"):
+        w = out[name]
+        require(tuple(w.shape) == (NUM_WALKERS, WALK_LENGTH + 1)
+                and w.dtype == torch.int32, f"{label} {name}: wrong shape")
+        require(bool((w[:, 0] == targets).all()), f"{label} {name}: column 0")
+        require(bool(((w >= 0) & (w <= pad)).all()),
+                f"{label} {name}: id out of range or -1")
+        require(edge_hops_ok(el, w, targets, pad),
+                f"{label} {name}: a hop is neither an edge nor a padding move")
+    w = out["triples"]
+    require(tuple(w.shape) == (NUM_WALKERS, 2 * WALK_LENGTH + 1)
+            and bool(((w >= 0) & (w <= pad)).all()),
+            f"{label} triples: wrong shape or id out of range")
+    require(triple_hops_ok(tg, w, pad), f"{label} triples: a step is not a "
+            "triple of the graph nor a padding move")
+    tgt, win, neg = out["windows_sg"]
+    require(tuple(tgt.shape) == (num_win, 3)
+            and tuple(win.shape) == tuple(neg.shape) == (num_win, 2 * WINDOW, 3),
+            f"{label} windows: wrong shapes")
+    _, neg_c, win_c = out["windows_cbow"]
+    require(tuple(neg_c.shape) == (num_win, 3) and torch.equal(win_c, win),
+            f"{label} CBOW windows: wrong shape or windows")
+    emit("family_checks", graph=label, max_abs_err=errs, tolerance=0,
+         plain_ms=plain_ms,
+         padding_share={name: float((out[name][:, 1:] == pad).float().mean())
+                        for name in ("edge_uniform", "edge_biased",
+                                     "triples")})
+    require(all(e == 0 for e in errs.values()),
+            f"{label}: a family kernel != its plain version: {errs}")
+    return {"plain_ms": plain_ms, "errs": errs, "k8_bound": k8_bound}
+
+
+def run_family_main_path(el, tg, targets, pad: int):
+    """The family entry points once, each on the host clock."""
+    out, first_ms = {}, {}
+    for name, fn in family_walk_calls(el, tg, targets, pad).items():
+        out[name], first_ms[name] = wall_ms(fn)
+    for name, fn in family_window_calls(tg, out["triples"], pad).items():
+        out[name], first_ms[name] = wall_ms(fn)
+    return out, first_ms
+
+
+def phase_family_main_path(graph):
+    """The families' main path at the bench shape through the public entry
+    points, with the launch counts set to 0 just before and read just
+    after; then every output held against its plain version and checked;
+    then the same on the copy of the graph whose last quarter of nodes has
+    no out-edges."""
+    targets = bench_targets(graph.device)
+    pad = graph.num_nodes
+    (el, tg), build_ms = wall_ms(lambda: family_graphs(graph))
+    emit("family_graphs", edges=el.num_edges, triples=tg.num_triples,
+         relations=tg.num_relations, max_degree=el.max_degree,
+         search_iters=el.search_iters, fat=[el.fat, tg.fat],
+         build_ms=build_ms, padding_idx=pad)
+    torch.cuda.synchronize()
+    bindings.reset_launch_counts()
+    out, first_ms = run_family_main_path(el, tg, targets, pad)
+    launches = {k: bindings.launch_counts[k] for k in FAMILY_KERNELS}
+    emit("family_main_path", launches=launches, first_call_ms=first_ms)
+    for name in FAMILY_KERNELS:
+        require(launches[name] > 0, f"the families' path never launched "
+                f"{name}")
+    checked = check_family_outputs(el, tg, out, targets, pad, "bench")
+    del out
+    dead_el, dead_tg = family_graphs(graph, dead_quarter=True)
+    dead_out, _ = run_family_main_path(dead_el, dead_tg, targets, pad)
+    check_family_outputs(dead_el, dead_tg, dead_out, targets, pad,
+                         "last_quarter_dead")
+    require(bool((dead_out["edge_uniform"] == pad).any())
+            and bool((dead_out["triples"] == pad).any()),
+            "the dead-end copy never reached padding")
+    del dead_out, dead_el, dead_tg
+    return el, tg, targets, launches, checked
+
+
+def phase_family_kernels(el, tg, targets, launches, checked) -> list[dict]:
+    """K7-K10 timed at the bench shape: the device time of WALK_REPS calls of
+    each entry point queued behind a spin kernel (``queued_ms``; the rows'
+    ``ms``), the entry point's time (CUDA events around one call), node-
+    steps/s; with bounds, plain versions' times and launch counts, one row a
+    kernel."""
+    pad = tg.num_entities
+    calls = family_walk_calls(el, tg, targets, pad)
+    walks = calls["triples"]()
+    calls.update(family_window_calls(tg, walks, pad))
+    device = {name: queued_ms(fn, WALK_REPS) for name, fn in calls.items()}
+    entry = {name: time_ms(fn) for name, fn in calls.items()}
+    steps = NUM_WALKERS * WALK_LENGTH
+    emit("family_times", device_ms=device, entry_ms=entry,
+         node_steps_per_s={name: steps / (device[name] / 1e3)
+                           for name in ("edge_uniform", "edge_biased",
+                                        "edge_uniform_raw", "edge_biased_raw",
+                                        "triples")},
+         windows=NUM_WALKERS * WALK_LENGTH,
+         device_timing=f"{WALK_REPS} calls queued behind a spin kernel, "
+                       "median of 5, per call",
+         entry_timing="CUDA events around one call, 1 warm-up, median of 5")
+    k8_bound, k8_counts = checked["k8_bound"]
+    sg_bound, sg_rows, sg_draws = triple_windows_bound(tg, walks, False)
+    cb_bound, cb_rows, cb_draws = triple_windows_bound(tg, walks, True)
+    emit("family_bounds", k8=k8_counts, windows_sg={
+        "needed_draws": sg_draws, "distinct_triple_rows": sg_rows},
+        windows_cbow={"needed_draws": cb_draws,
+                      "distinct_triple_rows": cb_rows})
+    specs = (
+        ("uniform_walk_edge_list", "edge_uniform", "edge_uniform_raw",
+         family_bound_walks(3, NUM_WALKERS, WALK_LENGTH, WALK_LENGTH + 1)),
+        ("biased_walk_edge_list", "edge_biased", "edge_biased_raw", k8_bound),
+        ("uniform_walk_triples", "triples", None,
+         family_bound_walks(4, NUM_WALKERS, WALK_LENGTH,
+                            2 * WALK_LENGTH + 1)),
+        ("to_windows_triples", "windows_sg", None, sg_bound),
+        ("to_windows_triples_cbow", "windows_cbow", None, cb_bound),
+    )
+    rows = []
+    for name, key, raw_key, bound_pair in specs:
+        source, replaces = KERNEL_FACTS[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": checked["errs"][name], "ms": device[key],
+            "plain_ms": checked["plain_ms"][name], "bound_ms": bound_pair[0],
+            "bound_by": bound_pair[1], "library_ms": None,
+            "entry_point_ms": entry[key]})
+        if raw_key:
+            rows[-1]["raw_arrays_ms"] = device[raw_key]
+            rows[-1]["raw_arrays_entry_point_ms"] = entry[raw_key]
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1349,6 +1866,7 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     phase_small_checks()
+    phase_family_small_checks()
     graph = phase_graph()
     (targets, pgraph, out, launches, routed_info,
      routed_ms) = phase_main_path(graph)
@@ -1377,6 +1895,16 @@ def main() -> int:
     require(by_run["uniform_walk_csr"] == {"sampling": 1,
                                            "train": 1 + TRAIN_STEPS},
             "K1: one launch in sampling and one a train step expected")
+    el, tg, targets, family_launches, checked = phase_family_main_path(graph)
+    family_rows = phase_family_kernels(el, tg, targets, family_launches,
+                                       checked)
+    del el, tg
+    for r in family_rows:
+        r["launches_by_run"] = {"families": r["launches"]}
+    rows += family_rows
+    require([r["name"] for r in family_rows] == list(FAMILY_KERNELS)
+            and all(r["launches"] > 0 and r["max_abs_err"] == 0
+                    for r in family_rows), "a family kernel row is wrong")
     torch.cuda.synchronize()
     emit("done", seconds=round(time.perf_counter() - t0, 1),
          peak_device_gib=round(max(sampling_peak,

@@ -3,7 +3,9 @@
 
 Ported so far: the counter-based PRNG, the CSR graph and the power-law
 generator, uniform and node2vec (rejection and mixture) CSR walks behind
-``walk``, skip-gram and CBOW node windows, the node-range partition, the
+``walk``, the indexed edge-list and KG-triples graphs with their walks
+(``walk_edge_list``, ``walk_triples``) and the grid-world KG generator,
+skip-gram and CBOW node and triple windows, the node-range partition, the
 walker-record all-to-all and the owner-routed uniform walk engine (serial
 schedule), and the fused walk -> SGNS train step (``SkipGramModel`` with dense
 Adam, ``Node2Vec``).  Sub-packages mirror the JAX package's (``utils``,
@@ -27,11 +29,28 @@ from torch_random_walk_tpu_torch import (  # noqa: F401
     utils,
 )
 from torch_random_walk_tpu_torch.graph.csr import CSRGraph
-from torch_random_walk_tpu_torch.graph.datasets import synthetic_power_law
+from torch_random_walk_tpu_torch.graph.datasets import (
+    synthetic_grid_kg,
+    synthetic_power_law,
+)
+from torch_random_walk_tpu_torch.graph.edge_list import (
+    EdgeListGraph,
+    build_node_edge_index,
+    to_edge_list_indexed,
+)
+from torch_random_walk_tpu_torch.graph.triples import (
+    TriplesGraph,
+    build_relation_tail_index,
+)
 from torch_random_walk_tpu_torch.models.node2vec import Node2Vec, Node2VecConfig
 from torch_random_walk_tpu_torch.models.skipgram import SkipGramModel
-from torch_random_walk_tpu_torch.ops.walk import walk
-from torch_random_walk_tpu_torch.ops.windows import to_windows, to_windows_cbow
+from torch_random_walk_tpu_torch.ops.walk import walk, walk_edge_list, walk_triples
+from torch_random_walk_tpu_torch.ops.windows import (
+    to_windows,
+    to_windows_cbow,
+    to_windows_triples,
+    to_windows_triples_cbow,
+)
 from torch_random_walk_tpu_torch.parallel.partition import PartitionedCSR
 from torch_random_walk_tpu_torch.parallel.partition_v2 import (
     RoutedConfig,
@@ -42,14 +61,24 @@ __version__ = "0.1.0"
 
 __all__ = [
     "CSRGraph",
+    "EdgeListGraph",
     "Node2Vec",
     "Node2VecConfig",
     "PartitionedCSR",
     "RoutedConfig",
     "SkipGramModel",
+    "TriplesGraph",
+    "build_node_edge_index",
+    "build_relation_tail_index",
+    "synthetic_grid_kg",
     "synthetic_power_law",
+    "to_edge_list_indexed",
     "to_windows",
     "to_windows_cbow",
+    "to_windows_triples",
+    "to_windows_triples_cbow",
     "walk",
+    "walk_edge_list",
     "walk_partitioned_routed",
+    "walk_triples",
 ]

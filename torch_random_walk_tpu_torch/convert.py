@@ -1,6 +1,7 @@
 """State carried across from the JAX package.
 
-The JAX package's ``CSRGraph`` and ``PartitionedCSR`` fields, handed over as
+The JAX package's ``CSRGraph``, ``EdgeListGraph``, ``TriplesGraph`` and
+``PartitionedCSR`` fields, handed over as
 numpy arrays (``numpy.asarray(graph.row_ptr)`` and so on; this module imports
 neither JAX nor the JAX package), become the port's objects with the same
 ``max_degree``, ``search_iters`` and ``deg_bits``, so that walks over a
@@ -16,6 +17,8 @@ import numpy as np
 import torch
 
 from torch_random_walk_tpu_torch.graph.csr import CSRGraph
+from torch_random_walk_tpu_torch.graph.edge_list import EdgeListGraph
+from torch_random_walk_tpu_torch.graph.triples import TriplesGraph
 from torch_random_walk_tpu_torch.models.skipgram import SkipGramModel
 from torch_random_walk_tpu_torch.parallel.partition import PartitionedCSR
 from torch_random_walk_tpu_torch.utils.device import resolve_device
@@ -30,6 +33,25 @@ def csr_from_numpy(row_ptr, col_idx, build_fat: bool = True,
     return CSRGraph.from_arrays(np.asarray(row_ptr), np.asarray(col_idx),
                                 sort_rows=False, build_fat=build_fat,
                                 device=device)
+
+
+def edge_list_from_numpy(edge_list, num_nodes: int,
+                         device=None) -> EdgeListGraph:
+    """(E, 2) [head, tail] edges and the node count of a JAX
+    ``EdgeListGraph`` (``graph.edge_list``, ``graph.num_nodes``)."""
+    return EdgeListGraph.from_arrays(np.asarray(edge_list),
+                                     num_nodes=int(num_nodes), device=device)
+
+
+def triples_from_numpy(triples, num_entities: int, num_relations: int,
+                       device=None) -> TriplesGraph:
+    """(E, 3) [head, relation, tail] triples and the id-space sizes of a JAX
+    ``TriplesGraph`` (``graph.triples``, ``graph.num_entities``,
+    ``graph.num_relations``)."""
+    return TriplesGraph.from_arrays(np.asarray(triples),
+                                    num_entities=int(num_entities),
+                                    num_relations=int(num_relations),
+                                    device=device)
 
 
 def partitioned_from_numpy(node_meta, col, num_nodes: int, num_shards: int,

@@ -1,4 +1,14 @@
 from torch_random_walk_tpu_torch.graph.csr import CSRGraph  # noqa: F401
 from torch_random_walk_tpu_torch.graph.datasets import (  # noqa: F401
+    synthetic_grid_kg,
     synthetic_power_law,
+)
+from torch_random_walk_tpu_torch.graph.edge_list import (  # noqa: F401
+    EdgeListGraph,
+    build_node_edge_index,
+    to_edge_list_indexed,
+)
+from torch_random_walk_tpu_torch.graph.triples import (  # noqa: F401
+    TriplesGraph,
+    build_relation_tail_index,
 )

@@ -20,7 +20,9 @@ from torch_random_walk_tpu_torch.kernels.build import build_library
 KERNEL_NAMES = ("uniform_walk_csr", "node2vec_walk_csr_mixture",
                 "node2vec_walk_csr_rejection", "to_windows",
                 "all_to_all_chunks", "walk_sgns_loss_fwd",
-                "walk_sgns_loss_bwd")
+                "walk_sgns_loss_bwd", "uniform_walk_edge_list",
+                "biased_walk_edge_list", "uniform_walk_triples",
+                "to_windows_triples", "to_windows_triples_cbow")
 launch_counts = dict.fromkeys(KERNEL_NAMES, 0)
 
 _lib = None
@@ -65,7 +67,22 @@ def library(verbose: bool = False) -> ctypes.CDLL:
         lib.trw_walk_sgns_loss_bwd.argtypes = [
             _PTR, _I32, _I32, _PTR, _PTR, _I32, _I32, _I32, _PTR, _I32, _I32,
             _F32, _PTR, _PTR, _PTR, _PTR]
-        for fn in (lib.trw_uniform_walk_csr, lib.trw_node2vec_walk_csr,
+        lib.trw_uniform_walk_edge_list.argtypes = [
+            _PTR, _PTR, _I32, _I64, _PTR, _PTR, _I32, _I32, _U32, _U32, _U32,
+            _I32, _I32, _PTR]
+        lib.trw_biased_walk_edge_list.argtypes = [
+            _PTR, _PTR, _I32, _I64, _PTR, _PTR, _PTR, _I32, _I32, _U32, _U32,
+            _U32, _I32, _I32, _I32, _F32, _F32, _F32, _I32, _I32, _PTR]
+        lib.trw_uniform_walk_triples.argtypes = [
+            _PTR, _PTR, _I32, _I64, _PTR, _PTR, _I32, _I32, _U32, _U32, _U32,
+            _I32, _I32, _PTR]
+        lib.trw_to_windows_triples.argtypes = [
+            _PTR, _I64, _I32, _I32, _I32, _PTR, _I64, _U32, _U32, _I32, _PTR,
+            _PTR, _PTR, _PTR]
+        for fn in (lib.trw_uniform_walk_edge_list,
+                   lib.trw_biased_walk_edge_list, lib.trw_uniform_walk_triples,
+                   lib.trw_to_windows_triples,
+                   lib.trw_uniform_walk_csr, lib.trw_node2vec_walk_csr,
                    lib.trw_node2vec_walk_geometry, lib.trw_to_windows,
                    lib.trw_all_to_all_chunks, lib.trw_empty_kernel,
                    lib.trw_walk_sgns_chunk, lib.trw_walk_sgns_describe,
@@ -168,6 +185,126 @@ def node2vec_walk_csr(row_ptr, col_idx, targets, walk_length: int,
             walker_offset & 0xFFFFFFFF, int(mixture), *probs, *consts,
             search_iters, max_rounds)
     return walks, exhausted.bool()
+
+
+def _check_ranges(name: str, table, width: int, index, targets,
+                  walk_length: int, padding_idx: int) -> None:
+    """The checks K7, K8 and K9 share: an (E, width) table and an (N, 2)
+    range index of at least one node, (B,) targets, int32 on one card."""
+    dev = index.device if isinstance(index, torch.Tensor) else None
+    _check("index", index, torch.int32, 2)
+    _check(name, table, torch.int32, 2, dev)
+    _check("target_nodes", targets, torch.int32, 1, dev)
+    if index.shape[0] < 1 or index.shape[1] != 2 or table.shape[1] != width:
+        raise ValueError(f"index must be (N >= 1, 2) and {name} (E, {width}),"
+                         f" got {tuple(index.shape)} and {tuple(table.shape)}")
+    if walk_length < 1:
+        raise ValueError(f"walk_length must be >= 1, got {walk_length}")
+    if not -2 ** 31 <= padding_idx < 2 ** 31:
+        raise ValueError(f"padding_idx {padding_idx} does not fit int32")
+
+
+def uniform_walk_edge_list(edge_list, node_edge_index, targets,
+                           walk_length: int, key: tuple[int, int],
+                           padding_idx: int, restart: bool,
+                           walker_offset: int):
+    """K7.  (B,) int32 targets -> (B, L+1) int32 walks."""
+    _check_ranges("edge_list", edge_list, 2, node_edge_index, targets,
+                  walk_length, padding_idx)
+    num_walkers = targets.shape[0]
+    walks = torch.empty((num_walkers, walk_length + 1), dtype=torch.int32,
+                        device=targets.device)
+    if num_walkers == 0:
+        return walks
+    _launch("uniform_walk_edge_list", library().trw_uniform_walk_edge_list,
+            _device_index(targets.device), node_edge_index.data_ptr(),
+            edge_list.data_ptr(), node_edge_index.shape[0],
+            edge_list.shape[0], targets.data_ptr(), walks.data_ptr(),
+            num_walkers, walk_length, key[0], key[1],
+            walker_offset & 0xFFFFFFFF, padding_idx, int(restart))
+    return walks
+
+
+def biased_walk_edge_list(edge_list, node_edge_index, targets,
+                          walk_length: int, key: tuple[int, int],
+                          padding_idx: int, restart: bool,
+                          probs: tuple[float, float, float],
+                          search_iters: int, max_rounds: int, fat: bool,
+                          walker_offset: int):
+    """K8.  Returns ((B, L+1) int32 walks, (B,) bool: some step of the walker
+    spent its whole round budget)."""
+    _check_ranges("edge_list", edge_list, 2, node_edge_index, targets,
+                  walk_length, padding_idx)
+    num_walkers = targets.shape[0]
+    walks = torch.empty((num_walkers, walk_length + 1), dtype=torch.int32,
+                        device=targets.device)
+    exhausted = torch.empty((num_walkers,), dtype=torch.uint8,
+                            device=targets.device)
+    if num_walkers == 0:
+        return walks, exhausted.bool()
+    _launch("biased_walk_edge_list", library().trw_biased_walk_edge_list,
+            _device_index(targets.device), node_edge_index.data_ptr(),
+            edge_list.data_ptr(), node_edge_index.shape[0],
+            edge_list.shape[0], targets.data_ptr(), walks.data_ptr(),
+            exhausted.data_ptr(), num_walkers, walk_length, key[0], key[1],
+            walker_offset & 0xFFFFFFFF, padding_idx, int(restart), int(fat),
+            *probs, search_iters, max_rounds)
+    return walks, exhausted.bool()
+
+
+def uniform_walk_triples(triples, relation_tail_index, targets,
+                         walk_length: int, key: tuple[int, int],
+                         padding_idx: int, fat: bool, walker_offset: int):
+    """K9.  (B,) int32 targets -> (B, 2L+1) int32 walks [v0, r1, v1, ...]."""
+    _check_ranges("triples", triples, 3, relation_tail_index, targets,
+                  walk_length, padding_idx)
+    num_walkers = targets.shape[0]
+    walks = torch.empty((num_walkers, 2 * walk_length + 1), dtype=torch.int32,
+                        device=targets.device)
+    if num_walkers == 0:
+        return walks
+    _launch("uniform_walk_triples", library().trw_uniform_walk_triples,
+            _device_index(targets.device), relation_tail_index.data_ptr(),
+            triples.data_ptr(), relation_tail_index.shape[0],
+            triples.shape[0], targets.data_ptr(), walks.data_ptr(),
+            num_walkers, walk_length, key[0], key[1],
+            walker_offset & 0xFFFFFFFF, padding_idx, int(fat))
+    return walks
+
+
+def to_windows_triples(walks, window_size: int, padding_idx: int, triples,
+                       key: tuple[int, int], cbow: bool):
+    """K10.  (num_walks, width) int32 [v0, r1, v1, ...] walks -> targets
+    (num_win, 3), windows (num_win, 2W, 3) and negatives (num_win, 2W, 3)
+    for skip-gram; (targets, negatives (num_win, 3), windows) for CBOW."""
+    _check("walks", walks, torch.int32, 2)
+    _check("triples", triples, torch.int32, 2, walks.device)
+    num_walks, width = walks.shape
+    if triples.shape[0] < 1 or triples.shape[1] != 3:
+        raise ValueError(f"triples must be (T >= 1, 3), got "
+                         f"{tuple(triples.shape)}")
+    if window_size < 1:
+        raise ValueError(f"window_size must be >= 1, got {window_size}")
+    if not -2 ** 31 <= padding_idx < 2 ** 31:
+        raise ValueError(f"padding_idx {padding_idx} does not fit int32")
+    num_win = num_walks * ((width - 1) // 2)
+    dev = walks.device
+    targets = torch.empty((num_win, 3), dtype=torch.int32, device=dev)
+    windows = torch.empty((num_win, 2 * window_size, 3), dtype=torch.int32,
+                          device=dev)
+    negatives = torch.empty((num_win, 3) if cbow
+                            else (num_win, 2 * window_size, 3),
+                            dtype=torch.int32, device=dev)
+    if num_win:
+        _launch("to_windows_triples_cbow" if cbow else "to_windows_triples",
+                library().trw_to_windows_triples, _device_index(dev),
+                walks.data_ptr(), num_walks, width, window_size, padding_idx,
+                triples.data_ptr(), triples.shape[0], key[0], key[1],
+                int(cbow), targets.data_ptr(), windows.data_ptr(),
+                negatives.data_ptr())
+    if cbow:
+        return targets, negatives, windows
+    return targets, windows, negatives
 
 
 def node2vec_walk_geometry(mixture: bool, threads: int = 0) -> dict:

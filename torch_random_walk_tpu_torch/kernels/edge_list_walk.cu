@@ -1,0 +1,242 @@
+// K7 and K8: edge-list random walks with padding/restart semantics, one
+// thread per walker.
+//
+// Replace two XLA programs of the JAX package, neither of them Pallas:
+//   K7  ops/fatwalk.py::uniform_walk_edge_list_fat (oracle
+//       ops/edge_list_walk.py::uniform_walk_edge_list; the two agree value
+//       for value, so one kernel serves both entry points);
+//   K8  ops/fatwalk.py::node2vec_walk_edge_list_freerun, reached through
+//       node2vec_walk_edge_list_fat (FAT == true), and its oracle
+//       ops/edge_list_walk.py::biased_walk_edge_list (FAT == false).  The
+//       two differ only in the membership test: the fat engine's cuckoo
+//       edge set looks t up by its own id, the oracle clamps t into
+//       [0, N) and never counts t == padding.
+// For walker w at node cur and step s, bits = threefry(key, wid, s << 16 |
+// round):
+//   cur == padding      -> its jump node (the target if restart, else
+//                          padding)
+//   cur has no edges    -> padding
+//   else                -> edges[start(cur) + mulhi(bits, cnt(cur))].tail
+// K8 draws candidates that way and accepts a candidate equal to t or to
+// padding with prob_0 (a padding candidate then moves to the jump node), a
+// neighbour of t with prob_1, any other with prob_2.
+//
+// Bound on this card: chains of dependent random reads, as K1's and K2's.
+// A step reads cur's 8-byte range, then one 8-byte edge row that depends on
+// it, and the next step depends on that row's tail; K8 adds, for the rounds
+// whose draw falls between the two thresholds, a binary search over t's
+// tails.
+//
+// What the design does about it (K1's and K2's structure):
+// - one thread per walker, free-running: K8's lane runs one round of its own
+//   step per iteration and does the step boundary (store, t <- v <- sel, the
+//   new v's range) in the accepting iteration;
+// - the range as one aligned 8-byte load (the index is (N, 2) int32), the
+//   tail as one 8-byte edge row;
+// - no search where the draw decides alone (below min(prob_1, prob_2) it
+//   accepts, at or above the max it rejects either way), and the search
+//   answers from its last probe;
+// - the walk stored a whole 32-byte sector at a time from registers
+//   (csr.cuh::RowWriter).
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "csr.cuh"
+#include "ranges.cuh"
+
+namespace trw {
+
+constexpr int kEdgeThreads = 128;
+
+struct EdgeList {
+  RangeIndex idx;
+  const int2* __restrict__ edges;  // (num_edges, 2) [head, tail]
+  int64_t num_edges;
+};
+
+// Tail of edge i, clamped into the edge list (0 for an empty list, whose
+// lanes the callers mask, as ops/common.py::gather_rows does).
+__device__ __forceinline__ int32_t tail_at(const EdgeList& g, int64_t i) {
+  if (g.num_edges == 0) return 0;
+  i = min(max(i, (int64_t)0), g.num_edges - 1);
+  return g.edges[i].y;
+}
+
+// One draw from node `cur`, whose range `r` the caller holds
+// (ops/common.py::sample_edge_neighbor).
+__device__ __forceinline__ int32_t edge_step(const EdgeList& g, int32_t cur,
+                                             const Range& r, int32_t jump,
+                                             int32_t pad, uint32_t bits) {
+  if (cur == pad) return jump;
+  if (!r.has) return pad;
+  return tail_at(g, draw_in(r, bits, max(g.num_edges, (int64_t)1)));
+}
+
+// Does the node whose range is `rt` have an edge to cand?  The fixed-trip
+// lower-bound search of ops/common.py::is_neighbor_edge over the tails of
+// [start, end), answered as csr.cuh::is_neighbor answers it.  A range
+// without edges (or a t the caller ruled out) answers false.
+__device__ __forceinline__ bool is_neighbor_edge(const EdgeList& g,
+                                                 const Range& rt, int32_t cand,
+                                                 int iters) {
+  if (!rt.has) return false;
+  int64_t lo = rt.start, hi = rt.end;
+  bool hit = false;
+  for (int it = 0; it < iters && lo < hi; ++it) {
+    int64_t mid = (lo + hi) >> 1;
+    int32_t val = tail_at(g, mid);
+    if (val < cand) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+      hit = val == cand;
+    }
+  }
+  if (lo >= rt.end) return false;
+  return lo < hi ? tail_at(g, lo) == cand : hit;
+}
+
+__global__ void __launch_bounds__(kEdgeThreads) uniform_walk_edge_list_kernel(
+    EdgeList g, const int32_t* __restrict__ targets, int32_t* __restrict__ walks,
+    int32_t num_walkers, int32_t walk_length, uint32_t k0, uint32_t k1,
+    uint32_t walker_offset, int32_t pad, int32_t restart) {
+  int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (tid >= num_walkers) return;
+  uint32_t wid = (uint32_t)tid + walker_offset;
+  int32_t* out = walks + tid * ((int64_t)walk_length + 1);
+  RowWriter w{out, (int32_t)(((uintptr_t)out >> 2) & 7), walk_length, {}};
+  int32_t cur = targets[tid];
+  const int32_t jump = restart ? cur : pad;
+  w.put(0, cur);
+  for (int32_t s = 1; s <= walk_length; ++s) {
+    if (cur == pad) {
+      cur = jump;
+    } else {
+      Range r = range_of(g.idx, cur);
+      uint32_t bits = threefry2x32(k0, k1, wid, step_round_counter(s, 0)).x0;
+      cur = edge_step(g, cur, r, jump, pad, bits);
+    }
+    w.put(s, cur);
+  }
+}
+
+struct EdgeBiasedParams {
+  // ops/common.py::node2vec_accept_probs, rounded to float32.
+  float prob_0, prob_1, prob_2;
+  int32_t search_iters;
+  int32_t max_rounds;
+  int32_t pad;
+  int32_t restart;
+};
+
+// t's range for the membership test, or none: the fat engine's edge set
+// knows t only for 0 <= t < N; the oracle rules out t == padding.
+template <bool FAT>
+__device__ __forceinline__ Range member_range(const EdgeList& g, int32_t t,
+                                              Range rt, int32_t pad) {
+  bool valid = FAT ? (uint32_t)t < (uint32_t)g.idx.num_nodes : t != pad;
+  rt.has = rt.has && valid;
+  return rt;
+}
+
+template <bool FAT>
+__global__ void __launch_bounds__(kEdgeThreads) biased_walk_edge_list_kernel(
+    EdgeList g, const int32_t* __restrict__ targets, int32_t* __restrict__ walks,
+    uint8_t* __restrict__ exhausted, int32_t num_walkers, int32_t walk_length,
+    uint32_t k0, uint32_t k1, uint32_t walker_offset, EdgeBiasedParams prm) {
+  int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (tid >= num_walkers) return;
+  uint32_t wid = (uint32_t)tid + walker_offset;
+  int32_t* out = walks + tid * ((int64_t)walk_length + 1);
+  RowWriter w{out, (int32_t)(((uintptr_t)out >> 2) & 7), walk_length, {}};
+  const int32_t pad = prm.pad;
+  int32_t t = targets[tid];
+  const int32_t jump = prm.restart ? t : pad;
+  w.put(0, t);
+  // First hop: a plain draw at (step 1, round 0).
+  Range rt = range_of(g.idx, t);
+  int32_t v = edge_step(
+      g, t, rt, jump, pad,
+      threefry2x32(k0, k1, wid, step_round_counter(1, 0)).x0);
+  w.put(1, v);  // walk_length >= 1 is checked by the wrapper
+
+  const float p_lo = fminf(prm.prob_1, prm.prob_2);
+  const float p_hi = fmaxf(prm.prob_1, prm.prob_2);
+  Range mt = member_range<FAT>(g, t, rt, pad);
+  Range rv = range_of(g.idx, v);
+  bool any_exhausted = false;
+  int32_t s = 2, rnd = 0;
+  while (s <= walk_length) {
+    U32x2 b = threefry2x32(k0, k1, wid, step_round_counter(s, (uint32_t)rnd));
+    int32_t cand = edge_step(g, v, rv, jump, pad, b.x0);
+    float r = uniform24(b.x1);
+    bool accept;
+    if (cand == t || cand == pad) accept = r < prm.prob_0;
+    else if (r < p_lo) accept = true;
+    else if (r >= p_hi) accept = false;
+    else accept = r < (is_neighbor_edge(g, mt, cand, prm.search_iters)
+                           ? prm.prob_1 : prm.prob_2);
+    accept = accept && rnd < prm.max_rounds;
+    if (accept || rnd + 1 >= prm.max_rounds) {
+      // Step boundary.  Round budget spent: the walker keeps v, as the JAX
+      // oracle does, and is reported, so that the graph entry point can
+      // mark the walk incomplete.
+      any_exhausted |= !accept;
+      int32_t sel = !accept ? v : (cand == pad && cand != t) ? jump : cand;
+      w.put(s, sel);
+      t = v;
+      mt = member_range<FAT>(g, t, rv, pad);
+      v = sel;
+      rnd = 0;
+      if (++s <= walk_length) rv = range_of(g.idx, v);
+    } else {
+      ++rnd;
+    }
+  }
+  exhausted[tid] = any_exhausted ? 1 : 0;
+}
+
+}  // namespace trw
+
+extern "C" int trw_uniform_walk_edge_list(
+    const int32_t* index, const int32_t* edges, int32_t num_nodes,
+    int64_t num_edges, const int32_t* targets, int32_t* walks,
+    int32_t num_walkers, int32_t walk_length, uint32_t k0, uint32_t k1,
+    uint32_t walker_offset, int32_t pad, int32_t restart, void* stream) {
+  const int threads = trw::kEdgeThreads;
+  const unsigned blocks = (unsigned)((num_walkers + threads - 1) / threads);
+  trw::EdgeList g{{reinterpret_cast<const int2*>(index), num_nodes},
+                  reinterpret_cast<const int2*>(edges), num_edges};
+  trw::uniform_walk_edge_list_kernel<<<blocks, threads, 0,
+                                       (cudaStream_t)stream>>>(
+      g, targets, walks, num_walkers, walk_length, k0, k1, walker_offset, pad,
+      restart);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int trw_biased_walk_edge_list(
+    const int32_t* index, const int32_t* edges, int32_t num_nodes,
+    int64_t num_edges, const int32_t* targets, int32_t* walks,
+    uint8_t* exhausted, int32_t num_walkers, int32_t walk_length, uint32_t k0,
+    uint32_t k1, uint32_t walker_offset, int32_t pad, int32_t restart,
+    int32_t fat, float prob_0, float prob_1, float prob_2,
+    int32_t search_iters, int32_t max_rounds, void* stream) {
+  const int threads = trw::kEdgeThreads;
+  const unsigned blocks = (unsigned)((num_walkers + threads - 1) / threads);
+  trw::EdgeList g{{reinterpret_cast<const int2*>(index), num_nodes},
+                  reinterpret_cast<const int2*>(edges), num_edges};
+  trw::EdgeBiasedParams prm{prob_0, prob_1, prob_2, search_iters, max_rounds,
+                            pad, restart};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (fat) {
+    trw::biased_walk_edge_list_kernel<true><<<blocks, threads, 0, st>>>(
+        g, targets, walks, exhausted, num_walkers, walk_length, k0, k1,
+        walker_offset, prm);
+  } else {
+    trw::biased_walk_edge_list_kernel<false><<<blocks, threads, 0, st>>>(
+        g, targets, walks, exhausted, num_walkers, walk_length, k0, k1,
+        walker_offset, prm);
+  }
+  return (int)cudaGetLastError();
+}

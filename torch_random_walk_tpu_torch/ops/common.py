@@ -83,6 +83,67 @@ def is_neighbor_csr(cand, t, row_ptr, col_idx, iters=DEFAULT_SEARCH_ITERS):
     return (lo < end) & (gather_col(col_idx, lo) == cand)
 
 
+def sample_range_inclusive(ranges_start, ranges_end, bits):
+    """Uniform index in [start, end], end inclusive.  The caller masks the
+    (-1, -1) rows."""
+    cnt = ranges_end - ranges_start + 1
+    return ranges_start + prng.randint_from_bits(bits, cnt.clamp(min=1))
+
+
+def edge_ranges(node_edge_index, node):
+    """(start, end-inclusive) of each node's edges as int64, ids clamped into
+    [0, num_nodes) as the JAX gathers clamp them, and whether the node has
+    edges at all (its row is not the (-1, -1) sentinel)."""
+    safe = node.clamp(0, max(node_edge_index.shape[0] - 1, 0))
+    start = node_edge_index[safe, 0].to(torch.int64)
+    end = node_edge_index[safe, 1].to(torch.int64)
+    return start, end, (start >= 0) & (end >= 0)
+
+
+def gather_rows(table, idx, column: int) -> torch.Tensor:
+    """``table[idx, column]`` as int64 with ``idx`` clamped into the table;
+    zeros for an empty table, whose lanes every caller masks."""
+    if table.shape[0] == 0:
+        return torch.zeros_like(idx)
+    return table[idx.clamp(0, table.shape[0] - 1), column].to(torch.int64)
+
+
+def sample_edge_neighbor(edge_list, node_edge_index, cur, jump, padding_idx,
+                         bits):
+    """Uniform edge-list step: cur == padding -> jump; a node without
+    out-edges -> padding; else the tail of a uniform out-edge of cur."""
+    start, end, has = edge_ranges(node_edge_index, cur)
+    idx = sample_range_inclusive(start.clamp(min=0), end.clamp(min=0), bits)
+    nxt = torch.where(has, gather_rows(edge_list, idx, 1),
+                      torch.full_like(cur, padding_idx))
+    return torch.where(cur == padding_idx, jump, nxt)
+
+
+def is_neighbor_edge(cand, t, edge_list, node_edge_index, padding_idx,
+                     iters=DEFAULT_SEARCH_ITERS, fat: bool = False):
+    """Does t have an out-edge to cand?  Binary search over the tails of t's
+    [start, end]-inclusive range (sorted by (head, tail)); t == padding is
+    never a neighbour.  ``fat``: the answer of the JAX package's cuckoo edge
+    set (``ops/fatwalk.py::_edge_set_contains``) instead, which looks t up
+    by its own id: false for any t outside [0, num_nodes), padding or not,
+    and true for t == padding inside it where the edge exists."""
+    start, end_incl, has = edge_ranges(node_edge_index, t)
+    if fat:
+        valid = has & (t >= 0) & (t < node_edge_index.shape[0])
+    else:
+        valid = has & (t != padding_idx)
+    lo = start.clamp(min=0)
+    end = end_incl.clamp(min=0) + 1
+    hi = end
+    for _ in range(iters):
+        active = lo < hi
+        mid = (lo + hi) >> 1
+        go_right = gather_rows(edge_list, mid, 1) < cand
+        lo = torch.where(active & go_right, mid + 1, lo)
+        hi = torch.where(active & ~go_right, mid, hi)
+    return valid & (lo < end) & (gather_rows(edge_list, lo, 1) == cand)
+
+
 def node2vec_accept_probs(p: float, q: float):
     """Normalised node2vec acceptance probabilities: prob_0 (return to t),
     prob_1 (distance 1), prob_2 (distance 2)."""
