@@ -40,7 +40,18 @@ the graph's own search depth, and hold K3 and K4 against their plain
 versions at the edges of their launch plans, and K7-K10 against theirs on
 small graphs with dead ends (``family_kernels_small``: padding -1 and N,
 restart both ways, targets outside [0, N), round budgets of 1 and 2, L = 1,
-7, 8, 9, 80 and B = 1, 33, 4 097, W = 1, 2, 5).
+7, 8, 9, 80 and B = 1, 33, 4 097, W = 1, 2, 5, 11, searches cut short,
+tables of one and two triples, walks of padding alone, CBOW's launch in
+groups).
+
+With ``--compare NAME=DIR`` (another checkout of the repo, e.g. the parent
+commit's ``git archive`` unpacked under the ignored ``build/``; repeatable),
+the run ends with a ``kernel_comparison`` line: K8 through both edge-list
+entries and K10's two generators at the families' bench shape (CBOW also at
+W = 1, 2 and 10), each checkout's package imported beside this one and its
+kernels built from its own sources, timed in this one process, in turns
+(``phase_compare_kernels``).  Without arguments it needs one card and
+nothing else.
 
 Every kernel is held against its plain version on all the rows the main path
 gives it.  One thing runs at a smaller depth than the main path, to keep the
@@ -69,7 +80,9 @@ port (``torch_random_walk_tpu_torch``), never JAX.
 
 from __future__ import annotations
 
+import argparse
 import hashlib
+import importlib
 import json
 import re
 import statistics
@@ -546,15 +559,16 @@ EXCHANGE_WINDOW_FUNCTIONS = {
 }
 
 
-# K7-K10's entry functions (K8, K9 and K10 by template flag).
+# K7-K10's entry functions (K8 and K9 by template flag; K10 a kernel for
+# each generator).
 FAMILY_FUNCTIONS = {
     "uniform_walk_edge_list_kernel": "K7",
     "biased_walk_edge_list_kernelILb1E": "K8 fat",
     "biased_walk_edge_list_kernelILb0E": "K8 oracle",
     "uniform_walk_triples_kernelILb1E": "K9 fat",
     "uniform_walk_triples_kernelILb0E": "K9 oracle",
-    "to_windows_triples_kernelILb0E": "K10 skip-gram",
-    "to_windows_triples_kernelILb1E": "K10 CBOW",
+    "to_windows_triples_sg_kernel": "K10 skip-gram",
+    "to_windows_triples_cbow_kernel": "K10 CBOW",
 }
 
 
@@ -1473,15 +1487,18 @@ def plain_edge_uniform(el, targets, pad, restart=True, seed=FAMILY_SEED,
 
 def plain_edge_biased(el, targets, pad, fat: bool, restart=True,
                       seed=FAMILY_SEED, walk_length=WALK_LENGTH,
-                      max_rounds=common.DEFAULT_MAX_ROUNDS, walker_offset=0):
+                      max_rounds=common.DEFAULT_MAX_ROUNDS, walker_offset=0,
+                      search_iters=None):
     """Plain K8 with the search depth of the entry that takes these
-    semantics (the graph's for ``fat``, the raw arrays' otherwise)."""
+    semantics (the graph's for ``fat``, the raw arrays' otherwise) unless
+    ``search_iters`` is given."""
     key = prng.derive_key(seed, prng.STREAM_EDGE_BIASED)
-    iters = el.search_iters if fat else common.DEFAULT_SEARCH_ITERS
+    if search_iters is None:
+        search_iters = el.search_iters if fat else common.DEFAULT_SEARCH_ITERS
     return edge_list_walk.biased_walk_edge_list_plain(
         el.edge_list, el.node_edge_index, targets, walk_length, key, pad,
-        restart, common.node2vec_accept_probs(P, Q), iters, max_rounds, fat,
-        walker_offset)
+        restart, common.node2vec_accept_probs(P, Q), search_iters, max_rounds,
+        fat, walker_offset)
 
 
 def plain_triples(tg, targets, pad, fat: bool, seed=FAMILY_SEED,
@@ -1505,9 +1522,13 @@ def phase_family_small_checks() -> None:
     """K7-K10 against their plain versions at small sizes, tolerance 0: a
     power-law graph whose last quarter of nodes has no out-edges and the
     grid-world KG, padding -1 and N, restart both ways, targets outside
-    [0, N), round budgets of 1 and 2, L = 1, 7, 8, 9, 80 and B = 1, 33,
-    4 097, windows of 1, 2 and 5 (and a table of two triples, where CBOW's
-    draws collide)."""
+    [0, N), round budgets of 1 and 2, searches cut short (K8 with 1 and 2
+    trips), L = 1, 7, 8, 9, 80 and B = 1, 33, 4 097, windows of 1, 2, 5 and
+    11 (and tables of one and two triples, where CBOW's draws collide; at
+    W = 11 a warp's CBOW rows are staged in three pieces); K10
+    also with walks of padding alone and with K10 CBOW's launch cut into
+    groups of 999 windows, whose odd bases put every other group's rows off
+    a 16-byte boundary."""
     base = tt.synthetic_power_law(20_000, 8, seed=3)
     el, tg = family_graphs(base, dead_quarter=True)
     grid = tt.synthetic_grid_kg(60, seed=2)[0]
@@ -1534,20 +1555,23 @@ def phase_family_small_checks() -> None:
                     errs["uniform_walk_edge_list"], max_abs_err(got, want))
                 cases += 1
     for fat in (True, False):
-        for length, num, rounds, pad, restart in (
-                (20, 4097, 1, -1, True), (20, 4097, 2, n, False),
-                (9, 4097, 4096, -1, False), (8, 33, 4096, n, True),
-                (7, 1, 4096, -1, True), (1, 4097, 4096, n, True),
-                (80, 4097, 4096, n, True)):
+        for length, num, rounds, pad, restart, iters in (
+                (20, 4097, 1, -1, True, None), (20, 4097, 2, n, False, None),
+                (9, 4097, 4096, -1, False, None), (8, 33, 4096, n, True, None),
+                (7, 1, 4096, -1, True, None), (1, 4097, 4096, n, True, None),
+                (80, 4097, 4096, n, True, None), (20, 4097, 4096, n, True, 1),
+                (20, 4097, 4096, -1, False, 2)):
             t = targets(num, n)
+            if iters is None:
+                iters = (el.search_iters if fat
+                         else common.DEFAULT_SEARCH_ITERS)
             got = edge_list_walk.biased_walk(
                 el.edge_list, el.node_edge_index, t, P, Q, length,
-                FAMILY_SEED, pad, restart,
-                el.search_iters if fat else common.DEFAULT_SEARCH_ITERS,
-                rounds, fat, walker_offset=5)
+                FAMILY_SEED, pad, restart, iters, rounds, fat,
+                walker_offset=5, tails=el.tails if fat else None)
             want = plain_edge_biased(el, t, pad, fat, restart,
                                      walk_length=length, max_rounds=rounds,
-                                     walker_offset=5)
+                                     walker_offset=5, search_iters=iters)
             errs["biased_walk_edge_list"] = max(
                 errs["biased_walk_edge_list"], max_abs_err(
                     [got.walks, got.exhausted.to(torch.int32)],
@@ -1571,16 +1595,24 @@ def phase_family_small_checks() -> None:
                     if fat and num == 4097 and length in (9, 80):
                         triple_walks[graph is grid, pad] = (graph, got)
     for (_, pad), (graph, walks) in triple_walks.items():
-        two = graph.triples[:2].contiguous()
-        for window in (1, 2, 5):
+        tables = (graph.triples, graph.triples[:2].contiguous(),
+                  graph.triples[:1].contiguous())
+        padded = torch.full_like(walks[:5], pad)
+        for window in (1, 2, 5, 11):
             for cbow in (False, True):
                 name = "to_windows_triples_cbow" if cbow else "to_windows_triples"
-                gen = tt.to_windows_triples_cbow if cbow else tt.to_windows_triples
-                for table in (graph.triples, two):
-                    got = gen(walks, window, graph.num_entities, pad, table,
-                              seed=WINDOW_SEED)
-                    want = plain_triple_windows(graph, walks, pad, cbow,
-                                                window, table)
+                stream = (prng.STREAM_WINDOWS_TRIPLES_CBOW if cbow
+                          else prng.STREAM_WINDOWS_TRIPLES_SG)
+                key = prng.derive_key(WINDOW_SEED, stream)
+                for table, w, groups in (
+                        *((tab, walks, bindings.TRIPLE_WINDOW_GROUP)
+                          for tab in tables),
+                        (graph.triples, walks, 999),
+                        (graph.triples, padded, bindings.TRIPLE_WINDOW_GROUP)):
+                    got = bindings.to_windows_triples(w, window, pad, table,
+                                                      key, cbow, groups)
+                    want = plain_triple_windows(graph, w, pad, cbow, window,
+                                                table)
                     errs[name] = max(errs[name], max_abs_err(got, want))
                     cases += 1
     torch.cuda.synchronize()
@@ -1857,7 +1889,120 @@ def phase_family_kernels(el, tg, targets, launches, checked) -> list[dict]:
     return rows
 
 
-def main() -> int:
+# --- K8 and K10 beside other checkouts' builds, in one process ------------
+
+PACKAGE = "torch_random_walk_tpu_torch"
+COMPARE_CBOW_WINDOWS = (1, 2, 5, 10)
+
+
+def checkout_package(root: str):
+    """The port's package of another checkout of the repo (``root``, e.g. a
+    ``git archive`` of the parent commit unpacked under ``build/``),
+    imported beside this one: its modules are taken out of ``sys.modules``
+    again, and its functions keep their own.  Its kernels build at first
+    use into its own checkout's ``build/``."""
+    def loaded():
+        return [k for k in sys.modules
+                if k == PACKAGE or k.startswith(PACKAGE + ".")]
+    saved = {k: sys.modules.pop(k) for k in loaded()}
+    sys.path.insert(0, str(Path(root).resolve()))
+    try:
+        pkg = importlib.import_module(PACKAGE)
+        build_module = importlib.import_module(PACKAGE + ".kernels.build")
+    finally:
+        sys.path.pop(0)
+        for k in loaded():
+            del sys.modules[k]
+        sys.modules.update(saved)
+    require(Path(pkg.__file__).resolve().is_relative_to(Path(root).resolve()),
+            f"{root}: its package was not the one imported")
+    return pkg, build_module
+
+
+def compare_calls(pkg, edge_list, num_nodes: int, walks, triples, targets,
+                  pad: int) -> dict:
+    """K8 through both edge-list entries and K10 through both generators
+    (CBOW at each of COMPARE_CBOW_WINDOWS) at the families' bench shape, by
+    the public entry points of ``pkg``, on its own graph object."""
+    el = pkg.EdgeListGraph.from_arrays(edge_list, num_nodes=num_nodes)
+    kw = dict(p=P, q=Q, walk_length=WALK_LENGTH, seed=FAMILY_SEED,
+              padding_idx=pad, restart=True)
+    calls = {
+        "edge_biased": lambda: pkg.walk_edge_list(el, target_nodes=targets,
+                                                  **kw),
+        "edge_biased_raw": lambda: pkg.walk_edge_list(
+            el.edge_list, el.node_edge_index, targets, **kw),
+        "windows_sg": lambda: pkg.to_windows_triples(
+            walks, WINDOW, num_nodes, pad, triples, seed=WINDOW_SEED),
+    }
+    for w in COMPARE_CBOW_WINDOWS:
+        calls[f"windows_cbow_w{w}"] = (
+            lambda w=w: pkg.to_windows_triples_cbow(
+                walks, w, num_nodes, pad, triples, seed=WINDOW_SEED))
+    return calls
+
+
+def phase_compare_kernels(graph, checkouts: dict) -> dict:
+    """K8 (both entries) and K10 (both generators, CBOW at W = 1, 2, 5, 10)
+    of this tree beside the same entry points of other checkouts
+    (``checkouts``: name -> root, e.g. the parent commit), each checkout's
+    kernels built from its own sources, all in this one process.  Every
+    checkout's outputs must equal this tree's (tolerance 0).  Device time of
+    WALK_REPS calls queued behind a spin kernel, median of 5, as
+    ``queued_ms``; the checkouts timed in turns, A B ... B A, so that each
+    has two timings."""
+    pad = graph.num_nodes
+    el, tg = family_graphs(graph)
+    targets = bench_targets(graph.device)
+    walks = tt.walk_triples(tg, target_nodes=targets, walk_length=WALK_LENGTH,
+                            seed=FAMILY_SEED, padding_idx=pad)
+    args = (el.edge_list, graph.num_nodes, walks, tg.triples, targets, pad)
+    builds = {"this_tree": compare_calls(tt, *args)}
+    registers = {}
+    for name, root in checkouts.items():
+        pkg, pkg_build = checkout_package(root)
+        builds[name] = compare_calls(pkg, *args)
+        builds[name]["edge_biased"]()  # builds its kernels
+        log = pkg_build.build_log()
+        names = {f: f for f in re.findall(r"Compiling entry function '(\w+)'",
+                                          log)
+                 if "edge_list" in f or "triples" in f}
+        registers[name] = {f: v["registers"]
+                           for f, v in ptxas_report(log, names).items()}
+    want = {k: fn() for k, fn in builds["this_tree"].items()}
+    errs, times = {}, {name: {} for name in builds}
+    order = list(builds) + list(reversed(builds))
+    for name in order:
+        calls = builds[name]
+        if name not in errs:
+            errs[name] = {k: max_abs_err(fn(), want[k])
+                          for k, fn in calls.items()}
+        for k, fn in calls.items():
+            times[name].setdefault(k, []).append(queued_ms(fn, WALK_REPS))
+    del want
+    emit("kernel_comparison", device_ms=times, max_abs_err=errs,
+         registers=registers, order=order, checkouts=checkouts,
+         timing=f"{WALK_REPS} calls queued behind a spin kernel, median of "
+                "5, per call; each checkout twice, A B ... B A")
+    require(all(e == 0 for v in errs.values() for e in v.values()),
+            f"a compared checkout's outputs differ from this tree's: {errs}")
+    return times
+
+
+def parse_args(argv):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--compare", metavar="NAME=DIR", action="append", default=[],
+        help="another checkout of the repo (e.g. the parent commit's "
+             "git archive under build/): time its K8 and K10 entry points "
+             "beside this tree's in one process (kernel_comparison line)")
+    args = parser.parse_args(argv)
+    args.compare = dict(v.split("=", 1) for v in args.compare)
+    return args
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1905,6 +2050,8 @@ def main() -> int:
     require([r["name"] for r in family_rows] == list(FAMILY_KERNELS)
             and all(r["launches"] > 0 and r["max_abs_err"] == 0
                     for r in family_rows), "a family kernel row is wrong")
+    if args.compare:
+        phase_compare_kernels(graph, args.compare)
     torch.cuda.synchronize()
     emit("done", seconds=round(time.perf_counter() - t0, 1),
          peak_device_gib=round(max(sampling_peak,

@@ -74,6 +74,50 @@ def test_from_arrays_infers_size_and_flags_a_graph_without_edges():
     assert tg.fat is False and jg.edge_tab is None
 
 
+def _constructed(how):
+    """An EdgeListGraph built one way, and the (E, 2) edges it must hold."""
+    edges = np.array([[2, 1], [0, 3], [2, 0], [0, 1], [4, 4], [2, 1]])
+    if how == "from_arrays":
+        g = tt.EdgeListGraph.from_arrays(edges, num_nodes=6, device="cpu")
+    elif how == "from_arrays_inferred":
+        g = tt.EdgeListGraph.from_arrays(edges, device="cpu")
+    elif how == "empty":
+        g = tt.EdgeListGraph.from_arrays(np.zeros((0, 2), np.int64),
+                                         num_nodes=4, device="cpu")
+    elif how == "from_networkx":
+        g = tt.EdgeListGraph.from_networkx(nx.karate_club_graph(),
+                                           device="cpu")
+    elif how == "convert":
+        g = convert.edge_list_from_numpy(edges[np.lexsort(edges.T[::-1])], 5,
+                                         device="cpu")
+    elif how == "dataclass":
+        base = tt.EdgeListGraph.from_arrays(edges, device="cpu")
+        g = tt.EdgeListGraph(base.edge_list, base.node_edge_index,
+                             base.num_nodes, base.num_edges, base.max_degree)
+    else:  # dataclasses.replace builds it again from the new edge list
+        base = tt.EdgeListGraph.from_arrays(edges, device="cpu")
+        g = dataclasses.replace(base, edge_list=base.edge_list.flip(0))
+    return g, g.edge_list
+
+
+@pytest.mark.parametrize("how", ["from_arrays", "from_arrays_inferred",
+                                 "empty", "from_networkx", "convert",
+                                 "dataclass", "replace"])
+def test_tails_column_equals_the_edge_lists_second_column(how):
+    """Every constructor builds ``tails``, K8's (E,) int32 layout of the
+    tails, equal to ``edge_list[:, 1]`` and a contiguous tensor of its own;
+    it is no field of the constructor, so a replaced edge list rebuilds
+    it."""
+    g, edges = _constructed(how)
+    assert g.tails.dtype == torch.int32 and g.tails.is_contiguous()
+    assert tuple(g.tails.shape) == (g.num_edges,) == (edges.shape[0],)
+    eq(g.tails, edges[:, 1].numpy())
+    if g.num_edges:
+        assert g.tails.data_ptr() != g.edge_list.data_ptr()
+    assert "tails" not in repr(g)
+    assert "tails" not in {f.name for f in dataclasses.fields(g) if f.init}
+
+
 def test_from_arrays_rejects_heads_out_of_range_and_64_bit_ids():
     with pytest.raises(ValueError, match="out of range"):
         tt.EdgeListGraph.from_arrays([[0, 1], [5, 2]], num_nodes=4,
@@ -204,6 +248,26 @@ def test_walk_edge_list_equals_jax_both_entries(graphs, targets, case):
                                target_nodes=jt, **kw))
     # padding moves and dead ends are on the path
     assert bool((got == kw["padding_idx"]).any())
+
+
+@pytest.mark.parametrize("pad, restart", [(-1, False), (N, True)],
+                         ids=["minus_one-absorb", "N-restart"])
+def test_biased_raw_entry_padding_and_restart_equal_jax(graphs, targets, pad,
+                                                        restart):
+    """The biased raw-array entry on the plain path against the JAX oracle
+    for the padding and restart settings that
+    ``test_walk_edge_list_equals_jax_both_entries`` leaves out.  (On the CPU
+    the entry makes no tails column; K8 on the column is held to this plain
+    version by the ``cuda`` tests.  The graph entry's JAX engine compiles
+    for seconds per setting; it is held in the two settings above.)"""
+    jg, tg = graphs
+    kw = dict(p=0.5, q=2.0, walk_length=L, seed=9, padding_idx=pad,
+              restart=restart)
+    got = tt.walk_edge_list(tg.edge_list, tg.node_edge_index, targets,
+                            device="cpu", **kw)
+    eq(got, trw.walk_edge_list(jg.edge_list, jg.node_edge_index,
+                               target_nodes=jnp.asarray(targets), **kw))
+    assert bool((got == pad).any())
 
 
 def test_biased_walker_offset_chunks_equal_one_call(graphs, targets):
@@ -367,3 +431,42 @@ def test_biased_kernel_equals_plain_version(case, fat):
     assert got.walks.is_cuda
     eq(got.walks, want.walks.numpy())
     eq(got.exhausted, want.exhausted.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fat", [False, True], ids=["oracle", "fat"])
+@pytest.mark.parametrize("case", ["one_edge_graph", "search_1_trip",
+                                  "search_2_trips", "budget_exhausted",
+                                  "tails_made_per_call"])
+def test_biased_kernel_tails_edges_equal_plain_version(case, fat):
+    """K8 on the tails column against its plain version, walks and
+    exhausted flags, tolerance 0: a graph of one edge (every other node has
+    none), searches cut short at 1 and 2 trips (the last probe does not
+    answer), a round budget of 3 at p = 8, q = 0.125 that most steps
+    exhaust, and the column made per call (the raw-array entry's path)
+    beside the graph's own."""
+    need_cuda()
+    g = _kernel_graph()
+    if case == "one_edge_graph":
+        g = tt.EdgeListGraph.from_arrays(np.array([[5, 9]]), num_nodes=40,
+                                         device="cpu")
+    iters = {"search_1_trip": 1, "search_2_trips": 2}.get(case,
+                                                          g.search_iters)
+    rounds = 3 if case == "budget_exhausted" else 4096
+    p, q = (8.0, 0.125) if case == "budget_exhausted" else (0.5, 2.0)
+    t = np.random.default_rng(9).integers(-3, g.num_nodes + 3,
+                                          4097).astype(np.int32)
+    key = prng.derive_key(6, prng.STREAM_EDGE_BIASED)
+    tails = None if case == "tails_made_per_call" else g.tails.cuda()
+    got = tel.biased_walk(g.edge_list, g.node_edge_index, t, p, q, 20, 6, -1,
+                          True, iters, rounds, fat, walker_offset=11,
+                          device=None, tails=tails)
+    want = tel.biased_walk_edge_list_plain(
+        g.edge_list, g.node_edge_index, tcommon.as_int32(t, "cpu"), 20, key,
+        -1, True, tcommon.node2vec_accept_probs(p, q), iters, rounds, fat,
+        walker_offset=11)
+    assert got.walks.is_cuda
+    eq(got.walks, want.walks.numpy())
+    eq(got.exhausted, want.exhausted.numpy())
+    if case == "budget_exhausted":
+        assert bool(want.exhausted.any())

@@ -18,6 +18,7 @@ from torch_random_walk_tpu.graph.triples import (
     build_relation_tail_index as j_build_relation_tail_index,
 )
 from torch_random_walk_tpu_torch import convert
+from torch_random_walk_tpu_torch.kernels import bindings
 from torch_random_walk_tpu_torch.ops import common as tcommon
 from torch_random_walk_tpu_torch.ops import triples_walk as ttw
 from torch_random_walk_tpu_torch.ops import windows as twin
@@ -236,6 +237,135 @@ def test_triples_cbow_collisions_fall_through_to_the_last_draw():
     eq(got[1], np.repeat(table, 6, axis=0))  # every draw collided or not
 
 
+@pytest.mark.parametrize("parity", ["odd", "even"])
+@pytest.mark.parametrize("window", [1, 5])
+def test_triples_windows_equal_jax_odd_and_even_width(graphs, targets, window,
+                                                      parity):
+    """Both generators at windows of 1 and 5 on walks of an odd width (2L +
+    1, as walks come) and of an even width (a walk cut after a relation),
+    padding N."""
+    jg, tg = graphs
+    n = tg.num_entities
+    walks = tt.walk_triples(tg, target_nodes=targets[:16], walk_length=4,
+                            seed=8, padding_idx=n, device="cpu")
+    if parity == "even":
+        walks = walks[:, :-1].contiguous()
+    jw = jnp.asarray(walks.numpy())
+    for ours, theirs in ((tt.to_windows_triples, trw.to_windows_triples),
+                         (tt.to_windows_triples_cbow,
+                          trw.to_windows_triples_cbow)):
+        got = ours(walks, window, n, n, tg.triples, seed=2, device="cpu")
+        want = theirs(jw, window, n, n, jg.triples, seed=2)
+        assert got[0].shape[0] == 16 * ((walks.shape[1] - 1) // 2)
+        for g, w in zip(got, want, strict=True):
+            eq(g, w)
+
+
+STAGE_WORDS = 1024  # kernels/triples.cu::kStageWords
+
+
+def _slot_relation(rel, j, window):
+    return rel - 2 * (j + 1) if j < window else rel + 2 * (j - window + 1)
+
+
+def _cbow_mapping_mirror(walks, window, pad, plan):
+    """What K10's CBOW kernel computes, by its own index arithmetic, for each
+    warp of 32 threads of each group of ``plan``: each live lane's window
+    index, first draw counter (the group's base mod 2^32 plus 4u) and target
+    triple (its walk by multiply and shift); and the windows output as the
+    warp's staged stores leave it: each lane's row put into the stage two
+    slots at a time, the span written in pieces of STAGE_WORDS words."""
+    num_walks, width = walks.shape
+    row_words = 6 * window
+    out = np.full(num_walks * plan.per_walk * row_words, -7, np.int64)
+    wins, draws, tgts = [], [], []
+    for g in range(plan.groups):
+        walk0 = g * plan.group_walks
+        here = min(num_walks - walk0, plan.group_walks) * plan.per_walk
+        for u0 in range(0, here, 32):
+            lanes = min(here - u0, 32)
+            rows, rels = [], []
+            for u in range(u0, u0 + lanes):
+                wl = (u * plan.magic) >> plan.shift
+                rels.append(1 + 2 * (u - wl * plan.per_walk))
+                rows.append(walks[walk0 + wl])
+                wins.append(g * plan.group_windows + u)
+                draws.append((g * plan.group_draws + 4 * u) & 0xFFFFFFFF)
+                tgts.append(rows[-1][rels[-1] - 1:rels[-1] + 2])
+            span = lanes * row_words
+            dst = (g * plan.group_windows + u0) * row_words
+            for c0 in range(0, span, STAGE_WORDS):
+                stage = np.full(STAGE_WORDS, -9, np.int64)
+                for lane, (row, rel) in enumerate(zip(rows, rels)):
+                    def word(k, row=row):
+                        return int(row[k]) if 0 <= k < width else pad
+                    for t in range(window):
+                        at = lane * row_words + 6 * t
+                        if at + 6 <= c0 or at >= c0 + STAGE_WORDS:
+                            continue
+                        a = _slot_relation(rel, 2 * t, window) - 1
+                        b = _slot_relation(rel, 2 * t + 1, window) - 1
+                        v = [word(a), word(a + 1), word(a + 2), word(b),
+                             word(b + 1), word(b + 2)]
+                        for q in range(3):
+                            o = at - c0 + 2 * q
+                            if 0 <= o < STAGE_WORDS:
+                                stage[o:o + 2] = v[2 * q:2 * q + 2]
+                n = min(span - c0, STAGE_WORDS)
+                out[dst + c0:dst + c0 + n] = stage[:n]
+    return (np.array(wins), np.array(draws), np.array(tgts, np.int64),
+            out.reshape(-1, 2 * window, 3))
+
+
+@pytest.mark.parametrize("window", [2, 11])
+@pytest.mark.parametrize("group_windows", [bindings.TRIPLE_WINDOW_GROUP, 13, 7],
+                         ids=["one_group", "groups_of_13", "groups_of_7"])
+def test_cbow_thread_mapping_mirror_equals_jax_layout(graphs, targets,
+                                                      group_windows, window):
+    """A Python mirror of K10 CBOW's thread mapping and staged stores, cut
+    into groups as the launch plan cuts it (several groups, odd group
+    bases), at W = 2 (a warp's rows in one piece of the stage) and W = 11
+    (three pieces): every window once, in JAX's order, its first draw
+    counter 4 * window, and its target triple and window rows equal to
+    JAX's."""
+    jg, tg = graphs
+    walks = tt.walk_triples(tg, target_nodes=targets[:9], walk_length=5,
+                            seed=8, padding_idx=-1, device="cpu").numpy()
+    plan = bindings.triple_windows_plan(*walks.shape, group_windows)
+    wins, draws, tgts, rows = _cbow_mapping_mirror(walks, window, -1, plan)
+    num_win = 9 * 5
+    np.testing.assert_array_equal(wins, np.arange(num_win))
+    np.testing.assert_array_equal(draws, 4 * np.arange(num_win))
+    want_t, _, want_w = trw.to_windows_triples_cbow(
+        jnp.asarray(walks), window, tg.num_entities, -1, jg.triples, seed=2)
+    eq(torch.from_numpy(tgts), want_t)
+    eq(torch.from_numpy(rows), want_w)
+    assert plan.groups == -(-9 // max(1, min(9, group_windows // 5)))
+
+
+def test_triple_windows_plan_counters_past_2_32_and_errors():
+    """At 2^27 walks of 80 windows (more than 2^32 draws) the plan's groups
+    keep every window index of a group below 2^31 and its draw counter at
+    4 * window mod 2^32; walks without a window and grids past 65 535
+    groups raise."""
+    num_walks, per_walk = 2 ** 27, 80
+    plan = bindings.triple_windows_plan(num_walks, 2 * per_walk + 1)
+    assert plan.group_windows + 255 < 2 ** 31 and plan.groups > 1
+    assert plan.group_draws == plan.group_windows * 4 % 2 ** 32
+    for g, u in ((0, 0), (1, 5), (plan.groups - 1,
+                                  (num_walks - (plan.groups - 1)
+                                   * plan.group_walks) * per_walk - 1)):
+        win = g * plan.group_windows + u
+        assert (g * plan.group_draws + 4 * u) % 2 ** 32 == 4 * win % 2 ** 32
+        walk = g * plan.group_walks + (u * plan.magic >> plan.shift)
+        assert walk == win // per_walk
+    with pytest.raises(ValueError, match="windows"):
+        bindings.triple_windows_plan(3, 2)
+    with pytest.raises(ValueError, match="groups"):
+        bindings.triple_windows_plan(70_000, 11, group_windows=5)
+    assert bindings.TRIPLE_CBOW_ROUNDS == twin.CBOW_TRIPLE_ROUNDS
+
+
 # --- the kernels against their plain versions (on the card) -----------------
 
 def _kernel_graph():
@@ -284,3 +414,48 @@ def test_windows_kernel_equals_plain_version(window, cbow):
         for a, b in zip(got, want, strict=True):
             assert a.is_cuda
             eq(a, b.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cbow", [False, True], ids=["skipgram", "cbow"])
+@pytest.mark.parametrize("case", ["ragged_count", "window_1", "window_11",
+                                  "one_triple", "all_padding",
+                                  "odd_group_bases", "even_width"])
+def test_windows_kernel_launch_edges_equal_plain_version(case, cbow):
+    """K10 against its plain version, tolerance 0, at the edges of its
+    launch plans: 33 walks of 7 windows (231, a multiple of neither the
+    warp nor the block), W = 1, W = 11 (a warp's CBOW rows staged in three
+    pieces), a table of a single triple (every CBOW draw
+    collides with some target), walks of padding alone, CBOW's launch cut
+    into groups of 999 windows (odd group bases put every other group's
+    rows off a 16-byte boundary), and walks of an even width."""
+    need_cuda()
+    g = _kernel_graph()
+    n = g.num_entities
+    num, length, window, table = 33, 7, 5, g.triples
+    if case != "ragged_count":
+        num, length = 4097, 9
+    t = np.random.default_rng(17).integers(-2, n + 2, num)
+    walks = ttw.uniform_walk_triples(g.triples, g.relation_tail_index, t,
+                                     length, n, True, 6, fat=True, device=None)
+    if case == "window_1":
+        window = 1
+    elif case == "window_11":
+        window = 11
+    elif case == "one_triple":
+        table = g.triples[:1].contiguous()
+    elif case == "all_padding":
+        walks = torch.full_like(walks, n)
+    elif case == "even_width":
+        walks = walks[:, :-1].contiguous()
+    groups = 999 if case == "odd_group_bases" else bindings.TRIPLE_WINDOW_GROUP
+    stream = (prng.STREAM_WINDOWS_TRIPLES_CBOW if cbow
+              else prng.STREAM_WINDOWS_TRIPLES_SG)
+    key = prng.derive_key(3, stream)
+    got = bindings.to_windows_triples(walks, window, n, table.cuda(), key,
+                                      cbow, groups)
+    want = twin.to_windows_triples_plain(walks.cpu(), window, n,
+                                         table.cpu(), key, cbow)
+    for a, b in zip(got, want, strict=True):
+        assert a.is_cuda
+        eq(a, b.numpy())

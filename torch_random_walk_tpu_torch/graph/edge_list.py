@@ -10,10 +10,13 @@ Contracts kept from the JAX package:
 - ids are ``int32``.  The JAX package falls back to ``int64`` from 2^31 on;
   the port's kernels take ``int32`` only, so the constructors raise there.
 
-The packed "fat" tables of the JAX package are not built: the CUDA kernels
-read the edge list and its index directly.  Whether the JAX package would
-build them is kept all the same (``EdgeListGraph.fat``), because it picks the
-semantics of ``walk_edge_list(graph, p, q)`` (``ops/walk.py``).
+The packed "fat" tables of the JAX package are not built.  In their place
+the graph holds its tails as a column of their own (``EdgeListGraph.tails``,
+``edge_list[:, 1]``), which the biased walk kernel K8 reads; the uniform
+kernel K7 reads the edge list and its index directly.  Whether the JAX
+package would build the fat tables is kept all the same
+(``EdgeListGraph.fat``), because it picks the semantics of
+``walk_edge_list(graph, p, q)`` (``ops/walk.py``).
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ class EdgeListGraph:
         for a node without out-edges.
     fat: True where the JAX package's ``EdgeListGraph`` of the same edges
         holds fat tables (``edge_tab is not None``); no table is built here.
+    tails: (num_edges,) int32, ``edge_list[:, 1]`` as a column of its own,
+        built with the graph (K8's layout: eight tails a 32-byte sector).
     """
 
     edge_list: torch.Tensor
@@ -47,6 +52,11 @@ class EdgeListGraph:
     num_edges: int
     max_degree: int
     fat: bool = True
+    tails: torch.Tensor = dataclasses.field(init=False, repr=False,
+                                            compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "tails", self.edge_list[:, 1].contiguous())
 
     @property
     def device(self) -> torch.device:

@@ -76,12 +76,16 @@ def library(verbose: bool = False) -> ctypes.CDLL:
         lib.trw_uniform_walk_triples.argtypes = [
             _PTR, _PTR, _I32, _I64, _PTR, _PTR, _I32, _I32, _U32, _U32, _U32,
             _I32, _I32, _PTR]
-        lib.trw_to_windows_triples.argtypes = [
-            _PTR, _I64, _I32, _I32, _I32, _PTR, _I64, _U32, _U32, _I32, _PTR,
-            _PTR, _PTR, _PTR]
+        lib.trw_to_windows_triples_sg.argtypes = [
+            _PTR, _I64, _I32, _I32, _I32, _PTR, _I64, _U32, _U32, _PTR, _PTR,
+            _PTR, _PTR]
+        lib.trw_to_windows_triples_cbow.argtypes = [
+            _PTR, _I64, _I32, _I32, _I32, _PTR, _U32, _U32, _U32, _U32, _U32,
+            _U32, _U32, _U32, _I32, _PTR, _PTR, _PTR, _PTR]
         for fn in (lib.trw_uniform_walk_edge_list,
                    lib.trw_biased_walk_edge_list, lib.trw_uniform_walk_triples,
-                   lib.trw_to_windows_triples,
+                   lib.trw_to_windows_triples_sg,
+                   lib.trw_to_windows_triples_cbow,
                    lib.trw_uniform_walk_csr, lib.trw_node2vec_walk_csr,
                    lib.trw_node2vec_walk_geometry, lib.trw_to_windows,
                    lib.trw_all_to_all_chunks, lib.trw_empty_kernel,
@@ -225,15 +229,16 @@ def uniform_walk_edge_list(edge_list, node_edge_index, targets,
     return walks
 
 
-def biased_walk_edge_list(edge_list, node_edge_index, targets,
-                          walk_length: int, key: tuple[int, int],
-                          padding_idx: int, restart: bool,
-                          probs: tuple[float, float, float],
+def biased_walk_edge_list(tails, node_edge_index, targets, walk_length: int,
+                          key: tuple[int, int], padding_idx: int,
+                          restart: bool, probs: tuple[float, float, float],
                           search_iters: int, max_rounds: int, fat: bool,
                           walker_offset: int):
-    """K8.  Returns ((B, L+1) int32 walks, (B,) bool: some step of the walker
-    spent its whole round budget)."""
-    _check_ranges("edge_list", edge_list, 2, node_edge_index, targets,
+    """K8 on the (E,) int32 tails column of an edge list sorted by (head,
+    tail).  Returns ((B, L+1) int32 walks, (B,) bool: some step of the
+    walker spent its whole round budget)."""
+    _check("tails", tails, torch.int32, 1)
+    _check_ranges("tails", tails.view(-1, 1), 1, node_edge_index, targets,
                   walk_length, padding_idx)
     num_walkers = targets.shape[0]
     walks = torch.empty((num_walkers, walk_length + 1), dtype=torch.int32,
@@ -244,9 +249,9 @@ def biased_walk_edge_list(edge_list, node_edge_index, targets,
         return walks, exhausted.bool()
     _launch("biased_walk_edge_list", library().trw_biased_walk_edge_list,
             _device_index(targets.device), node_edge_index.data_ptr(),
-            edge_list.data_ptr(), node_edge_index.shape[0],
-            edge_list.shape[0], targets.data_ptr(), walks.data_ptr(),
-            exhausted.data_ptr(), num_walkers, walk_length, key[0], key[1],
+            tails.data_ptr(), node_edge_index.shape[0], tails.shape[0],
+            targets.data_ptr(), walks.data_ptr(), exhausted.data_ptr(),
+            num_walkers, walk_length, key[0], key[1],
             walker_offset & 0xFFFFFFFF, padding_idx, int(restart), int(fat),
             *probs, search_iters, max_rounds)
     return walks, exhausted.bool()
@@ -272,16 +277,64 @@ def uniform_walk_triples(triples, relation_tail_index, targets,
     return walks
 
 
+# The windows a group of K10 CBOW's launch may hold (blockIdx.y), so that
+# every window index inside a group, a thread's and its block's others' (at
+# most 255), stays below 2^31; CBOW's draws a window (kCbowRounds;
+# ops/windows.py::CBOW_TRIPLE_ROUNDS).
+TRIPLE_WINDOW_GROUP = 2 ** 31 - 256
+TRIPLE_CBOW_ROUNDS = 4
+
+
+class TripleWindowsPlan(NamedTuple):
+    """K10 CBOW's launch: the walks cut into ``groups`` of ``group_walks``
+    walks (the last may hold fewer), one thread a window; window u of a
+    group lies in its walk ``u * magic >> shift`` (= u // per_walk), and the
+    group's windows and draw counters mod 2^32 advance by ``group_windows``
+    and ``group_draws``.  The C function cuts each group into blocks."""
+
+    per_walk: int
+    group_walks: int
+    groups: int
+    group_windows: int
+    group_draws: int
+    magic: int
+    shift: int
+
+
+def triple_windows_plan(num_walks: int, width: int,
+                        group_windows: int = TRIPLE_WINDOW_GROUP
+                        ) -> TripleWindowsPlan:
+    """K10 CBOW's launch for ``num_walks`` [v0, r1, v1, ...] walks of
+    ``width`` words (at least one window each); ``group_windows`` bounds the
+    windows of one group."""
+    per_walk = (width - 1) // 2
+    if not 0 < per_walk <= group_windows:
+        raise ValueError(f"walks of {width} words hold {per_walk} windows, "
+                         f"not 1 to {group_windows}")
+    group_walks = max(1, min(num_walks, group_windows // per_walk))
+    groups = -(-num_walks // group_walks)
+    if groups > 65535:
+        raise ValueError(f"{num_walks} walks need {groups} groups, more than "
+                         "a grid holds")
+    windows_here = group_walks * per_walk
+    return TripleWindowsPlan(per_walk, group_walks, groups, windows_here,
+                             windows_here * TRIPLE_CBOW_ROUNDS & 0xFFFFFFFF,
+                             *division_magic(per_walk))
+
+
 def to_windows_triples(walks, window_size: int, padding_idx: int, triples,
-                       key: tuple[int, int], cbow: bool):
+                       key: tuple[int, int], cbow: bool,
+                       group_windows: int = TRIPLE_WINDOW_GROUP):
     """K10.  (num_walks, width) int32 [v0, r1, v1, ...] walks -> targets
     (num_win, 3), windows (num_win, 2W, 3) and negatives (num_win, 2W, 3)
-    for skip-gram; (targets, negatives (num_win, 3), windows) for CBOW."""
+    for skip-gram; (targets, negatives (num_win, 3), windows) for CBOW.
+    ``group_windows`` as in ``triple_windows_plan`` (CBOW): a test passes a
+    small one to run many groups."""
     _check("walks", walks, torch.int32, 2)
     _check("triples", triples, torch.int32, 2, walks.device)
     num_walks, width = walks.shape
-    if triples.shape[0] < 1 or triples.shape[1] != 3:
-        raise ValueError(f"triples must be (T >= 1, 3), got "
+    if not 0 < triples.shape[0] < 2 ** 31 or triples.shape[1] != 3:
+        raise ValueError(f"triples must be (T, 3) with 0 < T < 2^31, got "
                          f"{tuple(triples.shape)}")
     if window_size < 1:
         raise ValueError(f"window_size must be >= 1, got {window_size}")
@@ -295,13 +348,21 @@ def to_windows_triples(walks, window_size: int, padding_idx: int, triples,
     negatives = torch.empty((num_win, 3) if cbow
                             else (num_win, 2 * window_size, 3),
                             dtype=torch.int32, device=dev)
-    if num_win:
-        _launch("to_windows_triples_cbow" if cbow else "to_windows_triples",
-                library().trw_to_windows_triples, _device_index(dev),
+    if num_win and cbow:
+        plan = triple_windows_plan(num_walks, width, group_windows)
+        _launch("to_windows_triples_cbow",
+                library().trw_to_windows_triples_cbow, _device_index(dev),
                 walks.data_ptr(), num_walks, width, window_size, padding_idx,
                 triples.data_ptr(), triples.shape[0], key[0], key[1],
-                int(cbow), targets.data_ptr(), windows.data_ptr(),
-                negatives.data_ptr())
+                plan.magic, plan.shift, plan.group_walks, plan.group_windows,
+                plan.group_draws, plan.groups, targets.data_ptr(),
+                windows.data_ptr(), negatives.data_ptr())
+    elif num_win:
+        _launch("to_windows_triples", library().trw_to_windows_triples_sg,
+                _device_index(dev), walks.data_ptr(), num_walks, width,
+                window_size, padding_idx, triples.data_ptr(),
+                triples.shape[0], key[0], key[1], targets.data_ptr(),
+                windows.data_ptr(), negatives.data_ptr())
     if cbow:
         return targets, negatives, windows
     return targets, windows, negatives

@@ -22,22 +22,29 @@
 // neighbour of t with prob_1, any other with prob_2.
 //
 // Bound on this card: chains of dependent random reads, as K1's and K2's.
-// A step reads cur's 8-byte range, then one 8-byte edge row that depends on
-// it, and the next step depends on that row's tail; K8 adds, for the rounds
-// whose draw falls between the two thresholds, a binary search over t's
-// tails.
+// A step reads cur's 8-byte range, then one tail that depends on it, and the
+// next step depends on that tail; K8 adds, for the rounds whose draw falls
+// between the two thresholds, a binary search over t's tails.
 //
 // What the design does about it (K1's and K2's structure):
 // - one thread per walker, free-running: K8's lane runs one round of its own
 //   step per iteration and does the step boundary (store, t <- v <- sel, the
 //   new v's range) in the accepting iteration;
-// - the range as one aligned 8-byte load (the index is (N, 2) int32), the
-//   tail as one 8-byte edge row;
+// - the range as one aligned 8-byte load (the index is (N, 2) int32);
+// - K8 reads its draws' tails and its searches' probes from the graph's
+//   (E,) int32 tails column (EdgeListGraph.tails; the raw-array entry makes
+//   it per call), K2's layout: a 32-byte sector holds 8 tails, where the
+//   8-byte [head, tail] rows hold 4, so the last probes of a search touch
+//   half the sectors and L2 holds twice the tails.  K7 still reads column 1
+//   of the edge rows;
 // - no search where the draw decides alone (below min(prob_1, prob_2) it
 //   accepts, at or above the max it rejects either way), and the search
 //   answers from its last probe;
 // - the walk stored a whole 32-byte sector at a time from registers
 //   (csr.cuh::RowWriter).
+// On the H100 the tails column took K8 from 1.63 to 1.34 ms at the bench
+// shape (PERF.md §6).  Measured and not kept: L2::evict_last loads of the
+// range index (no change, and the priority would outlive the launch).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -49,23 +56,29 @@ namespace trw {
 
 constexpr int kEdgeThreads = 128;
 
+// An edge list as its range index and its tails: K7 reads them as column 1
+// of the (E, 2) [head, tail] rows (STRIDE 2), K8 from the graph's (E,) tails
+// column (STRIDE 1), which packs twice the tails into a sector.
+template <int STRIDE>
 struct EdgeList {
   RangeIndex idx;
-  const int2* __restrict__ edges;  // (num_edges, 2) [head, tail]
+  const int32_t* __restrict__ tails;  // tail of edge i at tails[STRIDE * i]
   int64_t num_edges;
 };
 
 // Tail of edge i, clamped into the edge list (0 for an empty list, whose
 // lanes the callers mask, as ops/common.py::gather_rows does).
-__device__ __forceinline__ int32_t tail_at(const EdgeList& g, int64_t i) {
+template <int S>
+__device__ __forceinline__ int32_t tail_at(const EdgeList<S>& g, int64_t i) {
   if (g.num_edges == 0) return 0;
   i = min(max(i, (int64_t)0), g.num_edges - 1);
-  return g.edges[i].y;
+  return g.tails[S * i];
 }
 
 // One draw from node `cur`, whose range `r` the caller holds
 // (ops/common.py::sample_edge_neighbor).
-__device__ __forceinline__ int32_t edge_step(const EdgeList& g, int32_t cur,
+template <int S>
+__device__ __forceinline__ int32_t edge_step(const EdgeList<S>& g, int32_t cur,
                                              const Range& r, int32_t jump,
                                              int32_t pad, uint32_t bits) {
   if (cur == pad) return jump;
@@ -77,7 +90,8 @@ __device__ __forceinline__ int32_t edge_step(const EdgeList& g, int32_t cur,
 // lower-bound search of ops/common.py::is_neighbor_edge over the tails of
 // [start, end), answered as csr.cuh::is_neighbor answers it.  A range
 // without edges (or a t the caller ruled out) answers false.
-__device__ __forceinline__ bool is_neighbor_edge(const EdgeList& g,
+template <int S>
+__device__ __forceinline__ bool is_neighbor_edge(const EdgeList<S>& g,
                                                  const Range& rt, int32_t cand,
                                                  int iters) {
   if (!rt.has) return false;
@@ -98,7 +112,7 @@ __device__ __forceinline__ bool is_neighbor_edge(const EdgeList& g,
 }
 
 __global__ void __launch_bounds__(kEdgeThreads) uniform_walk_edge_list_kernel(
-    EdgeList g, const int32_t* __restrict__ targets, int32_t* __restrict__ walks,
+    EdgeList<2> g, const int32_t* __restrict__ targets, int32_t* __restrict__ walks,
     int32_t num_walkers, int32_t walk_length, uint32_t k0, uint32_t k1,
     uint32_t walker_offset, int32_t pad, int32_t restart) {
   int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -132,8 +146,8 @@ struct EdgeBiasedParams {
 
 // t's range for the membership test, or none: the fat engine's edge set
 // knows t only for 0 <= t < N; the oracle rules out t == padding.
-template <bool FAT>
-__device__ __forceinline__ Range member_range(const EdgeList& g, int32_t t,
+template <bool FAT, int S>
+__device__ __forceinline__ Range member_range(const EdgeList<S>& g, int32_t t,
                                               Range rt, int32_t pad) {
   bool valid = FAT ? (uint32_t)t < (uint32_t)g.idx.num_nodes : t != pad;
   rt.has = rt.has && valid;
@@ -142,7 +156,7 @@ __device__ __forceinline__ Range member_range(const EdgeList& g, int32_t t,
 
 template <bool FAT>
 __global__ void __launch_bounds__(kEdgeThreads) biased_walk_edge_list_kernel(
-    EdgeList g, const int32_t* __restrict__ targets, int32_t* __restrict__ walks,
+    EdgeList<1> g, const int32_t* __restrict__ targets, int32_t* __restrict__ walks,
     uint8_t* __restrict__ exhausted, int32_t num_walkers, int32_t walk_length,
     uint32_t k0, uint32_t k1, uint32_t walker_offset, EdgeBiasedParams prm) {
   int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -206,8 +220,8 @@ extern "C" int trw_uniform_walk_edge_list(
     uint32_t walker_offset, int32_t pad, int32_t restart, void* stream) {
   const int threads = trw::kEdgeThreads;
   const unsigned blocks = (unsigned)((num_walkers + threads - 1) / threads);
-  trw::EdgeList g{{reinterpret_cast<const int2*>(index), num_nodes},
-                  reinterpret_cast<const int2*>(edges), num_edges};
+  trw::EdgeList<2> g{{reinterpret_cast<const int2*>(index), num_nodes},
+                     edges + 1, num_edges};
   trw::uniform_walk_edge_list_kernel<<<blocks, threads, 0,
                                        (cudaStream_t)stream>>>(
       g, targets, walks, num_walkers, walk_length, k0, k1, walker_offset, pad,
@@ -216,7 +230,7 @@ extern "C" int trw_uniform_walk_edge_list(
 }
 
 extern "C" int trw_biased_walk_edge_list(
-    const int32_t* index, const int32_t* edges, int32_t num_nodes,
+    const int32_t* index, const int32_t* tails, int32_t num_nodes,
     int64_t num_edges, const int32_t* targets, int32_t* walks,
     uint8_t* exhausted, int32_t num_walkers, int32_t walk_length, uint32_t k0,
     uint32_t k1, uint32_t walker_offset, int32_t pad, int32_t restart,
@@ -224,8 +238,8 @@ extern "C" int trw_biased_walk_edge_list(
     int32_t search_iters, int32_t max_rounds, void* stream) {
   const int threads = trw::kEdgeThreads;
   const unsigned blocks = (unsigned)((num_walkers + threads - 1) / threads);
-  trw::EdgeList g{{reinterpret_cast<const int2*>(index), num_nodes},
-                  reinterpret_cast<const int2*>(edges), num_edges};
+  trw::EdgeList<1> g{{reinterpret_cast<const int2*>(index), num_nodes}, tails,
+                     num_edges};
   trw::EdgeBiasedParams prm{prob_0, prob_1, prob_2, search_iters, max_rounds,
                             pad, restart};
   cudaStream_t st = (cudaStream_t)stream;

@@ -10,7 +10,9 @@
 
 On a CUDA device the walks run in the hand-written kernels K7 (uniform) and
 K8 (biased) of ``kernels/edge_list_walk.cu``; the ``*_plain`` functions are
-their plain PyTorch versions, used on the CPU and to check the kernels.
+their plain PyTorch versions, used on the CPU and to check the kernels.  K7
+reads the tails as column 1 of the edge rows, K8 from the (E,) tails column
+(``EdgeListGraph.tails``, or a copy made per call for raw arrays).
 ``fat`` picks the JAX fat engine's membership test
 (``ops/fatwalk.py::node2vec_walk_edge_list_fat``: its cuckoo edge set looks
 t up by its own id) over the oracle's (t clamped into [0, N), padding never
@@ -135,21 +137,25 @@ def uniform_walk_edge_list(edge_list, node_edge_index, target_nodes,
 
 def biased_walk(edge_list, node_edge_index, target_nodes, p, q, walk_length,
                 seed, padding_idx, restart, search_iters, max_rounds, fat,
-                walker_offset=0, device=None) -> BiasedWalks:
+                walker_offset=0, device=None, tails=None) -> BiasedWalks:
     """K8 on a CUDA device, its plain version on the CPU; walks and the
-    walkers whose round budget ran out at some step."""
+    walkers whose round budget ran out at some step.  K8 reads the edge
+    list's tails column: ``tails`` (``EdgeListGraph.tails``) where given,
+    else a copy of ``edge_list[:, 1]`` made for this call."""
     dev, edge_list, node_edge_index, target_nodes = _inputs(
         edge_list, node_edge_index, target_nodes, device)
     key = prng.derive_key(seed, prng.STREAM_EDGE_BIASED)
-    args = (edge_list, node_edge_index, target_nodes, int(walk_length), key,
+    args = (node_edge_index, target_nodes, int(walk_length), key,
             int(padding_idx), bool(restart),
             common.node2vec_accept_probs(float(p), float(q)),
             int(search_iters), int(max_rounds), bool(fat), int(walker_offset))
     if dev.type == "cuda":
-        walks, exhausted = bindings.biased_walk_edge_list(*args)
+        if tails is None:
+            tails = edge_list[:, 1].contiguous()
+        walks, exhausted = bindings.biased_walk_edge_list(tails, *args)
         return BiasedWalks(walks, exhausted, None, None)
     common.check_walk_length(walk_length)
-    return biased_walk_edge_list_plain(*args)
+    return biased_walk_edge_list_plain(edge_list, *args)
 
 
 def biased_walk_edge_list(edge_list, node_edge_index, target_nodes, p, q,

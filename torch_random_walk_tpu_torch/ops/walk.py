@@ -108,7 +108,7 @@ def walk_edge_list(edge_list_indexed, node_edge_index=None, target_nodes=None,
         out = edge_list_walk.biased_walk(
             graph.edge_list, graph.node_edge_index, target_nodes, p, q,
             walk_length, seed, padding_idx, restart, graph.search_iters,
-            max_rounds, graph.fat, device=dev)
+            max_rounds, graph.fat, device=dev, tails=graph.tails)
         if graph.fat:
             out.walks[:, -1].masked_fill_(out.exhausted, -1)
         return out.walks

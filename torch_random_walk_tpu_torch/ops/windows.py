@@ -19,7 +19,7 @@
 
 On a CUDA device ``to_windows`` runs in the hand-written kernel K3
 (``kernels/windows.cu``) and both triples generators in K10
-(``kernels/triples.cu``, one template); ``to_windows_plain`` and
+(``kernels/triples.cu``: one kernel a generator); ``to_windows_plain`` and
 ``to_windows_triples_plain`` are their plain PyTorch versions.
 ``to_windows_cbow`` is plain tensor code on every device.
 """
