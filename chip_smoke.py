@@ -17,7 +17,8 @@ KG-triples families derived from the same graph as the JAX package's
 ``bench.py --families all`` derives them (the edge list (heads, col_idx) and
 the triples with 16 pseudo relations; padding N, restart, seed 7):
 ``walk_edge_list`` through the graph entry and the raw arrays, uniform (K7)
-and p=0.5 q=2 (K8), ``walk_triples`` (K9) and both triple window generators
+and p=0.5 q=2 (K8), ``walk_triples`` through both entries (K9) and both
+triple window generators
 at W=5 (K10), on the graph and on a copy whose last quarter of nodes has no
 out-edges.  It checks the results and
 measures every kernel at the shape the main path gives it; the two loss
@@ -38,18 +39,20 @@ time and with the host in the way).  The small checks also walk a graph
 built with ``build_fat=False``, which must take the rejection sampler with
 the graph's own search depth, and hold K3 and K4 against their plain
 versions at the edges of their launch plans, and K7-K10 against theirs on
-small graphs with dead ends (``family_kernels_small``: padding -1 and N,
-restart both ways, targets outside [0, N), round budgets of 1 and 2, L = 1,
-7, 8, 9, 80 and B = 1, 33, 4 097, W = 1, 2, 5, 11, searches cut short,
+small graphs with dead ends (``family_kernels_small``: K7 and K9 on every
+table their entries read, padding -1 and N, restart both ways, targets
+outside [0, N), round budgets of 1 and 2, L = 1, 7, 8, 9, 80 and B = 1,
+33, 4 097, W = 1, 2, 5, 11, searches cut short,
 tables of one and two triples, walks of padding alone, CBOW's launch in
 groups).
 
 With ``--compare NAME=DIR`` (another checkout of the repo, e.g. the parent
 commit's ``git archive`` unpacked under the ignored ``build/``; repeatable),
-the run ends with a ``kernel_comparison`` line: K8 through both edge-list
-entries and K10's two generators at the families' bench shape (CBOW also at
-W = 1, 2 and 10), each checkout's package imported beside this one and its
-kernels built from its own sources, timed in this one process, in turns
+the run ends with a ``kernel_comparison`` line: K7 and K9 through both
+entries on the bench graph and on its copy with dead ends, K8 through both
+edge-list entries and K10's two generators at the families' bench shape
+(CBOW also at W = 1, 2 and 10); each checkout's package imported beside
+this one and its kernels built from its own sources, timed in this one process, in turns
 (``phase_compare_kernels``).  Without arguments it needs one card and
 nothing else.
 
@@ -216,9 +219,28 @@ INTEGER_KERNELS = ("uniform_walk_csr", "node2vec_walk_csr_mixture",
 T0 = time.perf_counter()
 
 
+RUN_PEAK_BYTES = [0]  # the run's peak device memory, as peak_gib folds it
+
+
+def peak_gib() -> float | None:
+    """Peak device memory allocated since the last call, in GiB (None before
+    the card is in use); it is folded into the run's peak, and the card's
+    peak counter starts again."""
+    if not torch.cuda.is_available() or not torch.cuda.is_initialized():
+        return None
+    peak = torch.cuda.max_memory_allocated()
+    RUN_PEAK_BYTES[0] = max(RUN_PEAK_BYTES[0], peak)
+    torch.cuda.reset_peak_memory_stats()
+    return round(peak / 2**30, 2)
+
+
 def emit(phase: str, **fields) -> None:
+    """One JSON line; ``peak_gib`` is the peak device memory since the
+    previous line, so the line of the phase that sets the run's peak shows
+    it."""
     print(json.dumps({"phase": phase,
-                      "at_s": round(time.perf_counter() - T0, 1), **fields}),
+                      "at_s": round(time.perf_counter() - T0, 1), **fields,
+                      "peak_gib": peak_gib()}),
           flush=True)
 
 
@@ -559,14 +581,16 @@ EXCHANGE_WINDOW_FUNCTIONS = {
 }
 
 
-# K7-K10's entry functions (K8 and K9 by template flag; K10 a kernel for
-# each generator).
+# K7-K10's entry functions (K7 by table layout; K8 and K9 by template flag;
+# K10 a kernel for each generator).
 FAMILY_FUNCTIONS = {
-    "uniform_walk_edge_list_kernel": "K7",
+    "uniform_walk_edge_rows_kernel": "K7 packed rows (graph)",
+    "uniform_walk_edge_list_kernelILi1E": "K7 tails column (unfit graph)",
+    "uniform_walk_edge_list_kernelILi2E": "K7 raw rows",
     "biased_walk_edge_list_kernelILb1E": "K8 fat",
     "biased_walk_edge_list_kernelILb0E": "K8 oracle",
-    "uniform_walk_triples_kernelILb1E": "K9 fat",
-    "uniform_walk_triples_kernelILb0E": "K9 oracle",
+    "uniform_walk_triples_kernelILb1E": "K9 fat, triple_tab",
+    "uniform_walk_triples_kernelILb0E": "K9 oracle, raw triples",
     "to_windows_triples_sg_kernel": "K10 skip-gram",
     "to_windows_triples_cbow_kernel": "K10 CBOW",
 }
@@ -1237,7 +1261,7 @@ def phase_train(graph):
     biased.model = model  # the same tables and optimizer state
     window = TRAIN_CONFIG["window_size"]
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    peak_gib()  # the step's own peak from here on
 
     bindings.reset_launch_counts()
     losses, events = [], []
@@ -1251,7 +1275,7 @@ def phase_train(graph):
     biased_loss = biased.epoch_step(targets, 1 + TRAIN_STEPS)
     torch.cuda.synchronize()
     launches = dict(bindings.launch_counts)
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    step_peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     losses = [float(x) for x in losses]
     step_ms = [a.elapsed_time(b) for a, b in events]
@@ -1270,7 +1294,7 @@ def phase_train(graph):
                   + launches["node2vec_walk_csr_mixture"]) / (steps + 1),
              "walk_sgns_loss_fwd": launches["walk_sgns_loss_fwd"] / (steps + 1),
              "walk_sgns_loss_bwd": launches["walk_sgns_loss_bwd"] / (steps + 1)},
-         peak_device_gib=peak_gib)
+         peak_device_gib=step_peak_gib)
     require(launches["uniform_walk_csr"] == steps
             and launches["node2vec_walk_csr_mixture"] == 1
             and launches["walk_sgns_loss_fwd"] == steps + 1
@@ -1449,8 +1473,8 @@ def family_graphs(graph, dead_quarter: bool = False):
 def family_walk_calls(el, tg, targets, pad: int) -> dict:
     """The family walks of the main path through the public entry points:
     both edge-list entries, uniform (K7) and p=0.5 q=2 (K8, the graph's fat
-    semantics and the raw arrays' oracle), and the triples graph entry
-    (K9)."""
+    semantics and the raw arrays' oracle), and both triples entries (K9, the
+    graph's fat semantics and the raw arrays' oracle)."""
     kw = dict(walk_length=WALK_LENGTH, seed=FAMILY_SEED, padding_idx=pad,
               restart=True)
     raw = (el.edge_list, el.node_edge_index, targets)
@@ -1464,6 +1488,9 @@ def family_walk_calls(el, tg, targets, pad: int) -> dict:
         "triples": lambda: tt.walk_triples(
             tg, target_nodes=targets, walk_length=WALK_LENGTH,
             seed=FAMILY_SEED, padding_idx=pad),
+        "triples_raw": lambda: tt.walk_triples(
+            tg.triples, tg.relation_tail_index, targets,
+            walk_length=WALK_LENGTH, seed=FAMILY_SEED, padding_idx=pad),
     }
 
 
@@ -1521,7 +1548,9 @@ def plain_triple_windows(tg, walks, pad, cbow: bool, window=WINDOW,
 def phase_family_small_checks() -> None:
     """K7-K10 against their plain versions at small sizes, tolerance 0: a
     power-law graph whose last quarter of nodes has no out-edges and the
-    grid-world KG, padding -1 and N, restart both ways, targets outside
+    grid-world KG, K7 on the raw rows and on the graph's packed rows and
+    tails column, K9 on the raw triples (both semantics) and on the graph's
+    ``triple_tab`` (fat), padding -1 and N, restart both ways, targets outside
     [0, N), round budgets of 1 and 2, searches cut short (K8 with 1 and 2
     trips), L = 1, 7, 8, 9, 80 and B = 1, 33, 4 097, windows of 1, 2, 5 and
     11 (and tables of one and two triples, where CBOW's draws collide; at
@@ -1542,18 +1571,25 @@ def phase_family_small_checks() -> None:
 
     errs = dict.fromkeys(FAMILY_KERNELS, 0)
     cases = 0
+    edge_key = prng.derive_key(FAMILY_SEED, prng.STREAM_EDGE_UNIFORM)
     for length in (1, 7, 8, 9, 80):
         for num in (1, 33, 4097):
             t = targets(num, n)
             for pad, restart in ((-1, True), (n, False)):
-                got = edge_list_walk.uniform_walk_edge_list(
-                    el.edge_list, el.node_edge_index, t, length, FAMILY_SEED,
-                    pad, restart, walker_offset=5)
                 want = plain_edge_uniform(el, t, pad, restart,
                                           walk_length=length, walker_offset=5)
+                got = [edge_list_walk.uniform_walk_edge_list(
+                    el.edge_list, el.node_edge_index, t, length, FAMILY_SEED,
+                    pad, restart, walker_offset=5)]
+                got += [bindings.uniform_walk_edge_list(
+                    table, el.node_edge_index, t, length, edge_key, pad,
+                    restart, 5, layout=layout, bits=el.packed_bits)
+                    for layout, table in (("packed", el.edge_tab),
+                                          ("tails", el.tails))]
                 errs["uniform_walk_edge_list"] = max(
-                    errs["uniform_walk_edge_list"], max_abs_err(got, want))
-                cases += 1
+                    errs["uniform_walk_edge_list"],
+                    max_abs_err(got, [want] * len(got)))
+                cases += len(got)
     for fat in (True, False):
         for length, num, rounds, pad, restart, iters in (
                 (20, 4097, 1, -1, True, None), (20, 4097, 2, n, False, None),
@@ -1584,14 +1620,22 @@ def phase_family_small_checks() -> None:
                 for num in (1, 33, 4097):
                     t = targets(num, graph.num_entities)
                     pad = graph.num_entities if num == 33 else -1
-                    got = triples_walk.uniform_walk_triples(
-                        graph.triples, graph.relation_tail_index, t, length,
-                        pad, True, FAMILY_SEED, walker_offset=5, fat=fat)
                     want = plain_triples(graph, t, pad, fat,
                                          walk_length=length, walker_offset=5)
+                    walks_by_table = [triples_walk.uniform_walk_triples(
+                        graph.triples, graph.relation_tail_index, t, length,
+                        pad, True, FAMILY_SEED, walker_offset=5, fat=fat)]
+                    if fat:  # the graph's own triple_tab
+                        walks_by_table.append(
+                            triples_walk.uniform_walk_triples_graph(
+                                graph, t, length, pad, FAMILY_SEED,
+                                walker_offset=5))
+                    got = walks_by_table[0]
                     errs["uniform_walk_triples"] = max(
-                        errs["uniform_walk_triples"], max_abs_err(got, want))
-                    cases += 1
+                        errs["uniform_walk_triples"],
+                        max_abs_err(walks_by_table,
+                                    [want] * len(walks_by_table)))
+                    cases += len(walks_by_table)
                     if fat and num == 4097 and length in (9, 80):
                         triple_walks[graph is grid, pad] = (graph, got)
     for (_, pad), (graph, walks) in triple_walks.items():
@@ -1746,10 +1790,14 @@ def check_family_outputs(el, tg, out, targets, pad, label: str) -> dict:
     k8_bound = edge_biased_bound(el, want_b.walks, want_b.rounds,
                                  want_b.searches)
     del want_b
+    # The two triples entries differ in semantics (the graph's fat, the raw
+    # arrays' oracle), so each has its own plain run.
     want_t, plain_ms["uniform_walk_triples"] = wall_ms(
         lambda: plain_triples(tg, targets, pad, tg.fat))
-    errs["uniform_walk_triples"] = max_abs_err(out["triples"], want_t)
-    del want_t
+    want_raw = plain_triples(tg, targets, pad, False)
+    errs["uniform_walk_triples"] = max_abs_err(
+        [out["triples"], out["triples_raw"]], [want_t, want_raw])
+    del want_t, want_raw
     for name, key, cbow in (("to_windows_triples", "windows_sg", False),
                             ("to_windows_triples_cbow", "windows_cbow", True)):
         want, plain_ms[name] = wall_ms(lambda: plain_triple_windows(
@@ -1767,12 +1815,13 @@ def check_family_outputs(el, tg, out, targets, pad, label: str) -> dict:
                 f"{label} {name}: id out of range or -1")
         require(edge_hops_ok(el, w, targets, pad),
                 f"{label} {name}: a hop is neither an edge nor a padding move")
-    w = out["triples"]
-    require(tuple(w.shape) == (NUM_WALKERS, 2 * WALK_LENGTH + 1)
-            and bool(((w >= 0) & (w <= pad)).all()),
-            f"{label} triples: wrong shape or id out of range")
-    require(triple_hops_ok(tg, w, pad), f"{label} triples: a step is not a "
-            "triple of the graph nor a padding move")
+    for name in ("triples", "triples_raw"):
+        w = out[name]
+        require(tuple(w.shape) == (NUM_WALKERS, 2 * WALK_LENGTH + 1)
+                and bool(((w >= 0) & (w <= pad)).all()),
+                f"{label} {name}: wrong shape or id out of range")
+        require(triple_hops_ok(tg, w, pad), f"{label} {name}: a step is not "
+                "a triple of the graph nor a padding move")
     tgt, win, neg = out["windows_sg"]
     require(tuple(tgt.shape) == (num_win, 3)
             and tuple(win.shape) == tuple(neg.shape) == (num_win, 2 * WINDOW, 3),
@@ -1784,7 +1833,7 @@ def check_family_outputs(el, tg, out, targets, pad, label: str) -> dict:
          plain_ms=plain_ms,
          padding_share={name: float((out[name][:, 1:] == pad).float().mean())
                         for name in ("edge_uniform", "edge_biased",
-                                     "triples")})
+                                     "triples", "triples_raw")})
     require(all(e == 0 for e in errs.values()),
             f"{label}: a family kernel != its plain version: {errs}")
     return {"plain_ms": plain_ms, "errs": errs, "k8_bound": k8_bound}
@@ -1812,7 +1861,10 @@ def phase_family_main_path(graph):
     emit("family_graphs", edges=el.num_edges, triples=tg.num_triples,
          relations=tg.num_relations, max_degree=el.max_degree,
          search_iters=el.search_iters, fat=[el.fat, tg.fat],
-         build_ms=build_ms, padding_idx=pad)
+         build_ms=build_ms, padding_idx=pad, column_bytes={
+             name: t.numel() * t.element_size()
+             for name, t in (("tails", el.tails), ("edge_tab", el.edge_tab),
+                             ("triple_tab", tg.triple_tab))})
     torch.cuda.synchronize()
     bindings.reset_launch_counts()
     out, first_ms = run_family_main_path(el, tg, targets, pad)
@@ -1851,7 +1903,7 @@ def phase_family_kernels(el, tg, targets, launches, checked) -> list[dict]:
          node_steps_per_s={name: steps / (device[name] / 1e3)
                            for name in ("edge_uniform", "edge_biased",
                                         "edge_uniform_raw", "edge_biased_raw",
-                                        "triples")},
+                                        "triples", "triples_raw")},
          windows=NUM_WALKERS * WALK_LENGTH,
          device_timing=f"{WALK_REPS} calls queued behind a spin kernel, "
                        "median of 5, per call",
@@ -1867,7 +1919,7 @@ def phase_family_kernels(el, tg, targets, launches, checked) -> list[dict]:
         ("uniform_walk_edge_list", "edge_uniform", "edge_uniform_raw",
          family_bound_walks(3, NUM_WALKERS, WALK_LENGTH, WALK_LENGTH + 1)),
         ("biased_walk_edge_list", "edge_biased", "edge_biased_raw", k8_bound),
-        ("uniform_walk_triples", "triples", None,
+        ("uniform_walk_triples", "triples", "triples_raw",
          family_bound_walks(4, NUM_WALKERS, WALK_LENGTH,
                             2 * WALK_LENGTH + 1)),
         ("to_windows_triples", "windows_sg", None, sg_bound),
@@ -1889,7 +1941,7 @@ def phase_family_kernels(el, tg, targets, launches, checked) -> list[dict]:
     return rows
 
 
-# --- K8 and K10 beside other checkouts' builds, in one process ------------
+# --- K7-K10 beside other checkouts' builds, in one process ---------------
 
 PACKAGE = "torch_random_walk_tpu_torch"
 COMPARE_CBOW_WINDOWS = (1, 2, 5, 10)
@@ -1919,54 +1971,78 @@ def checkout_package(root: str):
     return pkg, build_module
 
 
-def compare_calls(pkg, edge_list, num_nodes: int, walks, triples, targets,
-                  pad: int) -> dict:
-    """K8 through both edge-list entries and K10 through both generators
-    (CBOW at each of COMPARE_CBOW_WINDOWS) at the families' bench shape, by
-    the public entry points of ``pkg``, on its own graph object."""
-    el = pkg.EdgeListGraph.from_arrays(edge_list, num_nodes=num_nodes)
-    kw = dict(p=P, q=Q, walk_length=WALK_LENGTH, seed=FAMILY_SEED,
-              padding_idx=pad, restart=True)
-    calls = {
-        "edge_biased": lambda: pkg.walk_edge_list(el, target_nodes=targets,
-                                                  **kw),
-        "edge_biased_raw": lambda: pkg.walk_edge_list(
-            el.edge_list, el.node_edge_index, targets, **kw),
-        "windows_sg": lambda: pkg.to_windows_triples(
-            walks, WINDOW, num_nodes, pad, triples, seed=WINDOW_SEED),
-    }
-    for w in COMPARE_CBOW_WINDOWS:
-        calls[f"windows_cbow_w{w}"] = (
-            lambda w=w: pkg.to_windows_triples_cbow(
-                walks, w, num_nodes, pad, triples, seed=WINDOW_SEED))
+def compare_calls(pkg, families: dict, num_nodes: int, walks, triples,
+                  targets, pad: int) -> dict:
+    """By the public entry points of ``pkg``, on its own graph objects built
+    from ``families`` (label -> (edge list, triples); the bench graph and
+    its copy with dead ends): K7 and K9 through both entries on each graph;
+    on the bench graph also K8 through both edge-list entries and K10
+    through both generators (CBOW at each of COMPARE_CBOW_WINDOWS) on
+    ``walks``.  Keys are "label/call"."""
+    walk_kw = dict(walk_length=WALK_LENGTH, seed=FAMILY_SEED, padding_idx=pad)
+    kw = dict(walk_kw, restart=True)
+    calls = {}
+    for label, (edge_list, table) in families.items():
+        el = pkg.EdgeListGraph.from_arrays(edge_list, num_nodes=num_nodes)
+        tg = pkg.TriplesGraph.from_arrays(table, num_entities=num_nodes)
+        calls.update({
+            f"{label}/edge_uniform": lambda el=el: pkg.walk_edge_list(
+                el, target_nodes=targets, **kw),
+            f"{label}/edge_uniform_raw": lambda el=el: pkg.walk_edge_list(
+                el.edge_list, el.node_edge_index, targets, **kw),
+            f"{label}/triples": lambda tg=tg: pkg.walk_triples(
+                tg, target_nodes=targets, **walk_kw),
+            f"{label}/triples_raw": lambda tg=tg: pkg.walk_triples(
+                tg.triples, tg.relation_tail_index, targets, **walk_kw)})
+        if label != "bench":
+            continue
+        calls.update({
+            "bench/edge_biased": lambda el=el: pkg.walk_edge_list(
+                el, target_nodes=targets, p=P, q=Q, **kw),
+            "bench/edge_biased_raw": lambda el=el: pkg.walk_edge_list(
+                el.edge_list, el.node_edge_index, targets, p=P, q=Q, **kw),
+            "bench/windows_sg": lambda: pkg.to_windows_triples(
+                walks, WINDOW, num_nodes, pad, triples, seed=WINDOW_SEED)})
+        for w in COMPARE_CBOW_WINDOWS:
+            calls[f"bench/windows_cbow_w{w}"] = (
+                lambda w=w: pkg.to_windows_triples_cbow(
+                    walks, w, num_nodes, pad, triples, seed=WINDOW_SEED))
     return calls
 
 
 def phase_compare_kernels(graph, checkouts: dict) -> dict:
-    """K8 (both entries) and K10 (both generators, CBOW at W = 1, 2, 5, 10)
-    of this tree beside the same entry points of other checkouts
+    """K7 and K9 (both entries, on the bench graph and on its copy with dead
+    ends), K8 (both entries) and K10 (both generators, CBOW at W = 1, 2, 5,
+    10) of this tree beside the same entry points of other checkouts
     (``checkouts``: name -> root, e.g. the parent commit), each checkout's
     kernels built from its own sources, all in this one process.  Every
-    checkout's outputs must equal this tree's (tolerance 0).  Device time of
-    WALK_REPS calls queued behind a spin kernel, median of 5, as
-    ``queued_ms``; the checkouts timed in turns, A B ... B A, so that each
-    has two timings."""
+    output must equal this tree's entry point's (tolerance 0).  Device time
+    of WALK_REPS
+    calls queued behind a spin kernel, median of 5, as ``queued_ms``; the
+    checkouts timed in turns, A B ... B A, so that each has two timings."""
     pad = graph.num_nodes
-    el, tg = family_graphs(graph)
+    families = {}
+    for label, dead in (("bench", False), ("last_quarter_dead", True)):
+        el, tg = family_graphs(graph, dead_quarter=dead)
+        families[label] = (el.edge_list, tg.triples)
+        if label == "bench":
+            bench_tg = tg
+        del el, tg
     targets = bench_targets(graph.device)
-    walks = tt.walk_triples(tg, target_nodes=targets, walk_length=WALK_LENGTH,
-                            seed=FAMILY_SEED, padding_idx=pad)
-    args = (el.edge_list, graph.num_nodes, walks, tg.triples, targets, pad)
+    walks = tt.walk_triples(bench_tg, target_nodes=targets,
+                            walk_length=WALK_LENGTH, seed=FAMILY_SEED,
+                            padding_idx=pad)
+    args = (families, graph.num_nodes, walks, bench_tg.triples, targets, pad)
     builds = {"this_tree": compare_calls(tt, *args)}
     registers = {}
     for name, root in checkouts.items():
         pkg, pkg_build = checkout_package(root)
         builds[name] = compare_calls(pkg, *args)
-        builds[name]["edge_biased"]()  # builds its kernels
+        builds[name]["bench/edge_biased"]()  # builds its kernels
         log = pkg_build.build_log()
         names = {f: f for f in re.findall(r"Compiling entry function '(\w+)'",
                                           log)
-                 if "edge_list" in f or "triples" in f}
+                 if "edge_list" in f or "triples" in f or "edge_rows" in f}
         registers[name] = {f: v["registers"]
                            for f, v in ptxas_report(log, names).items()}
     want = {k: fn() for k, fn in builds["this_tree"].items()}
@@ -1994,7 +2070,7 @@ def parse_args(argv):
     parser.add_argument(
         "--compare", metavar="NAME=DIR", action="append", default=[],
         help="another checkout of the repo (e.g. the parent commit's "
-             "git archive under build/): time its K8 and K10 entry points "
+             "git archive under build/): time its K7-K10 entry points "
              "beside this tree's in one process (kernel_comparison line)")
     args = parser.parse_args(argv)
     args.compare = dict(v.split("=", 1) for v in args.compare)
@@ -2016,7 +2092,6 @@ def main(argv=None) -> int:
     (targets, pgraph, out, launches, routed_info,
      routed_ms) = phase_main_path(graph)
     walk_ms, walk_entry_ms = phase_walk_times(graph)
-    sampling_peak = torch.cuda.max_memory_allocated()
     train_launches = phase_train(graph)
     by_run = {name: {"sampling": launches[name], "train": train_launches[name]}
               for name in launches}
@@ -2053,10 +2128,9 @@ def main(argv=None) -> int:
     if args.compare:
         phase_compare_kernels(graph, args.compare)
     torch.cuda.synchronize()
+    peak_gib()
     emit("done", seconds=round(time.perf_counter() - t0, 1),
-         peak_device_gib=round(max(sampling_peak,
-                                   torch.cuda.max_memory_allocated())
-                               / 2**30, 2))
+         peak_device_gib=round(RUN_PEAK_BYTES[0] / 2**30, 2))
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -118,6 +118,130 @@ def test_tails_column_equals_the_edge_lists_second_column(how):
     assert "tails" not in {f.name for f in dataclasses.fields(g) if f.init}
 
 
+def _packed_pair(how):
+    """(JAX graph, port graph) of the same edges, built one way."""
+    if how == "dataclass":  # constructed directly, not through from_arrays
+        jg, base = _packed_pair("power_law")
+        return jg, tt.EdgeListGraph(base.edge_list.clone(),
+                                    base.node_edge_index.clone(),
+                                    base.num_nodes, base.num_edges,
+                                    base.max_degree)
+    if how == "power_law":  # dead ends: cnt 0 rows with a start of their own
+        src, dst = power_law_edges(N, 6, seed=41)
+        edges, n = np.stack([src, dst], axis=1), N
+    elif how == "one_edge":
+        edges, n = np.array([[5, 9]]), 40
+    elif how == "karate":
+        edges = np.asarray(j_to_edge_list_indexed(nx.karate_club_graph())[0])
+        n = 34
+    return (trw.EdgeListGraph.from_arrays(edges, num_nodes=n),
+            tt.EdgeListGraph.from_arrays(edges, num_nodes=n, device="cpu"))
+
+
+@pytest.mark.parametrize("how", ["power_law", "one_edge", "karate",
+                                 "dataclass"])
+def test_edge_tab_equals_jax_packed_rows(how):
+    """K7's packed rows (``EdgeListGraph.edge_tab``) are the JAX package's
+    ``edge_tab`` bit for bit (its uint32 words as int32), with the JAX
+    layout's widths; unpacked through the JAX layout's fields they are each
+    edge's tail and the tail's range; the tails column, K7's layout where
+    the rows do not fit, is the sorted table's tail column."""
+    jg, tg = _packed_pair(how)
+    jl = jg.layout
+    assert tg.packed_bits == (jl.node_bits, jl.start_bits, jl.deg_bits)
+    assert tg.edge_tab.dtype == torch.int32 and tg.edge_tab.is_contiguous()
+    eq(tg.edge_tab, np.asarray(jg.edge_tab).view(np.int32))
+    node, start, cnt = (np.asarray(x) for x in jl.unpack(
+        jnp.asarray(tg.edge_tab.numpy().view(np.uint32))))
+    j_node, j_start, j_cnt = (np.asarray(x) for x in jl.unpack(jg.edge_tab))
+    np.testing.assert_array_equal(node, j_node)
+    np.testing.assert_array_equal(start, j_start)
+    np.testing.assert_array_equal(cnt, j_cnt)
+    eq(tg.tails, np.asarray(jg.edge_list)[:, 1])
+    eq(tg.tails, node)
+    index = np.asarray(jg.node_edge_index)[node]
+    has = index[:, 0] >= 0
+    np.testing.assert_array_equal(start[has], index[has, 0])
+    np.testing.assert_array_equal(cnt, np.where(has, index[:, 1] - index[:, 0]
+                                                + 1, 0))
+
+
+def test_edge_tab_absent_or_refused_where_the_layout_does_not_fit():
+    """No packed rows where the JAX package builds none (no edges; a degree
+    field of 32 bits; a graph without fat tables), and a graph whose
+    ``max_degree`` is below a degree, which the rows cannot hold, is
+    refused."""
+    empty = tt.EdgeListGraph.from_arrays(np.zeros((0, 2), np.int64),
+                                         num_nodes=4, device="cpu")
+    assert empty.edge_tab is None
+    assert trw.EdgeListGraph.from_arrays(np.zeros((0, 2), np.int64),
+                                         num_nodes=4).edge_tab is None
+    base = tt.EdgeListGraph.from_arrays(
+        np.array([[0, 1], [0, 2], [0, 3], [2, 0]]), device="cpu")
+    wide = tt.EdgeListGraph(base.edge_list, base.node_edge_index,
+                            base.num_nodes, base.num_edges, 2 ** 31)
+    assert wide.edge_tab is None and wide.packed_bits[2] == 32
+    eq(wide.tails, base.tails.numpy())
+    thin = dataclasses.replace(base, fat=False)
+    assert base.edge_tab is not None and thin.edge_tab is None
+    eq(thin.tails, base.tails.numpy())
+    with pytest.raises(ValueError, match="max_degree"):
+        tt.EdgeListGraph(base.edge_list, base.node_edge_index,
+                         base.num_nodes, base.num_edges, 1)
+    with pytest.raises(ValueError, match="tail ids out of range"):
+        tt.EdgeListGraph.from_arrays(np.array([[0, 5]]), num_nodes=3,
+                                     device="cpu")
+
+
+def _packed_rows_walk_mirror(g, targets, length, seed, pad, restart):
+    """K7's walk on the packed rows as ``uniform_walk_edge_rows_kernel``
+    runs it: the target's range from the index, then one row a step,
+    unpacked by the kernel's shifts and masks."""
+    key = prng.derive_key(seed, prng.STREAM_EDGE_UNIFORM)
+    wid = tcommon.walker_ids(len(targets), 0, "cpu")
+    words = g.edge_tab.to(torch.int64) & 0xFFFFFFFF
+    value = words[:, 0] | (words[:, 1] << 32)
+    nb, sb, db = g.packed_bits
+    index = g.node_edge_index.to(torch.int64)
+    node = torch.from_numpy(targets.astype(np.int64))
+    row = index[node.clamp(0, g.num_nodes - 1)]
+    has = (row[:, 0] >= 0) & (row[:, 1] >= 0)
+    start = row[:, 0].clamp(min=0)
+    cnt = torch.where(has, (row[:, 1] + 1 - start).clamp(min=1), 0)
+    jump = ((node, start, cnt) if restart else
+            (torch.full_like(node, pad), torch.zeros_like(start),
+             torch.zeros_like(cnt)))
+    cols = [node]
+    for s in range(1, length + 1):
+        bits, _ = prng.counter_bits(key, wid, prng.step_round_counter(s))
+        e = (start + prng.randint_from_bits(bits, cnt.clamp(min=1))).clamp(
+            0, g.num_edges - 1)
+        v = value[e]
+        drawn = (v & (2 ** nb - 1), (v >> nb) & (2 ** sb - 1),
+                 (v >> (nb + sb)) & (2 ** db - 1))
+        at_pad, dead = node == pad, cnt == 0
+        node, start, cnt = (
+            torch.where(at_pad, j, torch.where(dead, d, x))
+            for j, d, x in zip(jump, (pad, 0, 0), drawn))
+        cols.append(node)
+    return torch.stack(cols, dim=1).to(torch.int32)
+
+
+@pytest.mark.parametrize("pad, restart", [(-1, True), (-1, False), (N, True),
+                                          (N, False)])
+def test_packed_rows_walk_mirror_equals_the_graph_entry(graphs, targets, pad,
+                                                        restart):
+    """A Python mirror of K7's packed-row walk equals the graph entry's
+    walks (which equal the JAX fat engine's): dead ends, padding -1 and N,
+    restart both ways, targets outside [0, N)."""
+    _, tg = graphs
+    got = _packed_rows_walk_mirror(tg, targets, L, 7, pad, restart)
+    eq(got, tt.walk_edge_list(tg, target_nodes=targets, walk_length=L,
+                              seed=7, padding_idx=pad, restart=restart,
+                              device="cpu").numpy())
+    assert bool((got == pad).any())
+
+
 def test_from_arrays_rejects_heads_out_of_range_and_64_bit_ids():
     with pytest.raises(ValueError, match="out of range"):
         tt.EdgeListGraph.from_arrays([[0, 1], [5, 2]], num_nodes=4,
@@ -470,3 +594,69 @@ def test_biased_kernel_tails_edges_equal_plain_version(case, fat):
     eq(got.exhausted, want.exhausted.numpy())
     if case == "budget_exhausted":
         assert bool(want.exhausted.any())
+
+
+def _unfit_graph(device):
+    """The kernel graph with a max_degree whose field takes 32 bits: the
+    packed layout does not fit, so the graph holds no packed rows."""
+    g = _kernel_graph()
+    g = tt.EdgeListGraph(g.edge_list.to(device), g.node_edge_index.to(device),
+                         g.num_nodes, g.num_edges, 2 ** 31)
+    assert g.edge_tab is None
+    return g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["packed", "tails_unfit"])
+@pytest.mark.parametrize("case", ["pad_minus_one_restart", "pad_N_absorb"])
+@pytest.mark.parametrize("walkers", [1, 33, 4097])
+@pytest.mark.parametrize("length", [1, 7, 8, 9, 80])
+def test_uniform_kernel_graph_tables_equal_plain_version(length, walkers,
+                                                         case, layout):
+    """K7 on a graph's tables against its plain version, tolerance 0: the
+    packed rows, and the tails column of a graph whose packed layout does
+    not fit; dead ends, padding -1 and N, restart both ways, targets outside
+    [0, N), a walker offset, the row writer's edges."""
+    need_cuda()
+    cpu = _kernel_graph()
+    g = (tt.EdgeListGraph.from_arrays(cpu.edge_list, cpu.num_nodes,
+                                      device="cuda") if layout == "packed"
+         else _unfit_graph("cuda"))
+    assert (g.edge_tab is not None) == (layout == "packed")
+    pad, restart = (-1, True) if case == "pad_minus_one_restart" else (
+        g.num_nodes, False)
+    t = np.random.default_rng(length * walkers).integers(
+        -3, g.num_nodes + 3, walkers).astype(np.int32)
+    got = tel.uniform_walk_edge_list_graph(g, t, length, 6, pad, restart,
+                                           walker_offset=100_003)
+    want = tel.uniform_walk_edge_list(cpu.edge_list, cpu.node_edge_index, t,
+                                      length, 6, pad, restart,
+                                      walker_offset=100_003, device="cpu")
+    assert got.is_cuda
+    eq(got, want.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fits", [True, False], ids=["packed", "unfit"])
+def test_graph_entry_launches_k7_on_its_table(fits):
+    """``walk_edge_list(graph)`` reads the packed rows where the graph holds
+    them and its tails column where it does not, one K7 launch a call, and
+    equals the plain version; a malformed table raises."""
+    need_cuda()
+    from torch_random_walk_tpu_torch.kernels import bindings
+    cpu = _kernel_graph()
+    g = (tt.EdgeListGraph.from_arrays(cpu.edge_list, cpu.num_nodes,
+                                      device="cuda") if fits
+         else _unfit_graph("cuda"))
+    assert (g.edge_tab is not None) == fits
+    t = np.random.default_rng(3).integers(-3, g.num_nodes + 3,
+                                          999).astype(np.int32)
+    kw = dict(target_nodes=t, walk_length=20, seed=6, padding_idx=-1)
+    before = bindings.launch_counts["uniform_walk_edge_list"]
+    got = tt.walk_edge_list(g, **kw)
+    assert bindings.launch_counts["uniform_walk_edge_list"] == before + 1
+    eq(got, tt.walk_edge_list(cpu, device="cpu", **kw).numpy())
+    with pytest.raises(ValueError):
+        bindings.uniform_walk_edge_list(
+            g.tails, g.node_edge_index, torch.as_tensor(t, device="cuda"),
+            20, (1, 2), -1, True, 0, layout="packed", bits=g.packed_bits)

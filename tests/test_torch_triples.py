@@ -82,6 +82,92 @@ def test_from_arrays_sorts_by_head_relation_tail(sizes):
     assert tg.fat is False and jg.triple_tab is None
 
 
+def _tab_pair(how, graphs):
+    """(JAX graph, port graph) of the same triples, built one way."""
+    if how == "grid":  # border cells lack triples, the far corner heads none
+        return graphs
+    if how == "dataclass":  # constructed directly, not through from_arrays
+        jg, base = graphs
+        return jg, tt.TriplesGraph(
+            base.triples.clone(), base.relation_tail_index.clone(),
+            base.num_entities, base.num_triples, base.max_degree,
+            base.num_relations)
+    if how == "one_triple":
+        t, n = np.array([[3, 1, 5]]), 9
+    else:  # "random": duplicate triples, a relation id past the entities
+        rng = np.random.default_rng(21)
+        t = np.stack([rng.integers(0, 30, 200), rng.integers(0, 70, 200),
+                      rng.integers(0, 40, 200)], axis=1)
+        n = 40
+    return (trw.TriplesGraph.from_arrays(t, num_entities=n),
+            tt.TriplesGraph.from_arrays(t, num_entities=n, device="cpu"))
+
+
+@pytest.mark.parametrize("how", ["grid", "random", "one_triple", "dataclass"])
+def test_triple_tab_equals_jax(graphs, how):
+    """K9's rows (``TriplesGraph.triple_tab``) are the JAX package's
+    ``triple_tab`` exactly: (relation, tail, start_tail, cnt_tail), cnt 0
+    for a tail that heads no triple; their first two columns are the
+    sorted triples' relation and tail columns."""
+    jg, tg = _tab_pair(how, graphs)
+    assert tg.triple_tab.dtype == torch.int32
+    assert tuple(tg.triple_tab.shape) == (tg.num_triples, 4)
+    eq(tg.triple_tab, jg.triple_tab)
+    eq(tg.triple_tab[:, :2], np.asarray(jg.triples)[:, 1:])
+
+
+def test_triple_tab_of_an_empty_graph_and_tails_out_of_range(graphs):
+    """No ``triple_tab`` where the JAX package builds none (no triples; a
+    graph without the fat table), and a tail outside [0, N) is refused."""
+    empty = tt.TriplesGraph.from_arrays(np.zeros((0, 3), np.int64),
+                                        num_entities=3, device="cpu")
+    assert empty.triple_tab is None and not empty.fat
+    _, tg = graphs
+    assert dataclasses.replace(tg, fat=False).triple_tab is None
+    with pytest.raises(ValueError, match="tail ids out of range"):
+        tt.TriplesGraph.from_arrays(np.array([[0, 0, 4]]), num_entities=2,
+                                    device="cpu")
+
+
+def _row_walk_mirror(g, targets, length, seed, pad):
+    """K9's fat walk on ``triple_tab`` as ``uniform_walk_triples_kernel<true>``
+    runs it: the target's range from the index, then one row a step, which
+    gives the output pair and the next head's range."""
+    key = prng.derive_key(seed, prng.STREAM_TRIPLES)
+    wid = tcommon.walker_ids(len(targets), 0, "cpu")
+    tab = g.triple_tab.to(torch.int64)
+    cur = torch.from_numpy(targets.astype(np.int64))
+    row = g.relation_tail_index.to(torch.int64)[
+        cur.clamp(0, g.num_entities - 1)]
+    has = ((row[:, 0] >= 0) & (row[:, 1] >= 0) & (cur != pad) & (cur >= 0)
+           & (cur < g.num_entities))
+    start = row[:, 0].clamp(min=0)
+    cnt = torch.where(has, row[:, 1] + 1 - start, 0)
+    cols = [cur]
+    for s in range(1, length + 1):
+        bits, _ = prng.counter_bits(key, wid, prng.step_round_counter(s))
+        i = (start + prng.randint_from_bits(bits, cnt.clamp(min=1))).clamp(
+            0, g.num_triples - 1)
+        has = cnt > 0
+        rel, tail, start, cnt = (torch.where(has, tab[i, c], p) for c, p in
+                                 zip(range(4), (pad, pad, 0, 0)))
+        cols += [rel, tail]
+    return torch.stack(cols, dim=1).to(torch.int32)
+
+
+@pytest.mark.parametrize("pad", ["minus_one", "N", "inside"])
+def test_row_walk_mirror_equals_the_graph_entry(graphs, targets, pad):
+    """A Python mirror of K9's walk on ``triple_tab`` equals the graph
+    entry's walks (which equal the JAX fat engine's): dead ends, padding
+    -1, N and an entity id, targets outside [0, N)."""
+    _, tg = graphs
+    padding_idx = {"minus_one": -1, "N": tg.num_entities,
+                   "inside": tg.num_entities - 2}[pad]
+    got = _row_walk_mirror(tg, targets, L, 4, padding_idx)
+    eq(got, tt.walk_triples(tg, target_nodes=targets, walk_length=L, seed=4,
+                            padding_idx=padding_idx, device="cpu").numpy())
+
+
 def test_build_relation_tail_index_and_convert_equal_jax(graphs):
     jg, _ = graphs
     raw = np.random.default_rng(1).permutation(np.asarray(jg.triples))
@@ -389,6 +475,57 @@ def test_walk_kernel_equals_plain_version(length, walkers, fat):
         walker_offset=100_003, fat=fat, device=dev) for dev in (None, "cpu"))
     assert got.is_cuda
     eq(got, want.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fat", [False, True], ids=["oracle", "fat"])
+@pytest.mark.parametrize("walkers", [1, 33, 4097])
+@pytest.mark.parametrize("length", [1, 7, 8, 9, 80])
+def test_walk_kernel_graph_tables_equal_plain_version(length, walkers, fat):
+    """K9 through a graph against its plain version, tolerance 0: the fat
+    semantics on the graph's ``triple_tab`` (the next head's range from the
+    rows), the oracle's on the triples of a graph without the fat table;
+    dead ends, padding -1, targets outside [0, N), a walker offset, the row
+    writer's edges."""
+    need_cuda()
+    cpu = _kernel_graph()
+    g = dataclasses.replace(
+        tt.TriplesGraph.from_arrays(cpu.triples, cpu.num_entities,
+                                    cpu.num_relations, device="cuda"),
+        fat=fat)
+    assert (g.triple_tab is not None) == fat
+    t = np.random.default_rng(length + walkers).integers(
+        -3, g.num_entities + 3, walkers).astype(np.int32)
+    got = ttw.uniform_walk_triples_graph(g, t, length, -1, 6,
+                                         walker_offset=100_003)
+    want = ttw.uniform_walk_triples(
+        cpu.triples, cpu.relation_tail_index, t, length, -1, True, 6,
+        walker_offset=100_003, fat=fat, device="cpu")
+    assert got.is_cuda
+    eq(got, want.numpy())
+
+
+@pytest.mark.cuda
+def test_graph_entry_launches_k9_on_triple_tab():
+    """``walk_triples(graph)`` on the card reads ``triple_tab``, one K9
+    launch a call, equal to the plain version; a table of another width,
+    the raw triples under the fat semantics among them, raises."""
+    need_cuda()
+    cpu = _kernel_graph()
+    g = tt.TriplesGraph.from_arrays(cpu.triples, cpu.num_entities,
+                                    cpu.num_relations, device="cuda")
+    t = np.random.default_rng(4).integers(-3, g.num_entities + 3,
+                                          999).astype(np.int32)
+    kw = dict(target_nodes=t, walk_length=20, seed=6, padding_idx=-1)
+    before = bindings.launch_counts["uniform_walk_triples"]
+    got = tt.walk_triples(g, **kw)
+    assert bindings.launch_counts["uniform_walk_triples"] == before + 1
+    eq(got, tt.walk_triples(cpu, device="cpu", **kw).numpy())
+    for table in (g.triple_tab[:, :1].contiguous(), g.triples):
+        with pytest.raises(ValueError):
+            bindings.uniform_walk_triples(
+                table, g.relation_tail_index,
+                torch.as_tensor(t, device="cuda"), 20, (1, 2), -1, True, 0)
 
 
 @pytest.mark.cuda

@@ -26,7 +26,7 @@ import torch
 from torch_random_walk_tpu_torch.utils.device import resolve_device
 
 
-def _bits_for(n: int) -> int:
+def bits_for(n: int) -> int:
     return max(1, int(n - 1).bit_length()) if n > 1 else 1
 
 
@@ -38,8 +38,8 @@ def fat_tables_fit(num_nodes: int, num_edges: int, max_degree: int) -> bool:
     no node or no edge gets no tables."""
     if not (num_nodes and num_edges):
         return False
-    widths = (_bits_for(num_nodes), _bits_for(num_edges + 1),
-              _bits_for(max_degree + 1))
+    widths = (bits_for(num_nodes), bits_for(num_edges + 1),
+              bits_for(max_degree + 1))
     return sum(widths) <= 64 and max(widths) <= 31
 
 
@@ -77,7 +77,7 @@ class CSRGraph:
         """Width of the degree field of the JAX package's packed layout
         (``CSRGraph.layout.deg_bits``).  The mixture sampler's integer
         weights are scaled from it, so it is part of the bitstream."""
-        return _bits_for(self.max_degree + 1)
+        return bits_for(self.max_degree + 1)
 
     @classmethod
     def from_arrays(cls, row_ptr, col_idx, sort_rows: bool = True,

@@ -10,13 +10,23 @@ Contracts kept from the JAX package:
 - ids are ``int32``.  The JAX package falls back to ``int64`` from 2^31 on;
   the port's kernels take ``int32`` only, so the constructors raise there.
 
-The packed "fat" tables of the JAX package are not built.  In their place
-the graph holds its tails as a column of their own (``EdgeListGraph.tails``,
-``edge_list[:, 1]``), which the biased walk kernel K8 reads; the uniform
-kernel K7 reads the edge list and its index directly.  Whether the JAX
-package would build the fat tables is kept all the same
-(``EdgeListGraph.fat``), because it picks the semantics of
-``walk_edge_list(graph, p, q)`` (``ops/walk.py``).
+Beside the edge list the graph holds, built with it and on its device, the
+columns its walk kernels read a step:
+
+- ``EdgeListGraph.tails``, ``edge_list[:, 1]`` as a column of its own, which
+  the biased walk kernel K8 reads, and the uniform kernel K7 where the packed
+  rows do not fit;
+- ``EdgeListGraph.edge_tab``, the JAX package's packed edge rows
+  (``torch_random_walk_tpu/graph/edge_list.py``): row e packs (tail,
+  start_tail, cnt_tail) into two 32-bit words with the JAX layout's widths,
+  so that K7 draws a step with one 8-byte gather.  It exists where the JAX
+  package builds it (``EdgeListGraph.fat`` and the layout fits), and is
+  derived from the graph's own edge list and range index, so a graph
+  constructed directly gets it too.
+
+Whether the JAX package would build the fat tables (``EdgeListGraph.fat``)
+also picks the semantics of ``walk_edge_list(graph, p, q)``
+(``ops/walk.py``).
 """
 
 from __future__ import annotations
@@ -27,7 +37,7 @@ import math
 import numpy as np
 import torch
 
-from torch_random_walk_tpu_torch.graph.csr import fat_tables_fit
+from torch_random_walk_tpu_torch.graph.csr import bits_for, fat_tables_fit
 from torch_random_walk_tpu_torch.utils.device import resolve_device
 
 INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
@@ -41,9 +51,13 @@ class EdgeListGraph:
     node_edge_index: (num_nodes, 2) int32 [start, end-inclusive], (-1, -1)
         for a node without out-edges.
     fat: True where the JAX package's ``EdgeListGraph`` of the same edges
-        holds fat tables (``edge_tab is not None``); no table is built here.
+        holds fat tables (``edge_tab is not None``).
     tails: (num_edges,) int32, ``edge_list[:, 1]`` as a column of its own,
         built with the graph (K8's layout: eight tails a 32-byte sector).
+    edge_tab: (num_edges, 2) int32 bit patterns of the JAX package's packed
+        (tail, start_tail, cnt_tail) rows (``packed_edge_rows``), K7's
+        layout; None where ``fat`` is false or the packed layout does not
+        fit (``fat_tables_fit``), as in the JAX package.
     """
 
     edge_list: torch.Tensor
@@ -54,9 +68,23 @@ class EdgeListGraph:
     fat: bool = True
     tails: torch.Tensor = dataclasses.field(init=False, repr=False,
                                             compare=False)
+    edge_tab: torch.Tensor | None = dataclasses.field(init=False, repr=False,
+                                                      compare=False)
 
     def __post_init__(self):
         object.__setattr__(self, "tails", self.edge_list[:, 1].contiguous())
+        fits = self.fat and fat_tables_fit(self.num_nodes, self.num_edges,
+                                           self.max_degree)
+        object.__setattr__(self, "edge_tab", packed_edge_rows(
+            self.tails, self.node_edge_index, self.packed_bits)
+            if fits else None)
+
+    @property
+    def packed_bits(self) -> tuple[int, int, int]:
+        """Bit widths (node, start, deg) of the JAX package's packed layout
+        (``PackedLayout``) for this graph's sizes."""
+        return (bits_for(self.num_nodes), bits_for(self.num_edges + 1),
+                bits_for(self.max_degree + 1))
 
     @property
     def device(self) -> torch.device:
@@ -126,6 +154,61 @@ def build_node_edge_index(edge_list_indexed, nodes=None, device=None):
         num_nodes = int(edges.max()) + 1 if edges.numel() else 0
     g = EdgeListGraph.from_arrays(edges, num_nodes=num_nodes, device=dev)
     return g.node_edge_index, g.edge_list
+
+
+# --- the kernels' per-step columns, shared with graph/triples.py ------------
+
+def next_ranges(tails: torch.Tensor, index: torch.Tensor):
+    """(start, cnt) int64 of each tail's own range in an (N, 2) [start,
+    end-inclusive] index, as the JAX package's fat tables hold them: cnt is
+    the range's size, 0 for a node without out-edges (a row of -1), whose
+    start is where its range would begin (the end of the ranges of the
+    nodes before it).  Raises where a tail lies outside [0, N), which the
+    JAX package's tables cannot hold either."""
+    num_nodes = index.shape[0]
+    if tails.numel() and (int(tails.min()) < 0
+                          or int(tails.max()) >= num_nodes):
+        raise ValueError(f"tail ids out of range [0, {num_nodes})")
+    lo, hi = index[:, 0].to(torch.int64), index[:, 1].to(torch.int64)
+    has = (lo >= 0) & (hi >= 0)
+    ends = torch.where(has, hi + 1, 0)
+    before = torch.zeros_like(ends)
+    if num_nodes > 1:
+        before[1:] = torch.cummax(ends[:-1], 0).values
+    start = torch.where(has, lo, before)
+    # the walks' draw bound: at least 1 where the node has a range
+    cnt = torch.where(has, (hi + 1 - lo).clamp(min=1), 0)
+    t = tails.to(torch.int64)
+    return start[t], cnt[t]
+
+
+def as_int32_bits(x: torch.Tensor) -> torch.Tensor:
+    """Unsigned 32-bit values held in int64 -> the int32 of the same bits."""
+    return torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(torch.int32)
+
+
+def packed_edge_rows(tails: torch.Tensor, index: torch.Tensor,
+                     layout: tuple[int, int, int]) -> torch.Tensor:
+    """(E, 2) int32: row e packs (tails[e], start, cnt) of its tail's range
+    into the value tail | start << node_bits | cnt << (node_bits +
+    start_bits), split into a low and a high 32-bit word
+    (``torch_random_walk_tpu/graph/csr.py::PackedLayout.pack_np``).  Raises
+    where a field does not fit its width."""
+    start, cnt = next_ranges(tails, index)
+    lo = torch.zeros_like(start)
+    hi = torch.zeros_like(start)
+    offset = 0
+    for field, bits in zip((tails.to(torch.int64), start, cnt), layout):
+        if field.numel() and int(field.max()) >= 2 ** bits:
+            raise ValueError(f"a value does not fit its {bits}-bit field: "
+                             "the graph's max_degree is below a degree")
+        if offset >= 32:
+            hi |= field << (offset - 32)
+        else:  # field < 2^31 and offset < 32: no int64 overflow
+            lo |= (field << offset) & 0xFFFFFFFF
+            hi |= (field << offset) >> 32
+        offset += bits
+    return torch.stack([as_int32_bits(lo), as_int32_bits(hi)], dim=1)
 
 
 # --- helpers shared with graph/triples.py ------------------------------------

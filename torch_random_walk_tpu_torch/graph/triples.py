@@ -6,10 +6,15 @@ Contract kept: triples are (E, 3) [head, relation, tail], sorted by
 (-1, -1) for an entity that heads no triple; ids are ``int32`` (the
 constructors raise from 2^31 on).
 
-The JAX package's fat table is not built: the CUDA kernels read the triples
-and the index directly.  Whether it would be built is kept
-(``TriplesGraph.fat``), because it picks the semantics of
-``walk_triples(graph)`` (``ops/walk.py``).
+Beside the triples a graph with ``TriplesGraph.fat`` holds, built with it
+and on its device, the JAX package's fat table ``TriplesGraph.triple_tab``
+(``triple_table``): row i is (relation_i, tail_i, start_tail_i, cnt_tail_i)
+int32, so that the walk kernel K9 reads a step's output pair and the next
+head's range in one 16-byte gather.  It is derived from the graph's own
+triples and range index, so a graph constructed directly gets it too.
+``fat`` also picks the semantics of ``walk_triples(graph)``
+(``ops/walk.py``); a graph without it walks the raw triples with the
+oracle's.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from torch_random_walk_tpu_torch.graph.edge_list import (
     as_int64,
     exclusive_cumsum,
     head_counts,
+    next_ranges,
     sort_rows_by,
 )
 from torch_random_walk_tpu_torch.utils.device import resolve_device
@@ -38,6 +44,10 @@ class TriplesGraph:
     fat: True where the JAX package's ``TriplesGraph`` of the same triples
         holds its fat table (``triple_tab is not None``: some entity and
         some triple, all ids below 2^31, which the port requires anyway).
+    triple_tab: (num_triples, 4) int32 [relation, tail, start_tail,
+        cnt_tail], the JAX package's ``triple_tab`` (``triple_table``), K9's
+        layout under the fat semantics; None where ``fat`` is false, as in
+        the JAX package.
     """
 
     triples: torch.Tensor
@@ -47,6 +57,12 @@ class TriplesGraph:
     max_degree: int
     num_relations: int = 0
     fat: bool = True
+    triple_tab: torch.Tensor | None = dataclasses.field(
+        init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "triple_tab", triple_table(
+            self.triples, self.relation_tail_index) if self.fat else None)
 
     @property
     def device(self) -> torch.device:
@@ -94,3 +110,15 @@ def build_relation_tail_index(triples_indexed, all_entities, device=None):
     g = TriplesGraph.from_arrays(triples_indexed, num_entities=num_entities,
                                  device=dev)
     return g.relation_tail_index, g.triples
+
+
+def triple_table(triples: torch.Tensor,
+                 relation_tail_index: torch.Tensor) -> torch.Tensor:
+    """(T, 4) int32 [relation, tail, start_tail, cnt_tail] of (T, 3) [head,
+    relation, tail] triples sorted by head and their (N, 2) range index: the
+    JAX package's ``triple_tab`` (cnt 0 for a tail that heads no triple).
+    Raises where a tail lies outside [0, N)."""
+    tails = triples[:, 2]
+    start, cnt = next_ranges(tails, relation_tail_index)
+    return torch.stack([triples[:, 1], tails, start.to(torch.int32),
+                        cnt.to(torch.int32)], dim=1)

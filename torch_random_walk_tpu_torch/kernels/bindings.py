@@ -68,8 +68,8 @@ def library(verbose: bool = False) -> ctypes.CDLL:
             _PTR, _I32, _I32, _PTR, _PTR, _I32, _I32, _I32, _PTR, _I32, _I32,
             _F32, _PTR, _PTR, _PTR, _PTR]
         lib.trw_uniform_walk_edge_list.argtypes = [
-            _PTR, _PTR, _I32, _I64, _PTR, _PTR, _I32, _I32, _U32, _U32, _U32,
-            _I32, _I32, _PTR]
+            _PTR, _PTR, _I32, _I32, _I64, _U32, _U32, _U32, _PTR, _PTR, _I32,
+            _I32, _U32, _U32, _U32, _I32, _I32, _PTR]
         lib.trw_biased_walk_edge_list.argtypes = [
             _PTR, _PTR, _I32, _I64, _PTR, _PTR, _PTR, _I32, _I32, _U32, _U32,
             _U32, _I32, _I32, _I32, _F32, _F32, _F32, _I32, _I32, _PTR]
@@ -208,13 +208,32 @@ def _check_ranges(name: str, table, width: int, index, targets,
         raise ValueError(f"padding_idx {padding_idx} does not fit int32")
 
 
-def uniform_walk_edge_list(edge_list, node_edge_index, targets,
-                           walk_length: int, key: tuple[int, int],
-                           padding_idx: int, restart: bool,
-                           walker_offset: int):
-    """K7.  (B,) int32 targets -> (B, L+1) int32 walks."""
-    _check_ranges("edge_list", edge_list, 2, node_edge_index, targets,
-                  walk_length, padding_idx)
+# K7's tables (``trw_uniform_walk_edge_list``'s ``layout``): the raw (E, 2)
+# [head, tail] rows, a graph's (E,) tails column or its packed (E, 2)
+# (tail, start, cnt) rows.
+EDGE_LAYOUTS = {"edge_rows": (0, 2), "tails": (1, 1), "packed": (2, 2)}
+
+
+def uniform_walk_edge_list(table, node_edge_index, targets, walk_length: int,
+                           key: tuple[int, int], padding_idx: int,
+                           restart: bool, walker_offset: int,
+                           layout: str = "edge_rows",
+                           bits: tuple[int, int, int] = (0, 0, 0)):
+    """K7 on ``table`` in ``layout`` (``EDGE_LAYOUTS``: its code and row
+    width); ``bits`` are the packed rows' (node, start, deg) field widths.
+    (B,) int32 targets -> (B, L+1) int32 walks."""
+    if layout not in EDGE_LAYOUTS:
+        raise ValueError(f"unknown edge layout {layout!r}")
+    code, width = EDGE_LAYOUTS[layout]
+    _check("edge table", table, torch.int32, 1 if layout == "tails" else 2)
+    _check_ranges("edge table", table.view(-1, 1) if layout == "tails"
+                  else table, width, node_edge_index, targets, walk_length,
+                  padding_idx)
+    if layout == "packed" and table.shape[0] == 0:
+        raise ValueError("packed edge rows need at least one edge")
+    if layout == "packed" and not (all(0 < b < 32 for b in bits)
+                                   and sum(bits) <= 64):
+        raise ValueError(f"packed field widths {bits} do not fit two words")
     num_walkers = targets.shape[0]
     walks = torch.empty((num_walkers, walk_length + 1), dtype=torch.int32,
                         device=targets.device)
@@ -222,10 +241,11 @@ def uniform_walk_edge_list(edge_list, node_edge_index, targets,
         return walks
     _launch("uniform_walk_edge_list", library().trw_uniform_walk_edge_list,
             _device_index(targets.device), node_edge_index.data_ptr(),
-            edge_list.data_ptr(), node_edge_index.shape[0],
-            edge_list.shape[0], targets.data_ptr(), walks.data_ptr(),
-            num_walkers, walk_length, key[0], key[1],
-            walker_offset & 0xFFFFFFFF, padding_idx, int(restart))
+            table.data_ptr(), code, node_edge_index.shape[0],
+            table.shape[0], *(bits if layout == "packed" else (0, 0, 0)),
+            targets.data_ptr(), walks.data_ptr(), num_walkers, walk_length,
+            key[0], key[1], walker_offset & 0xFFFFFFFF, padding_idx,
+            int(restart))
     return walks
 
 
@@ -257,12 +277,15 @@ def biased_walk_edge_list(tails, node_edge_index, targets, walk_length: int,
     return walks, exhausted.bool()
 
 
-def uniform_walk_triples(triples, relation_tail_index, targets,
+def uniform_walk_triples(table, relation_tail_index, targets,
                          walk_length: int, key: tuple[int, int],
                          padding_idx: int, fat: bool, walker_offset: int):
-    """K9.  (B,) int32 targets -> (B, 2L+1) int32 walks [v0, r1, v1, ...]."""
-    _check_ranges("triples", triples, 3, relation_tail_index, targets,
-                  walk_length, padding_idx)
+    """K9: the fat semantics on (T, 4) [relation, tail, start_tail,
+    cnt_tail] rows (``TriplesGraph.triple_tab``), the oracle's on the (T, 3)
+    [head, relation, tail] triples.  (B,) int32 targets -> (B, 2L+1) int32
+    walks [v0, r1, v1, ...]."""
+    _check_ranges("triple_tab" if fat else "triples", table, 4 if fat else 3,
+                  relation_tail_index, targets, walk_length, padding_idx)
     num_walkers = targets.shape[0]
     walks = torch.empty((num_walkers, 2 * walk_length + 1), dtype=torch.int32,
                         device=targets.device)
@@ -270,8 +293,8 @@ def uniform_walk_triples(triples, relation_tail_index, targets,
         return walks
     _launch("uniform_walk_triples", library().trw_uniform_walk_triples,
             _device_index(targets.device), relation_tail_index.data_ptr(),
-            triples.data_ptr(), relation_tail_index.shape[0],
-            triples.shape[0], targets.data_ptr(), walks.data_ptr(),
+            table.data_ptr(), relation_tail_index.shape[0],
+            table.shape[0], targets.data_ptr(), walks.data_ptr(),
             num_walkers, walk_length, key[0], key[1],
             walker_offset & 0xFFFFFFFF, padding_idx, int(fat))
     return walks

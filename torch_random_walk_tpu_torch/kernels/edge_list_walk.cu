@@ -21,30 +21,44 @@
 // padding with prob_0 (a padding candidate then moves to the jump node), a
 // neighbour of t with prob_1, any other with prob_2.
 //
-// Bound on this card: chains of dependent random reads, as K1's and K2's.
-// A step reads cur's 8-byte range, then one tail that depends on it, and the
-// next step depends on that tail; K8 adds, for the rounds whose draw falls
-// between the two thresholds, a binary search over t's tails.
+// Bound on this card: chains of dependent random reads, as K1's and K2's:
+// each step's read depends on the last.  K8's step reads cur's 8-byte range,
+// then one tail that depends on it, and adds, for the rounds whose draw
+// falls between the two thresholds, a binary search over t's tails.  K7 on a
+// graph reads one 8-byte packed edge row a step, which holds the next node
+// and its range, so its chain is one load a step (K1's is two); on raw
+// arrays it reads the range, then column 1 of the edge rows.
 //
 // What the design does about it (K1's and K2's structure):
 // - one thread per walker, free-running: K8's lane runs one round of its own
 //   step per iteration and does the step boundary (store, t <- v <- sel, the
 //   new v's range) in the accepting iteration;
+// - K7 on a graph reads the JAX fat engine's packed rows (EdgeListGraph.
+//   edge_tab: (tail, start_tail, cnt_tail) in two words, unpacked by shifts
+//   of the layout's field widths) and the index only for the target; a graph
+//   without them (the layout does not fit, or no fat tables) reads its tails
+//   column and the index;
 // - the range as one aligned 8-byte load (the index is (N, 2) int32);
 // - K8 reads its draws' tails and its searches' probes from the graph's
 //   (E,) int32 tails column (EdgeListGraph.tails; the raw-array entry makes
 //   it per call), K2's layout: a 32-byte sector holds 8 tails, where the
 //   8-byte [head, tail] rows hold 4, so the last probes of a search touch
-//   half the sectors and L2 holds twice the tails.  K7 still reads column 1
-//   of the edge rows;
+//   half the sectors and L2 holds twice the tails;
 // - no search where the draw decides alone (below min(prob_1, prob_2) it
 //   accepts, at or above the max it rejects either way), and the search
 //   answers from its last probe;
 // - the walk stored a whole 32-byte sector at a time from registers
 //   (csr.cuh::RowWriter).
-// On the H100 the tails column took K8 from 1.63 to 1.34 ms at the bench
-// shape (PERF.md §6).  Measured and not kept: L2::evict_last loads of the
-// range index (no change, and the priority would outlive the launch).
+// On the H100 at the bench shape (PERF.md §6): the tails column took K8 from
+// 1.63 to 1.34 ms; the packed rows took K7's graph entry from 0.49 to 0.34
+// ms, below K1's 0.40.  Measured and not kept: for K7 on a graph with packed
+// rows, the tails column and the index (0.45 ms: the index read is a second
+// link of the chain, though the 16 MB index mostly hits L2), 16-byte
+// unpacked [tail, start, cnt, 0] rows (0.37 ms: twice the table's bytes, 40
+// registers), and on raw arrays a tails column copied per call (the copy
+// alone costs more than the gain);
+// for K8, L2::evict_last loads of the range index (no change, and the
+// priority would outlive the launch).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -111,8 +125,12 @@ __device__ __forceinline__ bool is_neighbor_edge(const EdgeList<S>& g,
   return lo < hi ? tail_at(g, lo) == cand : hit;
 }
 
+// K7 on raw arrays (STRIDE 2: the (E, 2) [head, tail] rows) or on a graph
+// without packed rows (STRIDE 1: its tails column): a step reads cur's
+// range from the index, then one tail.
+template <int S>
 __global__ void __launch_bounds__(kEdgeThreads) uniform_walk_edge_list_kernel(
-    EdgeList<2> g, const int32_t* __restrict__ targets, int32_t* __restrict__ walks,
+    EdgeList<S> g, const int32_t* __restrict__ targets, int32_t* __restrict__ walks,
     int32_t num_walkers, int32_t walk_length, uint32_t k0, uint32_t k1,
     uint32_t walker_offset, int32_t pad, int32_t restart) {
   int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -132,6 +150,66 @@ __global__ void __launch_bounds__(kEdgeThreads) uniform_walk_edge_list_kernel(
       cur = edge_step(g, cur, r, jump, pad, bits);
     }
     w.put(s, cur);
+  }
+}
+
+// A walker's node and the range it draws its next edge from (cnt 0: the
+// node has no out-edges), as the JAX fat engine carries them.
+struct Hop {
+  int32_t node;
+  int64_t start;
+  uint32_t cnt;
+};
+
+// The graph's packed edge rows, which carry the next node's range: the JAX
+// package's (E, 2) uint32 layout, fields of node_bits, start_bits and
+// deg_bits from bit 0 up, each below 32 bits.
+struct EdgeRows {
+  const uint2* __restrict__ rows;
+  int64_t num_edges;  // >= 1
+  uint32_t node_bits, start_bits, deg_bits;
+};
+
+__device__ __forceinline__ Hop hop_at(const EdgeRows& t, int64_t e) {
+  uint2 wd = t.rows[e];
+  uint64_t v = (uint64_t)wd.x | ((uint64_t)wd.y << 32);
+  uint32_t node = (uint32_t)v & ((1u << t.node_bits) - 1u);
+  v >>= t.node_bits;
+  uint32_t start = (uint32_t)v & ((1u << t.start_bits) - 1u);
+  v >>= t.start_bits;
+  return {(int32_t)node, (int64_t)start,
+          (uint32_t)v & ((1u << t.deg_bits) - 1u)};
+}
+
+// K7 on a graph's packed rows: one gather a step, which gives the next node
+// and its range (ops/fatwalk.py::uniform_walk_edge_list_fat); the index is
+// read once, for the target's range.
+__global__ void __launch_bounds__(kEdgeThreads) uniform_walk_edge_rows_kernel(
+    RangeIndex idx, EdgeRows t, const int32_t* __restrict__ targets,
+    int32_t* __restrict__ walks, int32_t num_walkers, int32_t walk_length,
+    uint32_t k0, uint32_t k1, uint32_t walker_offset, int32_t pad,
+    int32_t restart) {
+  int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (tid >= num_walkers) return;
+  uint32_t wid = (uint32_t)tid + walker_offset;
+  int32_t* out = walks + tid * ((int64_t)walk_length + 1);
+  RowWriter w{out, (int32_t)(((uintptr_t)out >> 2) & 7), walk_length, {}};
+  const int32_t target = targets[tid];
+  const Range r = range_of(idx, target);
+  Hop h{target, r.start, r.has ? r.cnt() : 0u};
+  const Hop jump = restart ? h : Hop{pad, 0, 0u};
+  w.put(0, target);
+  for (int32_t s = 1; s <= walk_length; ++s) {
+    if (h.node == pad) {
+      h = jump;
+    } else if (h.cnt == 0) {
+      h = Hop{pad, 0, 0u};
+    } else {
+      uint32_t bits = threefry2x32(k0, k1, wid, step_round_counter(s, 0)).x0;
+      int64_t e = h.start + (int64_t)randint(bits, h.cnt);
+      h = hop_at(t, min(max(e, (int64_t)0), t.num_edges - 1));
+    }
+    w.put(s, h.node);
   }
 }
 
@@ -213,19 +291,41 @@ __global__ void __launch_bounds__(kEdgeThreads) biased_walk_edge_list_kernel(
 
 }  // namespace trw
 
+// K7's tables, by `layout`: 0 the raw (E, 2) [head, tail] rows, 1 the (E,)
+// tails column (both with the range index), 2 the packed (E, 2) rows with
+// their three bit widths.
 extern "C" int trw_uniform_walk_edge_list(
-    const int32_t* index, const int32_t* edges, int32_t num_nodes,
-    int64_t num_edges, const int32_t* targets, int32_t* walks,
-    int32_t num_walkers, int32_t walk_length, uint32_t k0, uint32_t k1,
-    uint32_t walker_offset, int32_t pad, int32_t restart, void* stream) {
+    const int32_t* index, const int32_t* table, int32_t layout,
+    int32_t num_nodes, int64_t num_edges, uint32_t node_bits,
+    uint32_t start_bits, uint32_t deg_bits, const int32_t* targets,
+    int32_t* walks, int32_t num_walkers, int32_t walk_length, uint32_t k0,
+    uint32_t k1, uint32_t walker_offset, int32_t pad, int32_t restart,
+    void* stream) {
   const int threads = trw::kEdgeThreads;
   const unsigned blocks = (unsigned)((num_walkers + threads - 1) / threads);
-  trw::EdgeList<2> g{{reinterpret_cast<const int2*>(index), num_nodes},
-                     edges + 1, num_edges};
-  trw::uniform_walk_edge_list_kernel<<<blocks, threads, 0,
-                                       (cudaStream_t)stream>>>(
-      g, targets, walks, num_walkers, walk_length, k0, k1, walker_offset, pad,
-      restart);
+  const trw::RangeIndex idx{reinterpret_cast<const int2*>(index), num_nodes};
+  const trw::EdgeRows rows{reinterpret_cast<const uint2*>(table), num_edges,
+                           node_bits, start_bits, deg_bits};
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (layout) {
+    case 0:
+      trw::uniform_walk_edge_list_kernel<2><<<blocks, threads, 0, st>>>(
+          trw::EdgeList<2>{idx, table + 1, num_edges}, targets, walks,
+          num_walkers, walk_length, k0, k1, walker_offset, pad, restart);
+      break;
+    case 1:
+      trw::uniform_walk_edge_list_kernel<1><<<blocks, threads, 0, st>>>(
+          trw::EdgeList<1>{idx, table, num_edges}, targets, walks,
+          num_walkers, walk_length, k0, k1, walker_offset, pad, restart);
+      break;
+    case 2:
+      trw::uniform_walk_edge_rows_kernel<<<blocks, threads, 0, st>>>(
+          idx, rows, targets, walks, num_walkers, walk_length, k0, k1,
+          walker_offset, pad, restart);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

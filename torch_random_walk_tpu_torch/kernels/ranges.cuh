@@ -1,6 +1,7 @@
 // Access to an (N, 2) [start, end-inclusive] range index, (-1, -1) for a
 // node without out-edges, as the edge-list kernels (K7, K8) and the triples
-// walk (K9) read it.  All index arithmetic is done in 64 bits; ids are int32.
+// walk (K9) read it (K7 on packed rows and K9 on triple_tab under the fat
+// semantics only for the target).  All index arithmetic is done in 64 bits; ids are int32.
 #pragma once
 
 #include <cstdint>

@@ -10,10 +10,20 @@
 // every head up clamped into [0, N) and absorbs at a head equal to padding;
 // the fat engine tests only the target (padding or outside [0, N) gives
 // padding from step 1 on) and then follows the tails' ranges.
-// Bound: a chain of dependent random reads, as K1's: a step reads the head's
-// 8-byte range, then 8 bytes of a 12-byte triple row that depends on it.
+// Bound: a chain of dependent random reads, as K1's.  The fat semantics
+// read one 16-byte row a step of TriplesGraph.triple_tab (a graph's; made
+// per call for raw arrays), (relation, tail, start_tail, cnt_tail), which
+// holds the step's output pair and the next head's range, so the chain is
+// one load a step.  The oracle semantics (FAT == false: raw arrays, and a
+// graph without the fat table) look each head up by id, so they read its
+// 8-byte range, then 8 bytes of the 12-byte triple (one row in eight
+// straddles a 32-byte sector).
 // Design: K1's, one thread per walker, the walk stored a 32-byte sector at a
 // time from registers (csr.cuh::RowWriter), two words a step.
+// On the H100 at the bench shape (PERF.md §6) triple_tab took the graph
+// entry from 0.57 to 0.41 ms.  Measured and not kept: an 8-byte [relation,
+// tail] pair column with the index (0.54 ms: the index read stays in the
+// chain), and on raw arrays a pair column copied per call.
 //
 // K10 replaces the XLA programs ops/windows.py::to_windows_triples
 // (skip-gram) and to_windows_triples_cbow (CBOW), both through
@@ -73,7 +83,8 @@ constexpr int kCbowRounds = 4;  // ops/windows.py::CBOW_TRIPLE_ROUNDS
 
 struct Triples {
   RangeIndex idx;
-  const int32_t* __restrict__ triples;  // (num_triples, 3) [head, rel, tail]
+  // (num_triples, 4) triple_tab rows (FAT) or (num_triples, 3) triples
+  const int32_t* __restrict__ rows;
   int64_t num_triples;
 };
 
@@ -110,13 +121,24 @@ __global__ void __launch_bounds__(kTriplesThreads) uniform_walk_triples_kernel(
     if (r.has) {
       uint32_t bits = threefry2x32(k0, k1, wid, step_round_counter(s, 0)).x0;
       int64_t i = draw_in(r, bits, max(g.num_triples, (int64_t)1));
-      rel = triple_at(g.triples, g.num_triples, i, 1);
-      tail = triple_at(g.triples, g.num_triples, i, 2);
+      if (g.num_triples == 0) {
+        rel = tail = 0;  // as ops/common.py::gather_rows gives
+        if (FAT) r = range_of(g.idx, 0);
+      } else if (FAT) {  // the fat engine: the tail's range from its row
+        int4 row = reinterpret_cast<const int4*>(g.rows)[i];
+        rel = row.x;
+        tail = row.y;
+        r.start = row.z;
+        r.end = (int64_t)row.z + row.w;
+        r.has = row.w > 0;
+      } else {
+        rel = g.rows[3 * i + 1];
+        tail = g.rows[3 * i + 2];
+      }
     }
     w.put(2 * s - 1, rel);
     w.put(2 * s, tail);
     cur = tail;
-    if (FAT && r.has) r = range_of(g.idx, tail);
   }
 }
 
@@ -324,15 +346,17 @@ __global__ void __launch_bounds__(kWindowsThreads) to_windows_triples_cbow_kerne
 
 }  // namespace trw
 
+// K9: `fat` picks the semantics and the table, TriplesGraph.triple_tab's
+// (T, 4) rows for the fat engine, the raw (T, 3) triples for the oracle.
 extern "C" int trw_uniform_walk_triples(
-    const int32_t* index, const int32_t* triples, int32_t num_entities,
+    const int32_t* index, const int32_t* table, int32_t num_entities,
     int64_t num_triples, const int32_t* targets, int32_t* walks,
     int32_t num_walkers, int32_t walk_length, uint32_t k0, uint32_t k1,
     uint32_t walker_offset, int32_t pad, int32_t fat, void* stream) {
   const int threads = trw::kTriplesThreads;
   const unsigned blocks = (unsigned)((num_walkers + threads - 1) / threads);
-  trw::Triples g{{reinterpret_cast<const int2*>(index), num_entities}, triples,
-                 num_triples};
+  const trw::Triples g{{reinterpret_cast<const int2*>(index), num_entities},
+                       table, num_triples};
   cudaStream_t st = (cudaStream_t)stream;
   if (fat) {
     trw::uniform_walk_triples_kernel<true><<<blocks, threads, 0, st>>>(

@@ -10,9 +10,12 @@
 
 On a CUDA device the walks run in the hand-written kernels K7 (uniform) and
 K8 (biased) of ``kernels/edge_list_walk.cu``; the ``*_plain`` functions are
-their plain PyTorch versions, used on the CPU and to check the kernels.  K7
-reads the tails as column 1 of the edge rows, K8 from the (E,) tails column
-(``EdgeListGraph.tails``, or a copy made per call for raw arrays).
+their plain PyTorch versions, used on the CPU and to check the kernels.  On
+an ``EdgeListGraph`` K7 reads its packed edge rows (``EdgeListGraph.edge_tab``,
+one gather a step) or, where it has none, its tails column; on raw
+arrays it reads the range index and column 1 of the edge rows.  K8 reads the
+(E,) tails column (``EdgeListGraph.tails``, or a copy made per call for raw
+arrays).
 ``fat`` picks the JAX fat engine's membership test
 (``ops/fatwalk.py::node2vec_walk_edge_list_fat``: its cuckoo edge set looks
 t up by its own id) over the oracle's (t clamped into [0, N), padding never
@@ -123,16 +126,43 @@ def _inputs(edge_list, node_edge_index, target_nodes, device):
 def uniform_walk_edge_list(edge_list, node_edge_index, target_nodes,
                            walk_length, seed, padding_idx, restart,
                            walker_offset=0, device=None):
-    """Batched uniform edge-list walks: (B, walk_length + 1) int32."""
+    """Batched uniform edge-list walks: (B, walk_length + 1) int32.  On the
+    card K7 reads the edge list's rows and its index."""
+    return _uniform_walk(edge_list, node_edge_index, None, target_nodes,
+                         walk_length, seed, padding_idx, restart,
+                         walker_offset, device)
+
+
+def uniform_walk_edge_list_graph(graph, target_nodes, walk_length, seed,
+                                 padding_idx, restart, walker_offset=0,
+                                 device=None):
+    """The same walks on an ``EdgeListGraph``.  On the card K7 reads the
+    graph's packed rows (``edge_tab``) where it has them, else its tails
+    column and its index."""
+    return _uniform_walk(graph.edge_list, graph.node_edge_index, graph,
+                         target_nodes, walk_length, seed, padding_idx,
+                         restart, walker_offset, device)
+
+
+def _uniform_walk(edge_list, node_edge_index, graph, target_nodes,
+                  walk_length, seed, padding_idx, restart, walker_offset,
+                  device):
     dev, edge_list, node_edge_index, target_nodes = _inputs(
         edge_list, node_edge_index, target_nodes, device)
     key = prng.derive_key(seed, prng.STREAM_EDGE_UNIFORM)
-    args = (edge_list, node_edge_index, target_nodes, int(walk_length), key,
+    args = (node_edge_index, target_nodes, int(walk_length), key,
             int(padding_idx), bool(restart), int(walker_offset))
     if dev.type == "cuda":
-        return bindings.uniform_walk_edge_list(*args)
+        if graph is None:
+            return bindings.uniform_walk_edge_list(edge_list, *args)
+        if graph.edge_tab is not None:
+            return bindings.uniform_walk_edge_list(
+                graph.edge_tab, *args, layout="packed",
+                bits=graph.packed_bits)
+        return bindings.uniform_walk_edge_list(graph.tails, *args,
+                                               layout="tails")
     common.check_walk_length(walk_length)
-    return uniform_walk_edge_list_plain(*args)
+    return uniform_walk_edge_list_plain(edge_list, *args)
 
 
 def biased_walk(edge_list, node_edge_index, target_nodes, p, q, walk_length,

@@ -22,14 +22,18 @@ With 4 entities and target 5, the graph entry gives ``[5, -1, -1, ...]``
 and the raw arrays walk from entity 3.
 
 On a CUDA device the walk runs in the hand-written kernel K9
-(``kernels/triples.cu``); ``uniform_walk_triples_plain`` is its plain
-PyTorch version, used on the CPU and to check the kernel.
+(``kernels/triples.cu``): the fat semantics read ``triple_tab`` rows (one
+16-byte gather a step, which also gives the next head's range; a
+``TriplesGraph``'s own, or one made per call from raw arrays), the oracle's
+read the index and the triples.  ``uniform_walk_triples_plain`` is its
+plain PyTorch version, used on the CPU and to check the kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
+from torch_random_walk_tpu_torch.graph.triples import triple_table
 from torch_random_walk_tpu_torch.kernels import bindings
 from torch_random_walk_tpu_torch.ops import common
 from torch_random_walk_tpu_torch.utils import prng
@@ -73,6 +77,23 @@ def uniform_walk_triples(triples, relation_tail_index, target_nodes,
     """Batched triples walks: (B, 2 * walk_length + 1) int32.  ``restart``
     is ignored; ``fat`` as in the module's docstring."""
     del restart  # accepted but unused, as in the JAX package
+    return _walk(triples, relation_tail_index, None, target_nodes,
+                 walk_length, padding_idx, seed, walker_offset, fat, device)
+
+
+def uniform_walk_triples_graph(graph, target_nodes, walk_length,
+                               padding_idx, seed, walker_offset=0,
+                               device=None):
+    """The same walks on a ``TriplesGraph``, with the semantics its ``fat``
+    picks: on the card K9 reads the graph's ``triple_tab`` where it has one
+    (the fat engine's), else its triples (the oracle's)."""
+    return _walk(graph.triples, graph.relation_tail_index, graph.triple_tab,
+                 target_nodes, walk_length, padding_idx, seed, walker_offset,
+                 graph.fat, device)
+
+
+def _walk(triples, relation_tail_index, triple_tab, target_nodes,
+          walk_length, padding_idx, seed, walker_offset, fat, device):
     dev = resolve_device(device)
     triples = common.as_int32(triples, dev).reshape(-1, 3)
     relation_tail_index = common.as_int32(relation_tail_index,
@@ -82,9 +103,13 @@ def uniform_walk_triples(triples, relation_tail_index, target_nodes,
                          "entity")
     target_nodes = common.as_int32(target_nodes, dev)
     key = prng.derive_key(seed, prng.STREAM_TRIPLES)
-    args = (triples, relation_tail_index, target_nodes, int(walk_length), key,
+    args = (relation_tail_index, target_nodes, int(walk_length), key,
             int(padding_idx), bool(fat), int(walker_offset))
     if dev.type == "cuda":
-        return bindings.uniform_walk_triples(*args)
+        table = triples
+        if fat:
+            table = (triple_tab if triple_tab is not None
+                     else triple_table(triples, relation_tail_index))
+        return bindings.uniform_walk_triples(table, *args)
     common.check_walk_length(walk_length)
-    return uniform_walk_triples_plain(*args)
+    return uniform_walk_triples_plain(triples, *args)

@@ -29,7 +29,10 @@ from torch_random_walk_tpu_torch.ops.node2vec import (
     mixture_consts,
     node2vec_walk_csr,
 )
-from torch_random_walk_tpu_torch.ops.triples_walk import uniform_walk_triples
+from torch_random_walk_tpu_torch.ops.triples_walk import (
+    uniform_walk_triples,
+    uniform_walk_triples_graph,
+)
 from torch_random_walk_tpu_torch.ops.uniform import uniform_walk_csr
 from torch_random_walk_tpu_torch.utils.device import resolve_device
 
@@ -102,9 +105,9 @@ def walk_edge_list(edge_list_indexed, node_edge_index=None, target_nodes=None,
         graph = edge_list_indexed
         dev = _graph_device(graph, device)
         if uniform:
-            return edge_list_walk.uniform_walk_edge_list(
-                graph.edge_list, graph.node_edge_index, target_nodes,
-                walk_length, seed, padding_idx, restart, device=dev)
+            return edge_list_walk.uniform_walk_edge_list_graph(
+                graph, target_nodes, walk_length, seed, padding_idx, restart,
+                device=dev)
         out = edge_list_walk.biased_walk(
             graph.edge_list, graph.node_edge_index, target_nodes, p, q,
             walk_length, seed, padding_idx, restart, graph.search_iters,
@@ -134,9 +137,8 @@ def walk_triples(triples_indexed, relation_tail_index=None, target_nodes=None,
         raise ValueError("target_nodes is required")
     if isinstance(triples_indexed, TriplesGraph):
         graph = triples_indexed
-        return uniform_walk_triples(
-            graph.triples, graph.relation_tail_index, target_nodes,
-            walk_length, padding_idx, restart, seed, fat=graph.fat,
+        return uniform_walk_triples_graph(
+            graph, target_nodes, walk_length, padding_idx, seed,
             device=_graph_device(graph, device))
     if relation_tail_index is None:
         raise ValueError("relation_tail_index is required with raw triples")
