@@ -93,7 +93,8 @@ def _constructed(how):
     elif how == "dataclass":
         base = tt.EdgeListGraph.from_arrays(edges, device="cpu")
         g = tt.EdgeListGraph(base.edge_list, base.node_edge_index,
-                             base.num_nodes, base.num_edges, base.max_degree)
+                             base.num_nodes, base.num_edges, base.max_degree,
+                             fat=True)
     else:  # dataclasses.replace builds it again from the new edge list
         base = tt.EdgeListGraph.from_arrays(edges, device="cpu")
         g = dataclasses.replace(base, edge_list=base.edge_list.flip(0))
@@ -125,7 +126,7 @@ def _packed_pair(how):
         return jg, tt.EdgeListGraph(base.edge_list.clone(),
                                     base.node_edge_index.clone(),
                                     base.num_nodes, base.num_edges,
-                                    base.max_degree)
+                                    base.max_degree, fat=True)
     if how == "power_law":  # dead ends: cnt 0 rows with a start of their own
         src, dst = power_law_edges(N, 6, seed=41)
         edges, n = np.stack([src, dst], axis=1), N
@@ -179,7 +180,7 @@ def test_edge_tab_absent_or_refused_where_the_layout_does_not_fit():
     base = tt.EdgeListGraph.from_arrays(
         np.array([[0, 1], [0, 2], [0, 3], [2, 0]]), device="cpu")
     wide = tt.EdgeListGraph(base.edge_list, base.node_edge_index,
-                            base.num_nodes, base.num_edges, 2 ** 31)
+                            base.num_nodes, base.num_edges, 2 ** 31, fat=True)
     assert wide.edge_tab is None and wide.packed_bits[2] == 32
     eq(wide.tails, base.tails.numpy())
     thin = dataclasses.replace(base, fat=False)
@@ -187,7 +188,7 @@ def test_edge_tab_absent_or_refused_where_the_layout_does_not_fit():
     eq(thin.tails, base.tails.numpy())
     with pytest.raises(ValueError, match="max_degree"):
         tt.EdgeListGraph(base.edge_list, base.node_edge_index,
-                         base.num_nodes, base.num_edges, 1)
+                         base.num_nodes, base.num_edges, 1, fat=True)
     with pytest.raises(ValueError, match="tail ids out of range"):
         tt.EdgeListGraph.from_arrays(np.array([[0, 5]]), num_nodes=3,
                                      device="cpu")
@@ -429,6 +430,30 @@ def test_graph_without_fat_tables_walks_by_the_oracle(graphs, targets):
                               device="cpu", **kw))
 
 
+@pytest.mark.parametrize("biased", [False, True], ids=["uniform", "biased"])
+@pytest.mark.parametrize("pad", [-1, N], ids=["minus_one", "N"])
+def test_directly_built_graph_walks_like_the_directly_built_jax_graph(
+        graphs, targets, biased, pad):
+    """A graph built from its fields walks as the JAX graph built from the
+    same fields, which holds no fat tables: the oracle, whose membership
+    test clamps t and never counts padding, and no -1 mark."""
+    jg, tg = graphs
+    j_direct = trw.EdgeListGraph(jg.edge_list, jg.node_edge_index,
+                                 jg.num_nodes, jg.num_edges, jg.max_degree)
+    t_direct = tt.EdgeListGraph(tg.edge_list, tg.node_edge_index,
+                                tg.num_nodes, tg.num_edges, tg.max_degree)
+    assert j_direct.edge_tab is None
+    assert not t_direct.fat and t_direct.edge_tab is None
+    eq(t_direct.tails, np.asarray(jg.edge_list)[:, 1])
+    kw = dict(walk_length=L, seed=13, padding_idx=pad)
+    if biased:
+        kw.update(p=0.5, q=2.0)
+    got = tt.walk_edge_list(t_direct, target_nodes=targets, device="cpu",
+                            **kw)
+    eq(got, trw.walk_edge_list(j_direct, target_nodes=jnp.asarray(targets),
+                               **kw))
+
+
 @pytest.fixture(scope="module")
 def ring_graphs():
     """No dead ends and no self-loops, so a biased walker stays in place only
@@ -601,7 +626,7 @@ def _unfit_graph(device):
     packed layout does not fit, so the graph holds no packed rows."""
     g = _kernel_graph()
     g = tt.EdgeListGraph(g.edge_list.to(device), g.node_edge_index.to(device),
-                         g.num_nodes, g.num_edges, 2 ** 31)
+                         g.num_nodes, g.num_edges, 2 ** 31, fat=True)
     assert g.edge_tab is None
     return g
 

@@ -91,7 +91,7 @@ def _tab_pair(how, graphs):
         return jg, tt.TriplesGraph(
             base.triples.clone(), base.relation_tail_index.clone(),
             base.num_entities, base.num_triples, base.max_degree,
-            base.num_relations)
+            base.num_relations, fat=True)
     if how == "one_triple":
         t, n = np.array([[3, 1, 5]]), 9
     else:  # "random": duplicate triples, a relation id past the entities
@@ -127,6 +127,25 @@ def test_triple_tab_of_an_empty_graph_and_tails_out_of_range(graphs):
     with pytest.raises(ValueError, match="tail ids out of range"):
         tt.TriplesGraph.from_arrays(np.array([[0, 0, 4]]), num_entities=2,
                                     device="cpu")
+
+
+def test_directly_built_graph_walks_like_the_directly_built_jax_graph(
+        graphs, targets):
+    """A graph built from its fields walks as the JAX graph built from the
+    same fields, which holds no fat table: the oracle, which clamps a target
+    outside [0, N) and walks on from there."""
+    jg, tg = graphs
+    j_direct = trw.TriplesGraph(jg.triples, jg.relation_tail_index,
+                                jg.num_entities, jg.num_triples,
+                                jg.max_degree, num_relations=jg.num_relations)
+    t_direct = tt.TriplesGraph(tg.triples, tg.relation_tail_index,
+                               tg.num_entities, tg.num_triples, tg.max_degree,
+                               tg.num_relations)
+    assert j_direct.triple_tab is None
+    assert not t_direct.fat and t_direct.triple_tab is None
+    kw = dict(walk_length=L, seed=4, padding_idx=-1)
+    eq(tt.walk_triples(t_direct, target_nodes=targets, device="cpu", **kw),
+       trw.walk_triples(j_direct, target_nodes=jnp.asarray(targets), **kw))
 
 
 def _row_walk_mirror(g, targets, length, seed, pad):

@@ -414,7 +414,38 @@ def test_build_fat_flag_and_graph_size_decide_fat(graphs, thin_graphs):
     empty = tt.CSRGraph.from_edges([], [], num_nodes=4, device="cpu")
     assert not empty.fat
     assert tt.CSRGraph(tg.row_ptr, tg.col_idx, N, tg.num_edges,
-                       tg.max_degree).fat
+                       tg.max_degree, fat=True).fat
+    assert not tt.CSRGraph(tg.row_ptr, tg.col_idx, N, tg.num_edges,
+                           tg.max_degree).fat
+
+
+# 5 nodes, 12 edges: the JAX graph built from its fields holds no fat tables,
+# so its graph entry differs from from_arrays' at p=0.5 q=2, L=12, seed 3.
+DIRECT_ROW_PTR = np.array([0, 3, 5, 8, 10, 12])
+DIRECT_COL_IDX = np.array([1, 2, 4, 0, 3, 0, 1, 4, 2, 4, 0, 3])
+
+
+@pytest.mark.parametrize("p,q", [(0.5, 2.0), (1.0, 1.0)],
+                         ids=["p0.5-q2", "uniform"])
+def test_directly_built_graph_walks_like_the_directly_built_jax_graph(p, q):
+    """A graph built from its fields walks as the JAX graph built from the
+    same fields, which holds no fat tables: the rejection sampler (or the
+    uniform walk), not the mixture of a from_arrays graph."""
+    jg = trw.CSRGraph(row_ptr=jnp.asarray(DIRECT_ROW_PTR, jnp.int32),
+                      col_idx=jnp.asarray(DIRECT_COL_IDX, jnp.int32),
+                      num_nodes=5, num_edges=12, max_degree=3)
+    tg = tt.CSRGraph(torch.tensor(DIRECT_ROW_PTR, dtype=torch.int32),
+                     torch.tensor(DIRECT_COL_IDX, dtype=torch.int32), 5, 12, 3)
+    assert jg.edge_tab is None and not tg.fat
+    t = np.arange(40, dtype=np.int32) % 5
+    kw = dict(p=p, q=q, walk_length=12, seed=3)
+    got = tt.walk(tg, target_nodes=t, device="cpu", **kw)
+    eq(got, trw.walk(jg, target_nodes=jnp.asarray(t), **kw))
+    if p != q:  # the from_arrays graph takes the other bitstream
+        fat = trw.CSRGraph.from_arrays(DIRECT_ROW_PTR, DIRECT_COL_IDX)
+        assert not np.array_equal(
+            got.numpy(), np.asarray(trw.walk(fat, target_nodes=jnp.asarray(t),
+                                             **kw)))
 
 
 @pytest.mark.parametrize("p,q", [(0.5, 2.0), (1.0, 1.0)],
@@ -452,7 +483,7 @@ def test_walk_kernels_equal_plain_versions(case):
     need_cuda()
     g = tt.synthetic_power_law(5000, 8, seed=1)
     cpu = tt.CSRGraph(g.row_ptr.cpu(), g.col_idx.cpu(), g.num_nodes,
-                      g.num_edges, g.max_degree)
+                      g.num_edges, g.max_degree, fat=g.fat)
     t = np.random.default_rng(3).integers(0, g.num_nodes, 4096)
     for graph_arg, dev in ((g, None), (cpu, "cpu")):
         if case == "uniform":

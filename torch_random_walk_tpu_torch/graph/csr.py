@@ -52,7 +52,9 @@ class CSRGraph:
     fat: True where the JAX package's ``CSRGraph`` of the same arrays holds
         fat tables (``edge_tab is not None``).  ``walk(graph, p, q)`` then
         takes the mixture sampler, as the JAX fat engine does, and the
-        rejection sampler otherwise.  No table is built here.
+        rejection sampler otherwise.  No table is built here.  A graph
+        built directly from its fields is not fat unless told so, as the
+        JAX dataclass built from its fields holds no tables.
     """
 
     row_ptr: torch.Tensor
@@ -60,7 +62,7 @@ class CSRGraph:
     num_nodes: int
     num_edges: int
     max_degree: int
-    fat: bool = True
+    fat: bool = False
 
     @property
     def device(self) -> torch.device:

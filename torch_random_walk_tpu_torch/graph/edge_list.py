@@ -51,7 +51,8 @@ class EdgeListGraph:
     node_edge_index: (num_nodes, 2) int32 [start, end-inclusive], (-1, -1)
         for a node without out-edges.
     fat: True where the JAX package's ``EdgeListGraph`` of the same edges
-        holds fat tables (``edge_tab is not None``).
+        holds fat tables (``edge_tab is not None``); False by default, as
+        the JAX dataclass built from its fields holds none.
     tails: (num_edges,) int32, ``edge_list[:, 1]`` as a column of its own,
         built with the graph (K8's layout: eight tails a 32-byte sector).
     edge_tab: (num_edges, 2) int32 bit patterns of the JAX package's packed
@@ -65,7 +66,7 @@ class EdgeListGraph:
     num_nodes: int
     num_edges: int
     max_degree: int
-    fat: bool = True
+    fat: bool = False
     tails: torch.Tensor = dataclasses.field(init=False, repr=False,
                                             compare=False)
     edge_tab: torch.Tensor | None = dataclasses.field(init=False, repr=False,

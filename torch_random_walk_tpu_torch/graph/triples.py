@@ -43,7 +43,9 @@ class TriplesGraph:
         (-1, -1) for an entity without triples.
     fat: True where the JAX package's ``TriplesGraph`` of the same triples
         holds its fat table (``triple_tab is not None``: some entity and
-        some triple, all ids below 2^31, which the port requires anyway).
+        some triple, all ids below 2^31, which the port requires anyway);
+        False by default, as the JAX dataclass built from its fields holds
+        no table.
     triple_tab: (num_triples, 4) int32 [relation, tail, start_tail,
         cnt_tail], the JAX package's ``triple_tab`` (``triple_table``), K9's
         layout under the fat semantics; None where ``fat`` is false, as in
@@ -56,7 +58,7 @@ class TriplesGraph:
     num_triples: int
     max_degree: int
     num_relations: int = 0
-    fat: bool = True
+    fat: bool = False
     triple_tab: torch.Tensor | None = dataclasses.field(
         init=False, repr=False, compare=False)
 
