@@ -8,7 +8,9 @@ its plain PyTorch version on the card, drives the port's main path at the
 bench shape through the public entry points (power-law graph of 2 M nodes and
 about 36 M directed edges, 131 072 walkers, walk length 80: uniform walks,
 node2vec walks by both samplers, skip-gram windows, then the owner-routed
-partitioned engine over 8 shards with 32 768 walkers), then the training
+partitioned engines over 8 shards with 32 768 walkers, uniform and node2vec
+at p=0.5 q=2 with the per-shard cuckoo edge sets and Bloom filters, their
+phases run by K11 and K12), then the training
 half of the main path on the same graph: ``Node2Vec`` at the bench
 configuration (dim 128, walk length 16, window 5, bfloat16 tables, 256 shared
 negatives, 65 536 start nodes a step), one warm step and three chained steps
@@ -57,9 +59,18 @@ this one and its kernels built from its own sources, timed in this one process, 
 nothing else.
 
 Every kernel is held against its plain version on all the rows the main path
-gives it.  One thing runs at a smaller depth than the main path, to keep the
-run short: the routed leg runs at the full walk length for its time and its
-checks, and at walk length 10 (23 phases instead of 163) under the profiler.
+gives it.  The routed legs (``phase_routed``) hold K11 and K12 against the
+plain phase bodies on the card state by state for the first 8 phases of
+each leg and then on the whole leg (walks, phases, exchanged records,
+logged positions), time every leg warm (uniform under both schedules,
+node2vec under both and with the binary search in place of the cuckoo
+probes), time the phase calls by CUDA events and profile each kernel leg
+whole; only the plain bodies' profiles run at walk length 10, where the
+profiler's digest of their hundreds to thousands of launches a phase would
+take minutes at full depth.  The small checks hold K11 and K12 against the
+plain bodies phase by phase on a 3 000-node graph with dead ends (D = 1, 2,
+8, L = 1 and 12, both schedules, a filling carry pool and an overflowing
+one, both membership tests, saturated filters).
 
 Every phase prints one JSON line.  The line before the last two is
 ``{"kernels": [...]}`` with, per kernel, its launches on the main path (the
@@ -109,7 +120,7 @@ from torch_random_walk_tpu_torch.ops import (
     uniform,
     windows,
 )
-from torch_random_walk_tpu_torch.parallel import exchange
+from torch_random_walk_tpu_torch.parallel import exchange, partition_v2
 from torch_random_walk_tpu_torch.utils import prng
 
 # The bench shape of the JAX package's bench.py (its single-chip default and
@@ -120,6 +131,8 @@ P, Q = 0.5, 2.0
 NUM_SHARDS, ROUTED_WALKERS = 8, 32_768
 WALK_SEED, WINDOW_SEED = 1, 2
 PROFILED_WALK_LENGTH = 10
+SPEC_ROUNDS = 6  # the routed node2vec engine's default (bench.py's)
+ROUTED_CHECKED_PHASES = 8  # phases compared state by state at the bench shape
 WALK_REPS = 4  # walk calls queued back to back for their device time
 
 # The edge-list and KG-triples families of the JAX package's bench.py
@@ -212,10 +225,22 @@ KERNEL_FACTS = {
         "torch_random_walk_tpu_torch/kernels/triples.cu",
         "torch_random_walk_tpu/ops/windows.py:142 (_triples_targets_and_"
         "windows:91; XLA program, no Pallas counterpart)"),
+    "routed_uniform_phase": (
+        "torch_random_walk_tpu_torch/kernels/routed.cu",
+        "torch_random_walk_tpu/parallel/partition_v2.py:325 (process of "
+        "_routed_uniform_jit with _build_outbox:176; XLA program, no Pallas "
+        "counterpart)"),
+    "routed_node2vec_phase": (
+        "torch_random_walk_tpu_torch/kernels/routed.cu",
+        "torch_random_walk_tpu/parallel/partition_v2.py:675 (process of "
+        "_routed_n2v_jit with _build_outbox:176; XLA program, no Pallas "
+        "counterpart)"),
 }
 INTEGER_KERNELS = ("uniform_walk_csr", "node2vec_walk_csr_mixture",
                    "node2vec_walk_csr_rejection", "to_windows",
-                   "all_to_all_chunks")
+                   "all_to_all_chunks", "routed_uniform_phase",
+                   "routed_node2vec_phase")
+ROUTED_KERNELS = ("routed_uniform_phase", "routed_node2vec_phase")
 T0 = time.perf_counter()
 
 
@@ -596,6 +621,17 @@ FAMILY_FUNCTIONS = {
 }
 
 
+# K11 and K12: the body kernels (K12's by membership flag) and the shared
+# compaction kernel, by record width.
+ROUTED_FUNCTIONS = {
+    "routed_uniform_body_kernel": "K11 body",
+    "routed_compact_kernelILi3E": "K11 compaction",
+    "routed_node2vec_body_kernelILb0E": "K12 body, cuckoo probes",
+    "routed_node2vec_body_kernelILb1E": "K12 body, binary search",
+    "routed_compact_kernelILi14E": "K12 compaction",
+}
+
+
 def function_key(name: str, functions: dict) -> str | None:
     for key in functions:
         if key in name:
@@ -754,6 +790,7 @@ def phase_build() -> None:
     walk_ptxas = ptxas_report(log, WALK_FUNCTIONS)
     k3_k4_ptxas = ptxas_report(log, EXCHANGE_WINDOW_FUNCTIONS)
     family_ptxas = ptxas_report(log, FAMILY_FUNCTIONS)
+    routed_ptxas = ptxas_report(log, ROUTED_FUNCTIONS)
     threefry = threefry_sass_ops()
     THREEFRY_OPS = threefry["int32_only_ops"]
     emit("build", seconds=round(seconds, 2), sources=list(build.SOURCES),
@@ -763,6 +800,8 @@ def phase_build() -> None:
                                    for k, v in k3_k4_ptxas.items()},
          family_kernels={FAMILY_FUNCTIONS[k]: v
                          for k, v in family_ptxas.items()},
+         routed_kernels={ROUTED_FUNCTIONS[k]: v
+                         for k, v in routed_ptxas.items()},
          threefry_int32_only_ops=THREEFRY_OPS,
          threefry_int32_pipe_ops=threefry["int32_pipe_ops"],
          threefry_fma_pipe_ops=threefry["fma_pipe_ops"],
@@ -781,6 +820,9 @@ def phase_build() -> None:
     require(all(family_ptxas.get(k, {}).get("registers")
                 for k in FAMILY_FUNCTIONS),
             f"ptxas reported no registers for K7-K10: {family_ptxas}")
+    require(all(routed_ptxas.get(k, {}).get("registers")
+                for k in ROUTED_FUNCTIONS),
+            f"ptxas reported no registers for K11/K12: {routed_ptxas}")
     # K2's launch geometry, and how many blocks of 64, 128 and 256 threads
     # one SM holds at its register count.
     emit("walk_geometry", kernel="node2vec_walk_csr", geometry={
@@ -867,6 +909,7 @@ def phase_small_checks() -> None:
             exchange.all_to_all_chunks(outboxes),
             exchange.all_to_all_chunks_plain(outboxes)))
     errs["all_to_all_chunks"] = worst
+    errs.update(routed_small_checks(graph.device))
     # K5/K6: ragged width, a window of one center, -1 ids, both table types,
     # and a shape that takes the negatives in chunks (D > 256).
     float_errs = {}
@@ -1019,58 +1062,35 @@ def phase_exchange_windows_times(walks) -> dict:
         "max_abs_err": err}}
 
 
-def phase_routed_times(graph, runs: int = 3) -> list[dict]:
-    """The routed leg of the main path (D=8 shards, ROUTED_WALKERS walkers,
-    full walk length) ``runs`` times after one warm-up, on the host clock,
-    each with the host time spent inside the exchange's calls (K4's launch
-    path); and the host time of one small PyTorch operation in this process
-    (2000 in-place adds, synchronised), which sets the pace of the leg's
-    thousands of launches a phase and differs from process to process on a
-    shared host.  Importing this script and calling ``phase_device()``,
-    ``phase_build()`` and then this on ``phase_graph()`` in two copies of
-    the tree, A B B A in one call, compares what a change does to the leg."""
-    pgraph = tt.PartitionedCSR.from_csr(graph, NUM_SHARDS)
-    targets = bench_targets(graph.device)[:ROUTED_WALKERS]
-    spent = [0.0]
-    call = exchange.ChunkExchange.__call__
+def routed_tables(graph, pgraph):
+    """The routed node2vec engine's cuckoo tables and Bloom filters, built on
+    the card, with their build times and sizes."""
+    hashes, hash_ms = wall_ms(lambda: tt.build_partition_hashes(pgraph, graph))
+    blooms, bloom_ms = wall_ms(lambda: tt.build_partition_blooms(pgraph, graph))
+    emit("routed_tables", hash_build_ms=hash_ms, bloom_build_ms=bloom_ms,
+         hash_log_size=hashes[2], hash_salts=hashes[1].tolist(),
+         hash_bytes=hashes[0].numel() * 4, bloom_bytes=blooms.numel() * 4,
+         hash_bytes_per_shard=hashes[0][0].numel() * 4)
+    return hashes, blooms
 
-    def timed_call(self):
-        t0 = time.perf_counter()
-        out = call(self)
-        spent[0] += time.perf_counter() - t0
-        return out
 
-    def leg():
-        return tt.walk_partitioned_routed(pgraph, targets, WALK_LENGTH,
-                                          seed=WALK_SEED)
-
-    leg()
-    legs = []
-    exchange.ChunkExchange.__call__ = timed_call
-    try:
-        for _ in range(runs):
-            spent[0] = 0.0
-            (_, info), ms = wall_ms(leg)
-            legs.append({"leg_ms": ms, "exchange_host_ms": spent[0] * 1e3,
-                         "phases": info["phases"]})
-    finally:
-        exchange.ChunkExchange.__call__ = call
-    x = torch.zeros(16, device=graph.device)
-    _, ops_ms = wall_ms(lambda: [x.add_(1) for _ in range(2000)])
-    emit("routed_times", walkers=ROUTED_WALKERS, shards=NUM_SHARDS,
-         legs=legs, small_op_host_us=ops_ms * 1e3 / 2000,
-         small_op_is="2000 in-place "
-         "adds on a 16-element tensor, synchronised: us per op",
-         timing="host clock around one leg, after one warm-up")
-    return legs
+def routed_n2v_call(pgraph, targets, hashes, blooms, schedule="serial",
+                    walk_length=WALK_LENGTH):
+    return tt.walk_partitioned_node2vec_routed(
+        pgraph, hashes, targets, P, Q, walk_length, seed=WALK_SEED,
+        spec_rounds=SPEC_ROUNDS, blooms=blooms, schedule=schedule)
 
 
 def phase_main_path(graph):
     """The main path once through the public entry points, with the launch
-    counts set to 0 just before and read just after."""
+    counts set to 0 just before and read just after: the single-device
+    walks and windows, then the routed legs (uniform and node2vec, D=8,
+    serial schedule)."""
     dev = graph.device
     targets = bench_targets(dev)
     pgraph = tt.PartitionedCSR.from_csr(graph, NUM_SHARDS)
+    hashes, blooms = routed_tables(graph, pgraph)
+    routed_targets = targets[:ROUTED_WALKERS]
     torch.cuda.synchronize()
 
     calls = walk_calls(graph, targets)
@@ -1082,16 +1102,23 @@ def phase_main_path(graph):
     out["windows"], t_w = wall_ms(lambda: tt.to_windows(
         out["uniform"], WINDOW, NUM_NODES, seed=WINDOW_SEED))
     (out["routed"], info), t_x = wall_ms(lambda: tt.walk_partitioned_routed(
-        pgraph, targets[:ROUTED_WALKERS], WALK_LENGTH, seed=WALK_SEED))
+        pgraph, routed_targets, WALK_LENGTH, seed=WALK_SEED))
+    (out["routed_n2v"], n2v_info), t_n = wall_ms(lambda: routed_n2v_call(
+        pgraph, routed_targets, hashes, blooms))
     launches = dict(bindings.launch_counts)
 
     emit("main_path", launches=launches, first_call_ms={
         "walk_uniform": t_u, "walk_mixture": t_m, "walk_rejection": t_r,
-        "to_windows": t_w, "walk_partitioned_routed": t_x})
+        "to_windows": t_w, "walk_partitioned_routed": t_x,
+        "walk_partitioned_node2vec_routed": t_n})
     for name in INTEGER_KERNELS:
         require(launches[name] > 0, f"the main path never launched {name}")
-    require(launches["all_to_all_chunks"] == info["phases"],
-            "one exchange launch per phase expected")
+    require(launches["all_to_all_chunks"] == info["phases"]
+            + n2v_info["phases"], "one exchange launch per phase expected")
+    # One call a phase and one for phase 0 (one pipeline: serial).
+    require(launches["routed_uniform_phase"] == info["phases"] + 1
+            and launches["routed_node2vec_phase"] == n2v_info["phases"] + 1,
+            "one phase kernel call per phase and one for phase 0 expected")
 
     # Results: shapes, no -1, every hop an edge, routed == single-device.
     num_win = NUM_WALKERS * (WALK_LENGTH + 1 - WINDOW + 1)
@@ -1113,19 +1140,24 @@ def phase_main_path(graph):
             "windows: wrong shapes")
     require(bool(((neg >= 0) & (neg < NUM_NODES)).all()),
             "windows: negative out of range")
-    require(info["overflow_dropped"] == 0, "routed: records dropped")
-    require(info["log_entries"] == ROUTED_WALKERS * (WALK_LENGTH + 1),
-            "routed: positions missing")
+    for name, i in (("routed", info), ("routed node2vec", n2v_info)):
+        require(i["overflow_dropped"] == 0, f"{name}: records dropped")
+        require(i["log_entries"] == ROUTED_WALKERS * (WALK_LENGTH + 1),
+                f"{name}: positions missing")
     require(max_abs_err(out["routed"], out["uniform"][:ROUTED_WALKERS]) == 0,
             "routed walks differ from the single-device kernel's")
-    emit("main_path_checks", ok=True, routed=info, walk_digests={
-        name: walk_digest(out[name])
-        for name in ("uniform", "mixture", "rejection")})
-    return targets, pgraph, out, launches, info, t_x
+    require(max_abs_err(out["routed_n2v"],
+                        out["rejection"][:ROUTED_WALKERS]) == 0,
+            "routed node2vec walks differ from K2's rejection walks")
+    emit("main_path_checks", ok=True, routed=info, routed_node2vec=n2v_info,
+         walk_digests={name: walk_digest(out[name])
+                       for name in ("uniform", "mixture", "rejection",
+                                    "routed_n2v")})
+    return (targets, pgraph, (hashes, blooms), out, launches,
+            {"uniform": (info, t_x), "node2vec": (n2v_info, t_n)})
 
 
-def phase_kernels(graph, targets, pgraph, out, counts, routed_info,
-                  routed_ms, walk_ms, walk_entry_ms):
+def phase_kernels(graph, targets, out, counts, walk_ms, walk_entry_ms):
     """Every kernel at the main path's shape: time (the walks' device time
     from ``phase_walk_times``, with their entry points' time beside it),
     plain version on the same inputs (time and deviation), bound, and
@@ -1191,7 +1223,6 @@ def phase_kernels(graph, targets, pgraph, out, counts, routed_info,
         exchange_times["max_abs_err"], exchange_bound(*exchange_times["shape"]),
         device_ms["library"], counts["all_to_all_chunks"])
     rows[-1]["host_bound_ms"] = exchange_times["host_bound_ms"]["kernel"]
-    cap = exchange_times["shape"][1]
 
     steps = NUM_WALKERS * WALK_LENGTH
     emit("rates", walkers=NUM_WALKERS, walk_length=WALK_LENGTH,
@@ -1200,50 +1231,321 @@ def phase_kernels(graph, targets, pgraph, out, counts, routed_info,
          node_steps_per_s={r["name"]: steps / (r["ms"] / 1e3)
                            for r in rows[:3]})
 
-    # The routed leg again, warm (the main-path run above was the first use
-    # of most PyTorch operators of the phase body), on the host clock; then a
-    # leg of PROFILED_WALK_LENGTH twice, once plain and once under the
-    # profiler, for the device's share of a leg (the profiler takes minutes
-    # to digest the launches of a full-depth leg).
-    def leg(walk_length=WALK_LENGTH):
-        return tt.walk_partitioned_routed(
-            pgraph, targets[:ROUTED_WALKERS], walk_length, seed=WALK_SEED)
+    return rows
 
-    (_, warm_info), warm_ms = wall_ms(leg)
-    require(warm_info == routed_info, "routed leg is not reproducible")
-    (_, short_info), short_ms = wall_ms(lambda: leg(PROFILED_WALK_LENGTH))
-    (_, prof_info), prof_ms, kernels = profile_device(
-        lambda: leg(PROFILED_WALK_LENGTH))
-    require(prof_info == short_info, "routed leg is not reproducible")
-    busy_ms = sum(ms for _, ms in kernels.values())
-    k4 = [v for k, v in kernels.items() if "all_to_all_chunks_kernel" in k]
-    profiled = None
-    if busy_ms > 0:  # else the profiler saw no device activity here
-        require(len(k4) == 1 and k4[0][0] == short_info["phases"],
-                "the profile does not show one exchange kernel per phase")
-        launches = sum(n for n, _ in kernels.values())
-        profiled = {
-            "walk_length": PROFILED_WALK_LENGTH,
-            "phases": short_info["phases"], "leg_ms": prof_ms,
-            "unprofiled_leg_ms": short_ms, "device_launches": launches,
-            "device_launches_per_phase": launches / short_info["phases"],
-            "device_busy_ms": busy_ms, "device_busy_share": busy_ms / prof_ms,
-            "device_idle_share": 1 - busy_ms / prof_ms,
-            "device_busy_over_unprofiled_leg": busy_ms / short_ms,
-            "k4_device_ms_per_launch": k4[0][1] / k4[0][0],
-            "k4_share_of_leg": k4[0][1] / prof_ms,
-            "k4_share_of_device_busy": k4[0][1] / busy_ms}
+
+# --- the routed legs (K11, K12) -------------------------------------------------
+
+def routed_walk(pgraph, targets, walk_length, schedule, body, tables=None,
+                config=None):
+    """A ``RoutedWalk`` of the uniform engine (``tables`` None) or of the
+    node2vec one at P, Q on ``tables`` = (hashes or None, blooms or None),
+    with the phase ``body`` given and the configuration the public entry
+    points resolve from ``config``."""
+    b, d = int(targets.shape[0]), pgraph.num_shards
+    cfg = tt.RoutedConfig.resolve(config, b, d, walk_length)
+    routing = None
+    if tables is None:
+        key = prng.derive_key(WALK_SEED, prng.STREAM_CSR_UNIFORM)
+    else:
+        if config is None or config.max_phases <= 0:
+            cfg = partition_v2._biased_phase_budget(cfg, walk_length,
+                                                    SPEC_ROUNDS)
+        key = prng.derive_key(WALK_SEED, prng.STREAM_CSR_BIASED)
+        routing = partition_v2.node2vec_routing(pgraph, P, Q, SPEC_ROUNDS,
+                                                *tables)
+    return partition_v2.RoutedWalk(pgraph, targets, walk_length, key, cfg,
+                                   schedule, body, node2vec=routing)
+
+
+def state_err(kernel_run, plain_run) -> int:
+    """Largest difference between two runs' whole state: every pipeline's
+    outboxes, carry pools (live prefix) and live counts, the walk rows and
+    the counters."""
+    a, b = kernel_run.state(), plain_run.state()
+    require(a.keys() == b.keys(), "the two runs hold different state")
+    worst = 0
+    for name in a:
+        x = a[name] if isinstance(a[name], list) else [a[name]]
+        y = b[name] if isinstance(b[name], list) else [b[name]]
+        require(len(x) == len(y), f"{name}: different shard counts")
+        for u, v in zip(x, y):
+            if u.shape != v.shape:  # carry pools of different live lengths
+                return max(worst, 2 ** 31)
+            worst = max(worst, max_abs_err(u, v))
+    return worst
+
+
+def routed_lockstep(make, phases=None) -> dict:
+    """A kernel run and a plain run (``make(body)``) side by side on the
+    card: the whole state compared after phase 0 and after each of the
+    first ``phases`` phases (every phase when None).  Without a limit both
+    run to the end, and their results are compared too (or the errors they
+    raised)."""
+    runs = [make("kernel"), make("plain")]
+    for r in runs:
+        r.start()
+    worst, compared = state_err(*runs), 0
+    while runs[0].inflight() > 0 and runs[0].phases < runs[0].max_phases:
+        require(runs[0].inflight() == runs[1].inflight(),
+                "in-flight counts differ")
+        if phases is not None and compared >= phases:
+            return {"phases_compared": compared, "max_abs_err": worst}
+        for r in runs:
+            r.phase()
+        worst = max(worst, state_err(*runs))
+        compared += 1
+    results = []
+    for r in runs:
+        try:
+            results.append(r.result())
+        except RuntimeError as err:
+            results.append(str(err))
+    if isinstance(results[0], str) or isinstance(results[1], str):
+        same = results[0] == results[1]
+    else:
+        same = (max_abs_err(results[0][0], results[1][0]) == 0
+                and results[0][1] == results[1][1])
+    return {"phases_compared": compared,
+            "max_abs_err": worst if same else max(worst, 1),
+            "result": results[0] if isinstance(results[0], str)
+            else results[0][1]}
+
+
+def small_routed_graph(device):
+    """A power-law graph of 3 000 nodes whose last quarter has no
+    out-edge."""
+    rng = np.random.default_rng(8)
+    u = rng.random(18_000)
+    dst, src = (u * u * 3000).astype(np.int64), rng.integers(0, 3000, 18_000)
+    keep = src < 2250
+    return tt.CSRGraph.from_edges(src[keep], dst[keep], num_nodes=3000,
+                                  device=device)
+
+
+def routed_small_checks(device) -> dict:
+    """K11 and K12 against the plain bodies phase by phase on a small graph
+    with dead ends: D = 1, 2 and 8, L = 1 and 12, both schedules, a pair
+    capacity that fills the carry pool and one whose pool overflows (both
+    runs must raise alike; no other case may raise), K12 with cuckoo probes
+    and the binary search,
+    Bloom filters and saturated ones.  Returns the largest difference of
+    each kernel."""
+    graph = small_routed_graph(device)
+    walkers = 1024
+    targets = common.as_int32(
+        np.random.default_rng(9).integers(0, graph.num_nodes, walkers), device)
+    pgraphs = {d: tt.PartitionedCSR.from_csr(graph, d) for d in (1, 2, 8)}
+    tables = {d: (tt.build_partition_hashes(pg, graph),
+                  tt.build_partition_blooms(pg, graph))
+              for d, pg in pgraphs.items()}
+    carry = tt.RoutedConfig(pair_capacity=16, carry_capacity=walkers)
+    overflow = tt.RoutedConfig(pair_capacity=2, carry_capacity=5)
+    # (shards, schedules, walk length, config, node2vec tables by name)
+    cases = [
+        (8, partition_v2.SCHEDULES, 12, None,
+         ("cuckoo", "search", "saturated")),
+        (8, ("serial",), 1, None, ("cuckoo",)),
+        (8, partition_v2.SCHEDULES, 12, carry, ("cuckoo",)),
+        (8, ("serial",), 12, overflow, ("cuckoo",)),
+        (1, partition_v2.SCHEDULES, 12, None, ("search",)),
+        (2, ("serial",), 12, None, ("cuckoo",)),
+    ]
+    errs = dict.fromkeys(ROUTED_KERNELS, 0)
+    for d, schedules, length, cfg, n2v in cases:
+        hashes, blooms = tables[d]
+        kinds = [("routed_uniform_phase", None)] + [
+            ("routed_node2vec_phase", {"cuckoo": (hashes, blooms),
+                                       "search": (None, blooms),
+                                       "saturated": (hashes, None)}[k])
+            for k in n2v]
+        for schedule in schedules:
+            for name, tab in kinds:
+                got = routed_lockstep(lambda body: routed_walk(
+                    pgraphs[d], targets, length, schedule, body, tab, cfg))
+                raised = isinstance(got.get("result"), str)
+                if cfg is overflow:
+                    require(raised and "incomplete" in got["result"],
+                            f"{name}: an overflowing pool did not raise")
+                else:
+                    require(not raised, f"{name} (D={d}, {schedule}, "
+                            f"L={length}, {n2v}) raised: {got.get('result')}")
+                errs[name] = max(errs[name], got["max_abs_err"])
+    return errs
+
+
+def phase_routed(graph, targets, pgraph, tables, out, launches, main_runs):
+    """The routed legs at the bench shape (D=8, ROUTED_WALKERS walkers,
+    L=WALK_LENGTH): each kernel held against the plain body on the card,
+    state by state for the first ROUTED_CHECKED_PHASES phases and then on
+    its whole result (walks, phases, exchanged records, logged positions);
+    the uniform leg under both schedules, the node2vec leg under both and
+    with hashes=None, each warm on the host clock with its walks held
+    against the single-device kernels'; K11's and K12's device time a call
+    by CUDA events around every call of one warm leg; the card's launches a
+    phase and idle share by torch.profiler over a whole leg (the plain
+    body's over a leg of PROFILED_WALK_LENGTH, where the profiler's digest of
+    its thousands of launches a phase takes minutes at full depth).
+    Returns K11's and K12's rows."""
+    hashes, blooms = tables
+    t = targets[:ROUTED_WALKERS]
+    legs = {
+        "uniform_serial": (None, "serial"),
+        "uniform_overlapped": (None, "overlapped"),
+        "node2vec_serial": ((hashes, blooms), "serial"),
+        "node2vec_overlapped": ((hashes, blooms), "overlapped"),
+        "node2vec_serial_search": ((None, blooms), "serial"),
+    }
+
+    def entry(tab, schedule, walk_length=WALK_LENGTH):
+        if tab is None:
+            return tt.walk_partitioned_routed(pgraph, t, walk_length,
+                                              seed=WALK_SEED,
+                                              schedule=schedule)
+        return routed_n2v_call(pgraph, t, tab[0], tab[1], schedule,
+                               walk_length)
+
+    # Kernel against plain body, state by state, then whole legs.
+    checks, plain = {}, {}
+    for name, (tab, schedule) in legs.items():
+        checks[name] = routed_lockstep(
+            lambda body: routed_walk(pgraph, t, WALK_LENGTH, schedule, body,
+                                     tab), ROUTED_CHECKED_PHASES)
+        (walks, info), ms = wall_ms(lambda: routed_walk(
+            pgraph, t, WALK_LENGTH, schedule, "plain", tab).run())
+        plain[name] = {"walks": walks, "info": info, "ms": ms}
+    emit("routed_checks", lockstep=checks, plain_leg_ms={
+        k: v["ms"] for k, v in plain.items()}, plain_info={
+        k: v["info"] for k, v in plain.items()})
+    require(all(c["max_abs_err"] == 0 for c in checks.values()),
+            f"a phase kernel's state differs from the plain body's: {checks}")
+
+    # Warm legs through the entry points, each against the single-device
+    # walks and, where the plain body ran it, the plain leg.
+    want = {"uniform": out["uniform"][:ROUTED_WALKERS],
+            "node2vec": out["rejection"][:ROUTED_WALKERS]}
+    timed = {}
+    for name, (tab, schedule) in legs.items():
+        entry(tab, schedule)  # warm
+        runs = [wall_ms(lambda: entry(tab, schedule)) for _ in range(3)]
+        (walks, info), _ = runs[0]
+        require(max_abs_err(walks, want[name.split("_")[0]]) == 0,
+                f"{name}: walks differ from the single-device kernel's")
+        if name in plain:
+            require(max_abs_err(walks, plain[name]["walks"]) == 0
+                    and info == plain[name]["info"],
+                    f"{name}: the kernel leg differs from the plain body's")
+        ms = [m for _, m in runs]
+        timed[name] = {"info": info, "warm_leg_ms": ms,
+                       "node_steps_per_s": ROUTED_WALKERS * WALK_LENGTH
+                       / (statistics.median(ms) / 1e3)}
+    for name, kind in (("uniform_serial", "uniform"),
+                       ("node2vec_serial", "node2vec")):
+        first = main_runs[kind]
+        require(timed[name]["info"] == first[0],
+                f"{name}: the leg is not reproducible")
+        timed[name]["first_leg_ms"] = first[1]
+
+    # Device time of each phase call over one warm leg, by CUDA events.
+    per_call = {}
+    for name, kernel in (("uniform_serial", "routed_uniform_phase"),
+                         ("node2vec_serial", "routed_node2vec_phase")):
+        tab, schedule = legs[name]
+        wrapped = getattr(bindings, kernel)
+        events = []
+
+        def timed_call(launch, wrapped=wrapped, events=events):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            wrapped(launch)
+            ev[1].record()
+            events.append(ev)
+
+        setattr(bindings, kernel, timed_call)
+        try:
+            _, info = entry(tab, schedule)
+        finally:
+            setattr(bindings, kernel, wrapped)
+        torch.cuda.synchronize()
+        total = sum(a.elapsed_time(b) for a, b in events)
+        per_call[kernel] = {"calls": len(events), "device_ms_total": total,
+                            "device_ms_per_call": total / len(events)}
+        require(len(events) == info["phases"], "one call a phase expected")
+
+    # The card's share of a leg, by the profiler.
+    profiled = {}
+    for name, fn, walk_length in (
+            ("uniform_serial_kernel", lambda L: entry(None, "serial", L),
+             WALK_LENGTH),
+            ("uniform_overlapped_kernel",
+             lambda L: entry(None, "overlapped", L), WALK_LENGTH),
+            ("node2vec_serial_kernel",
+             lambda L: entry((hashes, blooms), "serial", L), WALK_LENGTH),
+            ("node2vec_overlapped_kernel",
+             lambda L: entry((hashes, blooms), "overlapped", L), WALK_LENGTH),
+            ("uniform_serial_kernel_short",
+             lambda L: entry(None, "serial", L), PROFILED_WALK_LENGTH),
+            ("node2vec_serial_kernel_short",
+             lambda L: entry((hashes, blooms), "serial", L),
+             PROFILED_WALK_LENGTH),
+            ("uniform_serial_plain_short", lambda L: routed_walk(
+                pgraph, t, L, "serial", "plain").run(),
+             PROFILED_WALK_LENGTH),
+            ("node2vec_serial_plain_short", lambda L: routed_walk(
+                pgraph, t, L, "serial", "plain", (hashes, blooms)).run(),
+             PROFILED_WALK_LENGTH)):
+        fn(walk_length)  # warm
+        (_, info), ms, kernels = profile_device(lambda: fn(walk_length))
+        busy = sum(v for _, v in kernels.values())
+        n = sum(c for c, _ in kernels.values())
+        profiled[name] = None if busy <= 0 else {
+            "walk_length": walk_length, "phases": info["phases"],
+            "leg_ms": ms, "device_launches": n,
+            "device_launches_per_phase": n / info["phases"],
+            "device_busy_ms": busy, "device_idle_share": 1 - busy / ms,
+            "by_kernel": {k: v for k, v in sorted(
+                kernels.items(), key=lambda kv: -kv[1][1])[:8]}}
+    # Device memory an engine holds besides the graph and its tables.
+    engine_bytes = {}
+    for name, (tab, schedule) in legs.items():
+        run = routed_walk(pgraph, t, WALK_LENGTH, schedule, "kernel", tab)
+        held = [run.walks, run.stats, run.live, run._stage, run._code] + [
+            x for pipe in run.pipes
+            for x in (pipe.outbox, pipe.inbox, pipe.carry)]
+        engine_bytes[name] = sum(x.numel() * x.element_size() for x in held)
+        del run
     emit("routed", walkers=ROUTED_WALKERS, shards=NUM_SHARDS,
-         pair_capacity=cap, **routed_info, first_leg_ms=routed_ms,
-         warm_leg_ms=warm_ms,
-         node_steps_per_s=ROUTED_WALKERS * WALK_LENGTH / (warm_ms / 1e3),
-         k4_device_ms_per_launch_alone=device_ms["kernel"],
-         k4_share_of_leg_from_alone=(device_ms["kernel"] * routed_info["phases"]
-                                     / warm_ms),
-         profiled_leg=profiled,
-         profiled_leg_method="torch.profiler, device activity only, over one "
-                             "whole warm leg of the shorter walk; null if it "
-                             "saw no device time")
+         spec_rounds=SPEC_ROUNDS, p=P, q=Q, legs=timed, per_call=per_call,
+         engine_bytes=engine_bytes,
+         profiled=profiled, timing="warm legs on the host clock, three "
+         "after one warm-up; per_call: CUDA events around every phase call "
+         "of one warm leg; profiled: torch.profiler, device activity only, "
+         "one warm leg (null if it saw no device time)")
+
+    rows = []
+    for kernel, name, width in (("routed_uniform_phase", "uniform_serial", 3),
+                                ("routed_node2vec_phase", "node2vec_serial",
+                                 14)):
+        info = timed[name]["info"]
+        phases = info["phases"]
+        # Bytes a leg needs: every record written once to an outbox and
+        # read once on arrival, every position logged, a meta row and a col
+        # word a step (node2vec: and a 16-byte filter row a step).
+        moved = (2 * info["exchanged_records"] * width * 4
+                 + info["log_entries"] * 4
+                 + ROUTED_WALKERS * WALK_LENGTH * (12 + (16 if width == 14
+                                                         else 0)))
+        source, replaces = KERNEL_FACTS[kernel]
+        rows.append({
+            "name": kernel, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[kernel],
+            "max_abs_err": checks[name]["max_abs_err"],
+            "ms": per_call[kernel]["device_ms_per_call"],
+            "plain_ms": plain[name]["ms"] / plain[name]["info"]["phases"],
+            "bound_ms": moved / phases / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None,
+            "leg_ms": statistics.median(timed[name]["warm_leg_ms"]),
+            "plain_leg_ms": plain[name]["ms"], "phases": phases})
     return rows
 
 
@@ -2089,24 +2391,27 @@ def main(argv=None) -> int:
     phase_small_checks()
     phase_family_small_checks()
     graph = phase_graph()
-    (targets, pgraph, out, launches, routed_info,
-     routed_ms) = phase_main_path(graph)
+    (targets, pgraph, tables, out, launches,
+     main_runs) = phase_main_path(graph)
     walk_ms, walk_entry_ms = phase_walk_times(graph)
     train_launches = phase_train(graph)
     by_run = {name: {"sampling": launches[name], "train": train_launches[name]}
               for name in launches}
     for name in launches:  # both runs of the main path, added up
         launches[name] += train_launches[name]
-    rows = phase_kernels(graph, targets, pgraph, out, launches, routed_info,
-                         routed_ms, walk_ms, walk_entry_ms)
+    rows = phase_kernels(graph, targets, out, launches, walk_ms,
+                         walk_entry_ms)
+    rows += phase_routed(graph, targets, pgraph, tables, out, launches,
+                         main_runs)
     for r in rows:
         require(r["max_abs_err"] == 0, f"{r['name']} != its plain version at "
                 "the main path's shape")
-    del pgraph, out
+    del pgraph, tables, out
     rows += phase_sgns_kernels(graph, launches)
     require([r["name"] for r in rows] == [
         "uniform_walk_csr", "node2vec_walk_csr_mixture",
         "node2vec_walk_csr_rejection", "to_windows", "all_to_all_chunks",
+        "routed_uniform_phase", "routed_node2vec_phase",
         "walk_sgns_loss_fwd", "walk_sgns_loss_bwd"], "a kernel row is missing")
     require(all(r["launches"] > 0 for r in rows),
             "a kernel was never launched on the main path")

@@ -1,6 +1,7 @@
 """The port's walker exchange and owner-routed uniform engine against the JAX
 package with ``exchange="pallas"`` run in interpret mode on the virtual CPU
-mesh, as tests/test_pallas_exchange.py runs it (tolerance 0: integers)."""
+mesh, as tests/test_pallas_exchange.py runs it, and the overlapped schedule
+against JAX's with ``exchange="xla"`` (tolerance 0: integers)."""
 
 import numpy as np
 import jax
@@ -139,6 +140,35 @@ def test_routed_engine_equals_jax_with_pallas_exchange(graphs, mesh,
     tg = graphs[2]
     eq(tw, uniform_walk_csr(tg.row_ptr, tg.col_idx, targets, L, 3,
                             device="cpu").numpy())
+
+
+@pytest.mark.parametrize("cfg_kwargs", [
+    None,
+    dict(pair_capacity=4, max_phases=4000, carry_capacity=128),
+], ids=["default", "starved"])
+def test_overlapped_schedule_equals_jax(graphs, mesh, cfg_kwargs):
+    """The two-pipeline schedule: the same walks as the serial one and as
+    the JAX engine's overlapped schedule (exchange="xla"), with its phase
+    count, in the default configuration and with walkers queued in the
+    carry pools."""
+    jg, jpg, tg, tpg = graphs
+    targets = np.arange(B, dtype=np.int32) % N
+    jw, jinfo = j_walk_routed(
+        jpg, jnp.asarray(targets), mesh, L, seed=3,
+        config=JRoutedConfig(**cfg_kwargs) if cfg_kwargs else None,
+        exchange="xla", schedule="overlapped")
+    cfg = tt.RoutedConfig(**cfg_kwargs) if cfg_kwargs else None
+    tw, tinfo = tt.walk_partitioned_routed(tpg, targets, L, seed=3,
+                                           config=cfg, schedule="overlapped",
+                                           device="cpu")
+    eq(tw, jw)
+    assert tinfo == jinfo and tinfo["schedule"] == "overlapped"
+    sw, sinfo = tt.walk_partitioned_routed(tpg, targets, L, seed=3,
+                                           config=cfg, device="cpu")
+    eq(tw, sw.numpy())
+    assert sinfo["schedule"] == "serial"
+    assert tinfo["phases"] > sinfo["phases"]
+    assert tinfo["exchanged_records"] == sinfo["exchanged_records"]
 
 
 def test_routed_config_defaults_equal_jax():

@@ -6,8 +6,9 @@ generator, uniform and node2vec (rejection and mixture) CSR walks behind
 ``walk``, the indexed edge-list and KG-triples graphs with their walks
 (``walk_edge_list``, ``walk_triples``) and the grid-world KG generator,
 skip-gram and CBOW node and triple windows, the node-range partition, the
-walker-record all-to-all and the owner-routed uniform walk engine (serial
-schedule), and the fused walk -> SGNS train step (``SkipGramModel`` with dense
+walker-record all-to-all and the owner-routed uniform and node2vec walk
+engines (serial and overlapped schedules, with per-shard cuckoo edge sets and
+Bloom filters), and the fused walk -> SGNS train step (``SkipGramModel`` with dense
 Adam, ``Node2Vec``).  Sub-packages mirror the JAX package's (``utils``,
 ``graph``, ``ops``, ``models``, ``parallel``); ``kernels`` holds the CUDA sources, their build and
 their bindings; ``convert`` carries graphs over from the JAX package.
@@ -51,9 +52,14 @@ from torch_random_walk_tpu_torch.ops.windows import (
     to_windows_triples,
     to_windows_triples_cbow,
 )
-from torch_random_walk_tpu_torch.parallel.partition import PartitionedCSR
+from torch_random_walk_tpu_torch.parallel.partition import (
+    PartitionedCSR,
+    build_partition_hashes,
+)
 from torch_random_walk_tpu_torch.parallel.partition_v2 import (
     RoutedConfig,
+    build_partition_blooms,
+    walk_partitioned_node2vec_routed,
     walk_partitioned_routed,
 )
 
@@ -69,6 +75,8 @@ __all__ = [
     "SkipGramModel",
     "TriplesGraph",
     "build_node_edge_index",
+    "build_partition_blooms",
+    "build_partition_hashes",
     "build_relation_tail_index",
     "synthetic_grid_kg",
     "synthetic_power_law",
@@ -79,6 +87,7 @@ __all__ = [
     "to_windows_triples_cbow",
     "walk",
     "walk_edge_list",
+    "walk_partitioned_node2vec_routed",
     "walk_partitioned_routed",
     "walk_triples",
 ]

@@ -1,7 +1,8 @@
 """State carried across from the JAX package.
 
 The JAX package's ``CSRGraph``, ``EdgeListGraph``, ``TriplesGraph`` and
-``PartitionedCSR`` fields, handed over as
+``PartitionedCSR`` fields and the routed node2vec engine's per-shard cuckoo
+tables and Bloom filters, handed over as
 numpy arrays (``numpy.asarray(graph.row_ptr)`` and so on; this module imports
 neither JAX nor the JAX package), become the port's objects with the same
 ``max_degree``, ``search_iters`` and ``deg_bits``, so that walks over a
@@ -76,6 +77,34 @@ def partitioned_from_numpy(node_meta, col, num_nodes: int, num_shards: int,
         col=tuple(shard(col[d]) for d in range(num_shards)),
         num_nodes=int(num_nodes), num_shards=int(num_shards),
         shard_nodes=int(shard_nodes))
+
+
+def _uint32_bits(x, device) -> torch.Tensor:
+    """uint32 array -> int32 tensor of the same bits (a copy)."""
+    return torch.tensor(np.asarray(x, np.uint32).view(np.int32), device=device)
+
+
+def partition_hashes_from_numpy(tables, salts, log_size: int, device=None):
+    """The (tables (D, S_h, 2) uint32, salts (D,) uint32, log_size) of the
+    JAX package's ``build_partition_hashes`` -> the port's
+    ``build_partition_hashes`` triple, so that a port walk probes exactly
+    the JAX tables."""
+    dev = resolve_device(device)
+    tables, salts = np.asarray(tables), np.asarray(salts)
+    if tables.ndim != 3 or tables.shape[2] != 2 or tables.shape[1] != (
+            1 << int(log_size)) or salts.shape != tables.shape[:1]:
+        raise ValueError(f"tables must be (D, 2^{log_size}, 2) and salts "
+                         f"(D,), got {tables.shape} and {salts.shape}")
+    return _uint32_bits(tables, dev), _uint32_bits(salts, dev), int(log_size)
+
+
+def partition_blooms_from_numpy(blooms, device=None) -> torch.Tensor:
+    """The (D, S, 4) uint32 filters of the JAX package's
+    ``build_partition_blooms`` -> the port's (D, S, 4) int32 bit patterns."""
+    blooms = np.asarray(blooms)
+    if blooms.ndim != 3 or blooms.shape[2] != 4:
+        raise ValueError(f"blooms must be (D, S, 4), got {blooms.shape}")
+    return _uint32_bits(blooms, resolve_device(device))
 
 
 def _table(x, like: torch.Tensor) -> torch.Tensor:

@@ -1,3 +1,7 @@
+from torch_random_walk_tpu_torch.graph.bloom import (  # noqa: F401
+    bloom_maybe,
+    build_node_blooms,
+)
 from torch_random_walk_tpu_torch.graph.csr import CSRGraph  # noqa: F401
 from torch_random_walk_tpu_torch.graph.datasets import (  # noqa: F401
     synthetic_grid_kg,
@@ -7,6 +11,9 @@ from torch_random_walk_tpu_torch.graph.edge_list import (  # noqa: F401
     EdgeListGraph,
     build_node_edge_index,
     to_edge_list_indexed,
+)
+from torch_random_walk_tpu_torch.graph.hashset import (  # noqa: F401
+    EdgeHashSet,
 )
 from torch_random_walk_tpu_torch.graph.triples import (  # noqa: F401
     TriplesGraph,

@@ -22,7 +22,8 @@ KERNEL_NAMES = ("uniform_walk_csr", "node2vec_walk_csr_mixture",
                 "all_to_all_chunks", "walk_sgns_loss_fwd",
                 "walk_sgns_loss_bwd", "uniform_walk_edge_list",
                 "biased_walk_edge_list", "uniform_walk_triples",
-                "to_windows_triples", "to_windows_triples_cbow")
+                "to_windows_triples", "to_windows_triples_cbow",
+                "routed_uniform_phase", "routed_node2vec_phase")
 launch_counts = dict.fromkeys(KERNEL_NAMES, 0)
 
 _lib = None
@@ -82,7 +83,12 @@ def library(verbose: bool = False) -> ctypes.CDLL:
         lib.trw_to_windows_triples_cbow.argtypes = [
             _PTR, _I64, _I32, _I32, _I32, _PTR, _U32, _U32, _U32, _U32, _U32,
             _U32, _U32, _U32, _I32, _PTR, _PTR, _PTR, _PTR]
-        for fn in (lib.trw_uniform_walk_edge_list,
+        lib.trw_routed_uniform_phase.argtypes = [_PTR, _PTR]
+        lib.trw_routed_node2vec_phase.argtypes = [_PTR, _PTR]
+        lib.trw_routed_start.argtypes = [_PTR, _I32, _PTR]
+        for fn in (lib.trw_routed_uniform_phase, lib.trw_routed_node2vec_phase,
+                   lib.trw_routed_start,
+                   lib.trw_uniform_walk_edge_list,
                    lib.trw_biased_walk_edge_list, lib.trw_uniform_walk_triples,
                    lib.trw_to_windows_triples_sg,
                    lib.trw_to_windows_triples_cbow,
@@ -686,3 +692,167 @@ def walk_sgns_plan(in_emb, walks, neg_ids, window_size: int) -> dict:
     names = ("fwd", "bwd_rows", "bwd_negatives")
     return {n: dict(zip(SGNS_PLAN_FIELDS, r)) for n, r in zip(names, rows)
             if any(r)}
+
+
+# K11/K12 take up to 256 shards (routed.cuh kRoutedMaxShards); a phase is two
+# launches, the body kernel and the compaction kernel, counted as one call;
+# phase 0 is the compaction kernel alone, counted as one call of the engine's
+# kernel.
+ROUTED_MAX_SHARDS = 256
+_ROUTED_SHARD_FIELDS = ("meta", "col", "walks", "inbox", "outbox", "carry",
+                        "stage", "code", "hash_table", "bloom")
+
+
+class RoutedShard(NamedTuple):
+    """One shard's buffers for K11/K12 (``routed.cuh`` ``RoutedShard``):
+    its (S, 2) meta rows and (E_max,) col, its (blk+1, L+2) walk rows, this
+    pipeline's (D, cap, R) inbox and outbox and (ccap, R+1) carry pool, the
+    (max(D*cap, blk), R) stage and (max(D*cap, blk),) code scratch, and for
+    K12 its cuckoo
+    table (or None) and (S, 4) Bloom filters, all int32 on one card."""
+
+    meta: torch.Tensor
+    col: torch.Tensor
+    walks: torch.Tensor
+    inbox: torch.Tensor
+    outbox: torch.Tensor
+    carry: torch.Tensor
+    stage: torch.Tensor
+    code: torch.Tensor
+    hash_table: torch.Tensor | None
+    bloom: torch.Tensor | None
+    salt: int
+
+
+class _RoutedLaunch(ctypes.Structure):
+    """``TrwRoutedLaunch`` of ``kernels/routed.cuh``."""
+
+    _fields_ = [("shards", ctypes.c_void_p), ("stats", ctypes.c_void_p),
+                ("live", ctypes.c_void_p), ("num_shards", _I32),
+                ("shard_nodes", _I32), ("blk", _I32), ("walk_length", _I32),
+                ("cap", _I32), ("ccap", _I32), ("e_max", _I64),
+                ("key0", _U32), ("key1", _U32), ("spec_rounds", _I32),
+                ("hash_log", _I32), ("use_search", _I32), ("prob0", _F32),
+                ("prob1", _F32), ("prob2", _F32), ("lo_acc", _F32),
+                ("hi_acc", _F32)]
+
+
+class RoutedLaunch(NamedTuple):
+    """A routed pipeline's phase launch, packed once: the scalars
+    (``launch``, at ``address``), the device table of the shards' pointers
+    and the buffers it points to (held, so that the pointers stay valid),
+    the card, and whether it is K12's (``node2vec``)."""
+
+    launch: _RoutedLaunch
+    address: int
+    table: torch.Tensor
+    buffers: tuple
+    device_index: int
+    node2vec: bool
+
+
+def routed_phase_launch(shards, stats, live, *, shard_nodes: int, blk: int,
+                        walk_length: int, cap: int, ccap: int,
+                        key: tuple[int, int], node2vec=None) -> RoutedLaunch:
+    """Check one pipeline's buffers for K11 (``node2vec`` None) or K12
+    (``node2vec`` a ``parallel.partition_v2.Node2VecRouting``) and pack
+    their launch.  ``stats`` is the walk's (D, 3) int64 (logged, sent,
+    dropped), ``live`` the pipeline's (D, 2) int64 (boxed, carried)."""
+    d = len(shards)
+    if not 0 < d <= ROUTED_MAX_SHARDS:
+        raise ValueError(f"the phase kernels take 1 to {ROUTED_MAX_SHARDS} "
+                         f"shards, got {d}")
+    width = 3 if node2vec is None else 14
+    dev = shards[0].col.device
+    _check("stats", stats, torch.int64, 2, dev)
+    _check("live", live, torch.int64, 2, dev)
+    if tuple(stats.shape) != (d, 3) or tuple(live.shape) != (d, 2):
+        raise ValueError(f"stats must be ({d}, 3) and live ({d}, 2), got "
+                         f"{tuple(stats.shape)} and {tuple(live.shape)}")
+    if not (0 < shard_nodes < 2 ** 31 and 0 < blk < 2 ** 31 and 0 < cap
+            and 0 < ccap < 2 ** 31 and 0 <= walk_length
+            and d * cap < 2 ** 31):
+        raise ValueError("shard sizes or capacities out of range")
+    if node2vec is not None and walk_length >= 2 ** 24:
+        raise ValueError(f"walk_length must be below 2^24, got {walk_length}")
+    slots = max(d * cap, blk)
+    e_max = shards[0].col.shape[0]
+    shapes = {"meta": (shard_nodes, 2), "col": (e_max,),
+              "walks": (blk + 1, walk_length + 2), "inbox": (d, cap, width),
+              "outbox": (d, cap, width), "carry": (ccap, width + 1),
+              "stage": (slots, width), "code": (slots,),
+              "bloom": (shard_nodes, 4)}
+    rows, buffers = [], []
+    for sh in shards:
+        if node2vec is not None and sh.bloom is None:
+            raise ValueError("K12 needs each shard's Bloom filters")
+        ptrs = []
+        for name in _ROUTED_SHARD_FIELDS:
+            t = getattr(sh, name)
+            if t is None:
+                ptrs.append(0)
+                continue
+            if name == "hash_table":
+                _check(name, t, torch.int32, 2, dev)
+                if t.shape[0] != 1 << node2vec.log_size or t.shape[1] != 2:
+                    raise ValueError(f"hash table of shape {tuple(t.shape)} "
+                                     f"for log_size {node2vec.log_size}")
+            else:
+                _check(name, t, torch.int32, len(shapes[name]), dev)
+                if tuple(t.shape) != shapes[name]:
+                    raise ValueError(f"{name} must be {shapes[name]}, got "
+                                     f"{tuple(t.shape)}")
+            ptrs.append(t.data_ptr())
+            buffers.append(t)
+        rows.append(ptrs + [int(sh.salt) & 0xFFFFFFFF])
+    if e_max < 1:
+        raise ValueError("every shard's col must hold at least one word")
+    table = torch.tensor(rows, dtype=torch.int64).to(dev)
+    launch = _RoutedLaunch(table.data_ptr(), stats.data_ptr(), live.data_ptr(),
+                           d, shard_nodes, blk, walk_length, cap, ccap, e_max,
+                           key[0] & 0xFFFFFFFF, key[1] & 0xFFFFFFFF)
+    if node2vec is not None:
+        search = node2vec.tables is None
+        if not search and not 0 < node2vec.log_size < 32:
+            raise ValueError(f"log_size {node2vec.log_size} out of range")
+        if not search and any(sh.hash_table is None for sh in shards):
+            raise ValueError("every shard needs its cuckoo table")
+        launch.spec_rounds = node2vec.spec_rounds
+        launch.hash_log = node2vec.log_size
+        launch.use_search = int(search)
+        (launch.prob0, launch.prob1, launch.prob2, launch.lo_acc,
+         launch.hi_acc) = node2vec.thresholds
+    return RoutedLaunch(launch, ctypes.addressof(launch), table,
+                        (*buffers, stats, live), _device_index(dev),
+                        node2vec is not None)
+
+
+def routed_uniform_phase(launch: RoutedLaunch) -> None:
+    """K11.  One phase of the uniform routed engine for every shard: the
+    pipeline's inboxes in; its outboxes, carry pools and live counts out;
+    the walk rows and stats updated."""
+    if launch.node2vec:
+        raise ValueError("this launch was packed for K12")
+    _launch("routed_uniform_phase", library().trw_routed_uniform_phase,
+            launch.device_index, launch.address)
+
+
+def routed_node2vec_phase(launch: RoutedLaunch) -> None:
+    """K12.  One phase of the node2vec routed engine for every shard, as
+    K11's."""
+    if not launch.node2vec:
+        raise ValueError("this launch was packed for K11")
+    _launch("routed_node2vec_phase", library().trw_routed_node2vec_phase,
+            launch.device_index, launch.address)
+
+
+def routed_start(launch: RoutedLaunch) -> None:
+    """Phase 0 of K11 or K12, counted as one call of it: compact the first
+    ``blk`` stage slots of every shard (each local walker's first record,
+    code its destination or -1) into the pipeline's outboxes, which the
+    caller has reset to sentinel records, and its empty carry pools, and
+    set the live counts."""
+    name = "routed_node2vec_phase" if launch.node2vec else \
+        "routed_uniform_phase"
+    _launch(name, library().trw_routed_start, launch.device_index,
+            launch.address, 14 if launch.node2vec else 3)

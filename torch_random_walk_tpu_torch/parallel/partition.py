@@ -1,6 +1,6 @@
-"""Node-range partitioned CSR (twin of ``PartitionedCSR`` in
-``torch_random_walk_tpu/parallel/partition.py``; the partition only, the
-reduction-based v1 walk of that module is not ported yet).
+"""Node-range partitioned CSR (twin of ``PartitionedCSR`` and
+``build_partition_hashes`` in ``torch_random_walk_tpu/parallel/partition.py``;
+the reduction-based v1 walk of that module is not ported yet).
 
 Nodes are split into ``num_shards`` contiguous ranges of ``shard_nodes``
 (= ceil(N / D)) ids; owner(v) = v // shard_nodes.  Each shard holds its own
@@ -16,10 +16,12 @@ tensors, allocated separately:
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from torch_random_walk_tpu_torch.graph.csr import CSRGraph
+from torch_random_walk_tpu_torch.graph.hashset import EdgeHashSet
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,3 +62,39 @@ class PartitionedCSR:
             cols.append(col)
         return cls(node_meta=tuple(metas), col=tuple(cols), num_nodes=n,
                    num_shards=num_shards, shard_nodes=s)
+
+
+def build_partition_hashes(pgraph: PartitionedCSR, graph: CSRGraph):
+    """Per-shard cuckoo edge sets for the routed node2vec engine: shard d's
+    set holds the edges whose head lives on shard d, so t's owner answers
+    ``cand in N(t)`` alone.  Every shard's table has the size the largest
+    shard needs (log2 of 4 slots an edge, at least 16 slots); an empty
+    shard gets an empty table of that size and salt 0.  Built on the
+    partitioned graph's device.  Returns (tables (D, S_h, 2) int32 bit
+    patterns, salts (D,) int32, log_size)."""
+    dev = pgraph.device
+    row_ptr = graph.row_ptr.to(device=dev, dtype=torch.int64)
+    col_idx = graph.col_idx.to(dev)
+    n, s = graph.num_nodes, pgraph.shard_nodes
+    shards, max_log = [], 4
+    for d in range(pgraph.num_shards):
+        lo, hi = min(d * s, n), min((d + 1) * s, n)
+        e_lo, e_hi = (int(x) for x in row_ptr[[lo, hi]].tolist())
+        heads = torch.repeat_interleave(
+            torch.arange(lo, hi, device=dev), row_ptr[lo + 1: hi + 1]
+            - row_ptr[lo:hi]) if hi > lo else row_ptr[:0]
+        shards.append((heads, col_idx[e_lo:e_hi]))
+        e = max(e_hi - e_lo, 1)
+        max_log = max(max_log, int(math.ceil(math.log2(max(4 * e, 16)))))
+    tables, salts = [], []
+    for heads, tails in shards:
+        if heads.numel() == 0:
+            tables.append(torch.full((1 << max_log, 2), -1, dtype=torch.int32,
+                                     device=dev))
+            salts.append(0)
+            continue
+        hs = EdgeHashSet.from_edges_with_log_size(heads, tails, max_log)
+        tables.append(hs.table)
+        salts.append(hs.salt)
+    return (torch.stack(tables),
+            torch.tensor(salts, dtype=torch.int32, device=dev), max_log)

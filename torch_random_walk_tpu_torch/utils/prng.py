@@ -114,6 +114,13 @@ def mulhi32(a, b):
     return (a_hi * b_hi + (t >> 16) + (u >> 16)) & MASK32
 
 
+def mullo32(a, b):
+    """Low 32 bits of the unsigned 32x32 product (uint32 multiplication that
+    wraps), split in 16-bit halves so that no intermediate leaves the signed
+    ``int64`` range."""
+    return ((a & 0xFFFF) * b + ((((a >> 16) * b) & 0xFFFF) << 16)) & MASK32
+
+
 def randint_from_bits(bits, n):
     """uint32 pattern -> uniform integer in [0, n) by multiply-shift:
     floor(bits * n / 2^32), exact for any n < 2^31."""
