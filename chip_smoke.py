@@ -55,7 +55,9 @@ entries on the bench graph and on its copy with dead ends, K8 through both
 edge-list entries and K10's two generators at the families' bench shape
 (CBOW also at W = 1, 2 and 10); each checkout's package imported beside
 this one and its kernels built from its own sources, timed in this one process, in turns
-(``phase_compare_kernels``).  Without arguments it needs one card and
+(``phase_compare_kernels``); then a ``routed_comparison`` line, the routed
+uniform and node2vec serial legs of each checkout the same way, with the
+device time of their phase calls.  Without arguments it needs one card and
 nothing else.
 
 Every kernel is held against its plain version on all the rows the main path
@@ -64,13 +66,17 @@ plain phase bodies on the card state by state for the first 8 phases of
 each leg and then on the whole leg (walks, phases, exchanged records,
 logged positions), time every leg warm (uniform under both schedules,
 node2vec under both and with the binary search in place of the cuckoo
-probes), time the phase calls by CUDA events and profile each kernel leg
-whole; only the plain bodies' profiles run at walk length 10, where the
+probes; each also with 1 to 32 phases a read of the loop, eager and
+replayed as a CUDA graph), time the phase calls by CUDA events (the
+phases' calls and the no-op calls of the last batch apart) and profile
+each kernel leg whole (the compaction's, the bodies' and K4's device time
+a phase); only the plain bodies' profiles run at walk length 10, where the
 profiler's digest of their hundreds to thousands of launches a phase would
 take minutes at full depth.  The small checks hold K11 and K12 against the
 plain bodies phase by phase on a 3 000-node graph with dead ends (D = 1, 2,
-8, L = 1 and 12, both schedules, a filling carry pool and an overflowing
-one, both membership tests, saturated filters).
+8, 16, L = 1 and 12, both schedules, a filling carry pool, one of many
+tiles and an overflowing one, both membership tests, saturated
+filters).
 
 Every phase prints one JSON line.  The line before the last two is
 ``{"kernels": [...]}`` with, per kernel, its launches on the main path (the
@@ -95,6 +101,7 @@ port (``torch_random_walk_tpu_torch``), never JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import importlib
 import json
@@ -621,14 +628,18 @@ FAMILY_FUNCTIONS = {
 }
 
 
-# K11 and K12: the body kernels (K12's by membership flag) and the shared
-# compaction kernel, by record width.
+# K11 and K12: the body kernels (K12's by membership flag), the tiled
+# compaction by record width and streams (one stream: phase 0), and phase
+# 0's histogram.
 ROUTED_FUNCTIONS = {
     "routed_uniform_body_kernel": "K11 body",
-    "routed_compact_kernelILi3E": "K11 compaction",
+    "routed_compact_kernelILi3ELi2EE": "K11 compaction",
+    "routed_compact_kernelILi3ELi1EE": "K11 phase 0 compaction",
     "routed_node2vec_body_kernelILb0E": "K12 body, cuckoo probes",
     "routed_node2vec_body_kernelILb1E": "K12 body, binary search",
-    "routed_compact_kernelILi14E": "K12 compaction",
+    "routed_compact_kernelILi14ELi4EE": "K12 compaction",
+    "routed_compact_kernelILi14ELi1EE": "K12 phase 0 compaction",
+    "routed_stage_hist_kernel": "phase 0 histogram",
 }
 
 
@@ -1113,12 +1124,16 @@ def phase_main_path(graph):
         "walk_partitioned_node2vec_routed": t_n})
     for name in INTEGER_KERNELS:
         require(launches[name] > 0, f"the main path never launched {name}")
-    require(launches["all_to_all_chunks"] == info["phases"]
-            + n2v_info["phases"], "one exchange launch per phase expected")
-    # One call a phase and one for phase 0 (one pipeline: serial).
-    require(launches["routed_uniform_phase"] == info["phases"] + 1
-            and launches["routed_node2vec_phase"] == n2v_info["phases"] + 1,
-            "one phase kernel call per phase and one for phase 0 expected")
+    require(launches["all_to_all_chunks"] == routed_calls(info["phases"])
+            + routed_calls(n2v_info["phases"]),
+            "one exchange launch per enqueued phase expected")
+    # One call an enqueued phase and one for phase 0 (one pipeline: serial).
+    require(launches["routed_uniform_phase"]
+            == routed_calls(info["phases"]) + 1
+            and launches["routed_node2vec_phase"]
+            == routed_calls(n2v_info["phases"]) + 1,
+            "one phase kernel call per enqueued phase and one for phase 0 "
+            "expected")
 
     # Results: shapes, no -1, every hop an edge, routed == single-device.
     num_win = NUM_WALKERS * (WALK_LENGTH + 1 - WINDOW + 1)
@@ -1236,6 +1251,14 @@ def phase_kernels(graph, targets, out, counts, walk_ms, walk_entry_ms):
 
 # --- the routed legs (K11, K12) -------------------------------------------------
 
+def routed_calls(phases: int, k: int | None = None) -> int:
+    """Phase calls of a routed leg of ``phases`` phases: the loop enqueues
+    whole batches of ``k`` (PHASES_PER_READ) phases, and the phases of the
+    last batch after the end are no-ops."""
+    k = k or partition_v2.PHASES_PER_READ
+    return -(-phases // k) * k
+
+
 def routed_walk(pgraph, targets, walk_length, schedule, body, tables=None,
                 config=None):
     """A ``RoutedWalk`` of the uniform engine (``tables`` None) or of the
@@ -1323,6 +1346,52 @@ def small_routed_graph(device):
                                   device=device)
 
 
+def phase_call_ms(bindings_module, kernel: str, run_leg):
+    """``run_leg()`` with CUDA events around every call of the phase kernel
+    ``kernel`` of ``bindings_module`` (this tree's or another checkout's
+    bindings).  Returns (its result, device ms of each call in order)."""
+    wrapped = getattr(bindings_module, kernel)
+    events = []
+
+    def timed_call(*args):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        wrapped(*args)
+        ev[1].record()
+        events.append(ev)
+
+    setattr(bindings_module, kernel, timed_call)
+    try:
+        out = run_leg()
+    finally:
+        setattr(bindings_module, kernel, wrapped)
+    torch.cuda.synchronize()
+    return out, [a.elapsed_time(b) for a, b in events]
+
+
+ROUTED_K_SWEEP = (1, 2, 4, 8, 16, 32)
+
+
+@contextlib.contextmanager
+def routed_loop(k: int, graph: bool):
+    """Within the block the routed loop enqueues ``k`` phases a read, and
+    replays whole batches of every schedule as a CUDA graph if ``graph``,
+    of none if not."""
+    saved = partition_v2.PHASES_PER_READ, partition_v2.GRAPH_SCHEDULES
+    partition_v2.PHASES_PER_READ = k
+    partition_v2.GRAPH_SCHEDULES = partition_v2.SCHEDULES if graph else ()
+    try:
+        yield
+    finally:
+        partition_v2.PHASES_PER_READ, partition_v2.GRAPH_SCHEDULES = saved
+
+
+def routed_compact_smem(streams: int) -> int:
+    """Dynamic shared memory of a compaction block at D = NUM_SHARDS
+    (routed.cuh routed_compact_smem)."""
+    return streams * NUM_SHARDS * (8 + 4 + 4 * 8)
+
+
 def routed_small_checks(device) -> dict:
     """K11 and K12 against the plain bodies phase by phase on a small graph
     with dead ends: D = 1, 2 and 8, L = 1 and 12, both schedules, a pair
@@ -1333,14 +1402,17 @@ def routed_small_checks(device) -> dict:
     each kernel."""
     graph = small_routed_graph(device)
     walkers = 1024
-    targets = common.as_int32(
-        np.random.default_rng(9).integers(0, graph.num_nodes, walkers), device)
-    pgraphs = {d: tt.PartitionedCSR.from_csr(graph, d) for d in (1, 2, 8)}
+    rng = np.random.default_rng(9)
+    targets = {n: common.as_int32(rng.integers(0, graph.num_nodes, n), device)
+               for n in (walkers, 8 * walkers)}
+    pgraphs = {d: tt.PartitionedCSR.from_csr(graph, d) for d in (1, 2, 8, 16)}
     tables = {d: (tt.build_partition_hashes(pg, graph),
                   tt.build_partition_blooms(pg, graph))
               for d, pg in pgraphs.items()}
     carry = tt.RoutedConfig(pair_capacity=16, carry_capacity=walkers)
     overflow = tt.RoutedConfig(pair_capacity=2, carry_capacity=5)
+    # Two tiles of stage slots a stream, and a pool of many tiles.
+    tiles = tt.RoutedConfig(pair_capacity=160, carry_capacity=8 * walkers)
     # (shards, schedules, walk length, config, node2vec tables by name)
     cases = [
         (8, partition_v2.SCHEDULES, 12, None,
@@ -1350,9 +1422,12 @@ def routed_small_checks(device) -> dict:
         (8, ("serial",), 12, overflow, ("cuckoo",)),
         (1, partition_v2.SCHEDULES, 12, None, ("search",)),
         (2, ("serial",), 12, None, ("cuckoo",)),
+        (16, ("overlapped",), 12, None, ("cuckoo",)),
+        (2, partition_v2.SCHEDULES, 12, tiles, ("cuckoo",)),
     ]
     errs = dict.fromkeys(ROUTED_KERNELS, 0)
     for d, schedules, length, cfg, n2v in cases:
+        t = targets[8 * walkers if cfg is tiles else walkers]
         hashes, blooms = tables[d]
         kinds = [("routed_uniform_phase", None)] + [
             ("routed_node2vec_phase", {"cuckoo": (hashes, blooms),
@@ -1362,7 +1437,7 @@ def routed_small_checks(device) -> dict:
         for schedule in schedules:
             for name, tab in kinds:
                 got = routed_lockstep(lambda body: routed_walk(
-                    pgraphs[d], targets, length, schedule, body, tab, cfg))
+                    pgraphs[d], t, length, schedule, body, tab, cfg))
                 raised = isinstance(got.get("result"), str)
                 if cfg is overflow:
                     require(raised and "incomplete" in got["result"],
@@ -1446,31 +1521,45 @@ def phase_routed(graph, targets, pgraph, tables, out, launches, main_runs):
                 f"{name}: the leg is not reproducible")
         timed[name]["first_leg_ms"] = first[1]
 
-    # Device time of each phase call over one warm leg, by CUDA events.
+    # Device time of each phase call over one warm leg, by CUDA events: the
+    # phases' calls, and apart from them the no-op calls of the last batch.
     per_call = {}
     for name, kernel in (("uniform_serial", "routed_uniform_phase"),
                          ("node2vec_serial", "routed_node2vec_phase")):
         tab, schedule = legs[name]
-        wrapped = getattr(bindings, kernel)
-        events = []
+        with routed_loop(partition_v2.PHASES_PER_READ, False):
+            (_, info), ms = phase_call_ms(bindings, kernel,
+                                          lambda: entry(tab, schedule))
+        phases = info["phases"]
+        require(len(ms) == routed_calls(phases),
+                "one call an enqueued phase expected")
+        per_call[kernel] = {
+            "calls": len(ms), "noop_calls": len(ms) - phases,
+            "device_ms_per_call": sum(ms[:phases]) / phases,
+            "noop_device_ms_per_call": (sum(ms[phases:])
+                                        / max(len(ms) - phases, 1))}
 
-        def timed_call(launch, wrapped=wrapped, events=events):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-            wrapped(launch)
-            ev[1].record()
-            events.append(ev)
-
-        setattr(bindings, kernel, timed_call)
-        try:
-            _, info = entry(tab, schedule)
-        finally:
-            setattr(bindings, kernel, wrapped)
-        torch.cuda.synchronize()
-        total = sum(a.elapsed_time(b) for a, b in events)
-        per_call[kernel] = {"calls": len(events), "device_ms_total": total,
-                            "device_ms_per_call": total / len(events)}
-        require(len(events) == info["phases"], "one call a phase expected")
+    # Warm legs with k phases a read (the loop's batch), eager and replayed
+    # as a CUDA graph (k a multiple of 4), each with its no-op calls:
+    # PHASES_PER_READ and GRAPH_SCHEDULES are chosen from these.
+    k_sweep = {}
+    for name in legs:
+        tab, schedule = legs[name]
+        for graph, k in [(g, k) for g in (False, True) for k in ROUTED_K_SWEEP
+                         if not g or k % 4 == 0]:
+            with routed_loop(k, graph):
+                entry(tab, schedule)
+                runs = [wall_ms(lambda: entry(tab, schedule))
+                        for _ in range(3)]
+            require(all(r[0][1] == timed[name]["info"] for r in runs),
+                    f"{name}: k={k} changed the leg's info")
+            require(all(max_abs_err(r[0][0], runs[0][0][0]) == 0
+                        for r in runs), f"{name}: k={k} changed the walks")
+            k_sweep.setdefault(name, {})[f"{'graph' if graph else 'eager'}"
+                                         f"_k{k}"] = {
+                "warm_leg_ms": [m for _, m in runs],
+                "noop_calls": routed_calls(timed[name]["info"]["phases"], k)
+                - timed[name]["info"]["phases"]}
 
     # The card's share of a leg, by the profiler.
     profiled = {}
@@ -1498,29 +1587,46 @@ def phase_routed(graph, targets, pgraph, tables, out, launches, main_runs):
         (_, info), ms, kernels = profile_device(lambda: fn(walk_length))
         busy = sum(v for _, v in kernels.values())
         n = sum(c for c, _ in kernels.values())
+        phases = info["phases"]
+
+        def per_phase(part):
+            hits = [v for k, v in kernels.items() if part in k]
+            return {"launches": sum(c for c, _ in hits),
+                    "device_ms_per_phase": sum(m for _, m in hits) / phases}
+
         profiled[name] = None if busy <= 0 else {
-            "walk_length": walk_length, "phases": info["phases"],
+            "walk_length": walk_length, "phases": phases,
             "leg_ms": ms, "device_launches": n,
-            "device_launches_per_phase": n / info["phases"],
+            "device_launches_per_phase": n / phases,
             "device_busy_ms": busy, "device_idle_share": 1 - busy / ms,
+            "compaction": per_phase("routed_compact_kernel"),
+            "body": per_phase("body_kernel"),
+            "exchange": per_phase("all_to_all_chunks"),
             "by_kernel": {k: v for k, v in sorted(
                 kernels.items(), key=lambda kv: -kv[1][1])[:8]}}
     # Device memory an engine holds besides the graph and its tables.
     engine_bytes = {}
     for name, (tab, schedule) in legs.items():
         run = routed_walk(pgraph, t, WALK_LENGTH, schedule, "kernel", tab)
-        held = [run.walks, run.stats, run.live, run._stage, run._code] + [
+        held = [run.walks, run.stats, run.live, run._counter, run._stage,
+                run._code, run._hist] + [
             x for pipe in run.pipes
-            for x in (pipe.outbox, pipe.inbox, pipe.carry)]
+            for x in (pipe.outbox, pipe.inbox, pipe.carry, pipe.pool_count)]
         engine_bytes[name] = sum(x.numel() * x.element_size() for x in held)
         del run
     emit("routed", walkers=ROUTED_WALKERS, shards=NUM_SHARDS,
-         spec_rounds=SPEC_ROUNDS, p=P, q=Q, legs=timed, per_call=per_call,
+         spec_rounds=SPEC_ROUNDS, p=P, q=Q,
+         phases_per_read=partition_v2.PHASES_PER_READ,
+         cuda_graph_schedules=partition_v2.GRAPH_SCHEDULES,
+         compaction_dynamic_smem_bytes={
+             "K11": routed_compact_smem(2), "K12": routed_compact_smem(4)},
+         legs=timed, per_call=per_call, k_sweep=k_sweep,
          engine_bytes=engine_bytes,
          profiled=profiled, timing="warm legs on the host clock, three "
          "after one warm-up; per_call: CUDA events around every phase call "
-         "of one warm leg; profiled: torch.profiler, device activity only, "
-         "one warm leg (null if it saw no device time)")
+         "of one warm leg (the phases' calls; no-op calls apart); k_sweep: "
+         "warm legs with k phases a read; profiled: torch.profiler, device "
+         "activity only, one warm leg (null if it saw no device time)")
 
     rows = []
     for kernel, name, width in (("routed_uniform_phase", "uniform_serial", 3),
@@ -1528,6 +1634,8 @@ def phase_routed(graph, targets, pgraph, tables, out, launches, main_runs):
                                  14)):
         info = timed[name]["info"]
         phases = info["phases"]
+        prof = profiled[f"{name}_kernel"]
+        require(prof is not None, f"{name}: the profiler saw no device time")
         # Bytes a leg needs: every record written once to an outbox and
         # read once on arrival, every position logged, a meta row and a col
         # word a step (node2vec: and a 16-byte filter row a step).
@@ -1540,7 +1648,11 @@ def phase_routed(graph, targets, pgraph, tables, out, launches, main_runs):
             "name": kernel, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[kernel],
             "max_abs_err": checks[name]["max_abs_err"],
-            "ms": per_call[kernel]["device_ms_per_call"],
+            # The call's two kernels' device time a phase; CUDA events around
+            # a call (call_ms_events) also hold the host's launch gaps.
+            "ms": (prof["body"]["device_ms_per_phase"]
+                   + prof["compaction"]["device_ms_per_phase"]),
+            "call_ms_events": per_call[kernel]["device_ms_per_call"],
             "plain_ms": plain[name]["ms"] / plain[name]["info"]["phases"],
             "bound_ms": moved / phases / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "library_ms": None,
@@ -2336,9 +2448,10 @@ def phase_compare_kernels(graph, checkouts: dict) -> dict:
                             padding_idx=pad)
     args = (families, graph.num_nodes, walks, bench_tg.triples, targets, pad)
     builds = {"this_tree": compare_calls(tt, *args)}
-    registers = {}
+    registers, pkgs = {}, {"this_tree": tt}
     for name, root in checkouts.items():
         pkg, pkg_build = checkout_package(root)
+        pkgs[name] = pkg
         builds[name] = compare_calls(pkg, *args)
         builds[name]["bench/edge_biased"]()  # builds its kernels
         log = pkg_build.build_log()
@@ -2364,7 +2477,63 @@ def phase_compare_kernels(graph, checkouts: dict) -> dict:
                 "5, per call; each checkout twice, A B ... B A")
     require(all(e == 0 for v in errs.values() for e in v.values()),
             f"a compared checkout's outputs differ from this tree's: {errs}")
+    del builds, walks, bench_tg, families, args
+    compare_routed(graph, targets[:ROUTED_WALKERS], pkgs)
     return times
+
+
+def compare_routed(graph, targets, pkgs: dict) -> None:
+    """The routed uniform and node2vec serial legs (D = NUM_SHARDS, p=P
+    q=Q, hashes and Blooms) of each package of ``pkgs`` (this tree's first)
+    through its own public entry points, on its own partition and tables
+    built from the bench graph: warm legs on the host clock, three a turn,
+    the packages in turns A B ... B A, and the device time of each phase
+    call (CUDA events, the phases' calls) of one leg each.  Walks and info
+    must equal this tree's.  The ``routed_comparison`` line."""
+    legs = {}
+    for name, pkg in pkgs.items():
+        g = pkg.CSRGraph.from_arrays(graph.row_ptr, graph.col_idx,
+                                     sort_rows=False, build_fat=False)
+        pg = pkg.PartitionedCSR.from_csr(g, NUM_SHARDS)
+        hashes = pkg.build_partition_hashes(pg, g)
+        blooms = pkg.build_partition_blooms(pg, g)
+        legs[name] = {
+            "uniform_serial": (lambda pkg=pkg, pg=pg: pkg.walk_partitioned_routed(
+                pg, targets, WALK_LENGTH, seed=WALK_SEED)),
+            "node2vec_serial": (
+                lambda pkg=pkg, pg=pg, h=hashes, b=blooms:
+                pkg.walk_partitioned_node2vec_routed(
+                    pg, h, targets, P, Q, WALK_LENGTH, seed=WALK_SEED,
+                    spec_rounds=SPEC_ROUNDS, blooms=b))}
+    want = {leg: fn() for leg, fn in legs["this_tree"].items()}
+    errs, times, calls = {}, {name: {} for name in legs}, {}
+    order = list(legs) + list(reversed(legs))
+    for name in order:
+        for leg, fn in legs[name].items():
+            walks, info = fn()  # warm
+            if name not in errs or leg not in errs[name]:
+                errs.setdefault(name, {})[leg] = (
+                    max_abs_err(walks, want[leg][0])
+                    if info == want[leg][1] else -1)
+            times[name].setdefault(leg, []).extend(
+                wall_ms(fn)[1] for _ in range(3))
+    for name, pkg in pkgs.items():
+        for leg, kernel in (("uniform_serial", "routed_uniform_phase"),
+                            ("node2vec_serial", "routed_node2vec_phase")):
+            (_, info), ms = phase_call_ms(pkg.kernels.bindings, kernel,
+                                          legs[name][leg])
+            calls.setdefault(name, {})[leg] = {
+                "calls": len(ms), "phases": info["phases"],
+                "device_ms_per_call": sum(ms[:info["phases"]])
+                / info["phases"]}
+    emit("routed_comparison", warm_leg_ms=times, phase_calls=calls,
+         max_abs_err=errs, order=order,
+         timing="warm legs on the host clock, three a turn, A B ... B A; "
+         "phase calls: CUDA events around each call of one leg, the "
+         "phases' calls")
+    require(all(e == 0 for v in errs.values() for e in v.values()),
+            f"a compared checkout's routed legs differ from this tree's: "
+            f"{errs}")
 
 
 def parse_args(argv):

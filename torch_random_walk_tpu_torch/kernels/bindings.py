@@ -83,8 +83,8 @@ def library(verbose: bool = False) -> ctypes.CDLL:
         lib.trw_to_windows_triples_cbow.argtypes = [
             _PTR, _I64, _I32, _I32, _I32, _PTR, _U32, _U32, _U32, _U32, _U32,
             _U32, _U32, _U32, _I32, _PTR, _PTR, _PTR, _PTR]
-        lib.trw_routed_uniform_phase.argtypes = [_PTR, _PTR]
-        lib.trw_routed_node2vec_phase.argtypes = [_PTR, _PTR]
+        lib.trw_routed_uniform_phase.argtypes = [_PTR, _I32, _PTR]
+        lib.trw_routed_node2vec_phase.argtypes = [_PTR, _I32, _PTR]
         lib.trw_routed_start.argtypes = [_PTR, _I32, _PTR]
         for fn in (lib.trw_routed_uniform_phase, lib.trw_routed_node2vec_phase,
                    lib.trw_routed_start,
@@ -696,20 +696,41 @@ def walk_sgns_plan(in_emb, walks, neg_ids, window_size: int) -> dict:
 
 # K11/K12 take up to 256 shards (routed.cuh kRoutedMaxShards); a phase is two
 # launches, the body kernel and the compaction kernel, counted as one call;
-# phase 0 is the compaction kernel alone, counted as one call of the engine's
-# kernel.
+# phase 0 is a histogram launch and the compaction kernel, counted as one call
+# of the engine's kernel.  The compaction ranks tiles of ROUTED_TILE slots.
 ROUTED_MAX_SHARDS = 256
+ROUTED_TILE = 256
+ROUTED_STREAMS = {3: 2, 14: 4}  # departure streams by record width
 _ROUTED_SHARD_FIELDS = ("meta", "col", "walks", "inbox", "outbox", "carry",
-                        "stage", "code", "hash_table", "bloom")
+                        "stage", "code", "hist", "pool_count", "hash_table",
+                        "bloom")
+
+
+def routed_scratch_shapes(num_shards: int, cap: int, ccap: int, blk: int,
+                          width: int) -> dict:
+    """Per shard, the shapes of the phase kernels' scratch for one walk:
+    ``stage`` and ``code`` (a phase stages D*cap slots, phase 0 blk),
+    ``hist`` (the stage tiles' departures by stream and destination, for a
+    phase's streams or phase 0's one) and, per pipeline, ``pool_count``
+    (each of the two carry pools' records by tile and destination, and a
+    last row of totals)."""
+    def tiles(n):
+        return -(-n // ROUTED_TILE)
+    slots = max(num_shards * cap, blk)
+    hist = max(tiles(num_shards * cap) * ROUTED_STREAMS[width], tiles(blk))
+    return {"stage": (slots, width), "code": (slots,),
+            "hist": (hist * num_shards,),
+            "pool_count": (2, tiles(ccap) + 1, num_shards)}
 
 
 class RoutedShard(NamedTuple):
     """One shard's buffers for K11/K12 (``routed.cuh`` ``RoutedShard``):
     its (S, 2) meta rows and (E_max,) col, its (blk+1, L+2) walk rows, this
-    pipeline's (D, cap, R) inbox and outbox and (ccap, R+1) carry pool, the
-    (max(D*cap, blk), R) stage and (max(D*cap, blk),) code scratch, and for
-    K12 its cuckoo
-    table (or None) and (S, 4) Bloom filters, all int32 on one card."""
+    pipeline's (D, cap, R) inbox and outbox and its two (ccap, R+1) carry
+    pools as one (2, ccap, R+1) tensor, the stage, code and hist scratch and
+    the pipeline's pool counts (``routed_scratch_shapes``), and for K12 its
+    cuckoo table (or None) and (S, 4) Bloom filters, all int32 on one
+    card."""
 
     meta: torch.Tensor
     col: torch.Tensor
@@ -719,6 +740,8 @@ class RoutedShard(NamedTuple):
     carry: torch.Tensor
     stage: torch.Tensor
     code: torch.Tensor
+    hist: torch.Tensor
+    pool_count: torch.Tensor
     hash_table: torch.Tensor | None
     bloom: torch.Tensor | None
     salt: int
@@ -728,13 +751,14 @@ class _RoutedLaunch(ctypes.Structure):
     """``TrwRoutedLaunch`` of ``kernels/routed.cuh``."""
 
     _fields_ = [("shards", ctypes.c_void_p), ("stats", ctypes.c_void_p),
-                ("live", ctypes.c_void_p), ("num_shards", _I32),
-                ("shard_nodes", _I32), ("blk", _I32), ("walk_length", _I32),
-                ("cap", _I32), ("ccap", _I32), ("e_max", _I64),
-                ("key0", _U32), ("key1", _U32), ("spec_rounds", _I32),
-                ("hash_log", _I32), ("use_search", _I32), ("prob0", _F32),
-                ("prob1", _F32), ("prob2", _F32), ("lo_acc", _F32),
-                ("hi_acc", _F32)]
+                ("live", ctypes.c_void_p), ("live_all", ctypes.c_void_p),
+                ("phases", ctypes.c_void_p), ("num_live", _I32),
+                ("num_shards", _I32), ("shard_nodes", _I32), ("blk", _I32),
+                ("walk_length", _I32), ("cap", _I32), ("ccap", _I32),
+                ("e_max", _I64), ("key0", _U32), ("key1", _U32),
+                ("spec_rounds", _I32), ("hash_log", _I32),
+                ("use_search", _I32), ("prob0", _F32), ("prob1", _F32),
+                ("prob2", _F32), ("lo_acc", _F32), ("hi_acc", _F32)]
 
 
 class RoutedLaunch(NamedTuple):
@@ -751,13 +775,17 @@ class RoutedLaunch(NamedTuple):
     node2vec: bool
 
 
-def routed_phase_launch(shards, stats, live, *, shard_nodes: int, blk: int,
-                        walk_length: int, cap: int, ccap: int,
-                        key: tuple[int, int], node2vec=None) -> RoutedLaunch:
+def routed_phase_launch(shards, stats, live, live_all, phases, *,
+                        shard_nodes: int, blk: int, walk_length: int,
+                        cap: int, ccap: int, key: tuple[int, int],
+                        node2vec=None) -> RoutedLaunch:
     """Check one pipeline's buffers for K11 (``node2vec`` None) or K12
     (``node2vec`` a ``parallel.partition_v2.Node2VecRouting``) and pack
     their launch.  ``stats`` is the walk's (D, 3) int64 (logged, sent,
-    dropped), ``live`` the pipeline's (D, 2) int64 (boxed, carried)."""
+    dropped), ``live`` the pipeline's (D, 2) int64 (boxed, carried),
+    ``live_all`` every pipeline's live counts (int64, contiguous: the phase
+    counts itself if any is above 0) and ``phases`` the walk's (1,) int64
+    phase counter."""
     d = len(shards)
     if not 0 < d <= ROUTED_MAX_SHARDS:
         raise ValueError(f"the phase kernels take 1 to {ROUTED_MAX_SHARDS} "
@@ -766,22 +794,29 @@ def routed_phase_launch(shards, stats, live, *, shard_nodes: int, blk: int,
     dev = shards[0].col.device
     _check("stats", stats, torch.int64, 2, dev)
     _check("live", live, torch.int64, 2, dev)
+    _check("phases", phases, torch.int64, 1, dev)
+    if not (isinstance(live_all, torch.Tensor) and live_all.is_cuda
+            and live_all.device == dev and live_all.dtype == torch.int64
+            and live_all.is_contiguous() and 0 < live_all.numel() < 2 ** 31):
+        raise ValueError("live_all must be a contiguous int64 CUDA tensor on "
+                         "the shards' card")
     if tuple(stats.shape) != (d, 3) or tuple(live.shape) != (d, 2):
         raise ValueError(f"stats must be ({d}, 3) and live ({d}, 2), got "
                          f"{tuple(stats.shape)} and {tuple(live.shape)}")
+    if tuple(phases.shape) != (1,):
+        raise ValueError(f"phases must be (1,), got {tuple(phases.shape)}")
     if not (0 < shard_nodes < 2 ** 31 and 0 < blk < 2 ** 31 and 0 < cap
             and 0 < ccap < 2 ** 31 and 0 <= walk_length
             and d * cap < 2 ** 31):
         raise ValueError("shard sizes or capacities out of range")
     if node2vec is not None and walk_length >= 2 ** 24:
         raise ValueError(f"walk_length must be below 2^24, got {walk_length}")
-    slots = max(d * cap, blk)
     e_max = shards[0].col.shape[0]
     shapes = {"meta": (shard_nodes, 2), "col": (e_max,),
               "walks": (blk + 1, walk_length + 2), "inbox": (d, cap, width),
-              "outbox": (d, cap, width), "carry": (ccap, width + 1),
-              "stage": (slots, width), "code": (slots,),
-              "bloom": (shard_nodes, 4)}
+              "outbox": (d, cap, width), "carry": (2, ccap, width + 1),
+              "bloom": (shard_nodes, 4),
+              **routed_scratch_shapes(d, cap, ccap, blk, width)}
     rows, buffers = [], []
     for sh in shards:
         if node2vec is not None and sh.bloom is None:
@@ -809,8 +844,10 @@ def routed_phase_launch(shards, stats, live, *, shard_nodes: int, blk: int,
         raise ValueError("every shard's col must hold at least one word")
     table = torch.tensor(rows, dtype=torch.int64).to(dev)
     launch = _RoutedLaunch(table.data_ptr(), stats.data_ptr(), live.data_ptr(),
-                           d, shard_nodes, blk, walk_length, cap, ccap, e_max,
-                           key[0] & 0xFFFFFFFF, key[1] & 0xFFFFFFFF)
+                           live_all.data_ptr(), phases.data_ptr(),
+                           live_all.numel(), d, shard_nodes, blk, walk_length,
+                           cap, ccap, e_max, key[0] & 0xFFFFFFFF,
+                           key[1] & 0xFFFFFFFF)
     if node2vec is not None:
         search = node2vec.tables is None
         if not search and not 0 < node2vec.log_size < 32:
@@ -823,35 +860,37 @@ def routed_phase_launch(shards, stats, live, *, shard_nodes: int, blk: int,
         (launch.prob0, launch.prob1, launch.prob2, launch.lo_acc,
          launch.hi_acc) = node2vec.thresholds
     return RoutedLaunch(launch, ctypes.addressof(launch), table,
-                        (*buffers, stats, live), _device_index(dev),
-                        node2vec is not None)
+                        (*buffers, stats, live, live_all, phases),
+                        _device_index(dev), node2vec is not None)
 
 
-def routed_uniform_phase(launch: RoutedLaunch) -> None:
+def routed_uniform_phase(launch: RoutedLaunch, pool: int) -> None:
     """K11.  One phase of the uniform routed engine for every shard: the
-    pipeline's inboxes in; its outboxes, carry pools and live counts out;
-    the walk rows and stats updated."""
+    pipeline's inboxes and live carry pools (``pool``, 0 or 1) in; its
+    outboxes, other carry pools and live counts out; the walk rows, stats
+    and phase counter updated."""
     if launch.node2vec:
         raise ValueError("this launch was packed for K12")
     _launch("routed_uniform_phase", library().trw_routed_uniform_phase,
-            launch.device_index, launch.address)
+            launch.device_index, launch.address, int(pool))
 
 
-def routed_node2vec_phase(launch: RoutedLaunch) -> None:
+def routed_node2vec_phase(launch: RoutedLaunch, pool: int) -> None:
     """K12.  One phase of the node2vec routed engine for every shard, as
     K11's."""
     if not launch.node2vec:
         raise ValueError("this launch was packed for K11")
     _launch("routed_node2vec_phase", library().trw_routed_node2vec_phase,
-            launch.device_index, launch.address)
+            launch.device_index, launch.address, int(pool))
 
 
 def routed_start(launch: RoutedLaunch) -> None:
     """Phase 0 of K11 or K12, counted as one call of it: compact the first
     ``blk`` stage slots of every shard (each local walker's first record,
     code its destination or -1) into the pipeline's outboxes, which the
-    caller has reset to sentinel records, and its empty carry pools, and
-    set the live counts."""
+    caller has reset to sentinel records, and carry pools 1 (pool 0 is
+    empty; the caller has zeroed both pools' counts), and set the live
+    counts."""
     name = "routed_node2vec_phase" if launch.node2vec else \
         "routed_uniform_phase"
     _launch(name, library().trw_routed_start, launch.device_index,

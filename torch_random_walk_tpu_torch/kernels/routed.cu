@@ -13,21 +13,28 @@
 //   256 by D), logs LOG arrivals into the wid-owner's walk rows and counts
 //   them, draws for STEP arrivals (and, in K12, answers RESOLVE arrivals)
 //   with the JAX package's Threefry counters, and writes each arrival's one
-//   departure into the shard's stage buffer with its stream and destination;
-//   it also resets the outbox to sentinel records;
-// - the compaction kernel, a block per shard, builds the outbox and the carry
-//   pool in the exchange order (routed.cuh, compact_departures) and sets the
-//   shard's live counts (boxed, carried), which the host sums once a phase.
-// Phase 0 is the compaction kernel alone (trw_routed_start), of the first
-// records the host stages.
+//   departure into the shard's stage buffer with its stream and destination,
+//   and its block's departures by (stream, destination) into the shard's
+//   histogram; it also resets the outbox to sentinel records and zeroes the
+//   counts of the carry pool that the compaction fills; its first block
+//   adds one to the walk's phase counter if any record was in flight before
+//   the phase (the JAX loop's test), so a phase enqueued after the end
+//   changes nothing but that launch;
+// - the compaction kernel (routed.cuh, routed_compact_kernel), a block per
+//   tile of 256 stage slots or carry pool slots of every shard, builds the
+//   outbox and the other carry pool in the exchange order from the
+//   histograms and sets the shard's live counts (boxed, carried), which the
+//   host reads once per batch of phases.
+// Phase 0 is a histogram launch and the compaction (trw_routed_start), of
+// the first records the host stages.
 //
 // Bound on this card: bytes.  A phase reads each live record once, writes it
 // once to the stage and once to the outbox or the pool, and gathers one graph
 // row (two meta words and one col word a draw); at the routed legs' sizes
 // that is well under a microsecond a phase, so a phase's time is its
-// launches and its serial parts.  The body spreads the slots over the whole
-// card; the compaction, whose order is serial per shard, runs one block a
-// shard (D of the card's 132 SMs) and is most of a phase's device time.
+// launches, their tails and the histograms' reads.  Both kernels spread over
+// the whole card; blocks of the compaction whose tile holds no candidate
+// return after one barrier.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -37,7 +44,9 @@
 
 namespace trw {
 
-constexpr int kBodyThreads = 256;
+constexpr int kBodyThreads = kTile;
+constexpr int kUniformStreams = 2;
+constexpr int kNode2VecStreams = 4;
 constexpr int kUniformWidth = 3;
 constexpr int kNode2VecWidth = 14;
 constexpr uint32_t kLogBit = 0x80000000u;  // uniform LOG hop
@@ -53,6 +62,30 @@ __device__ __forceinline__ void clear_outbox(const RoutedShard& sh,
   for (int64_t w = first * R + threadIdx.x; w < end; w += kBodyThreads) {
     sh.outbox[w] = (w % R == 0) ? -1 : 0;
   }
+}
+
+// Zero the counts of carry pool `pool`, which the compaction fills, a word a
+// thread over the body's grid.
+__device__ __forceinline__ void clear_pool_count(const TrwRoutedLaunch& a,
+                                                 const RoutedShard& sh,
+                                                 int pool) {
+  const int64_t words = (pool_tiles(a) + 1) * a.num_shards;
+  int32_t* c = sh.pool_count + pool * words;
+  for (int64_t w = (int64_t)blockIdx.x * kBodyThreads + threadIdx.x;
+       w < words; w += (int64_t)gridDim.x * kBodyThreads) {
+    c[w] = 0;
+  }
+}
+
+// The walk's phase counter: one more if any record of any pipeline was in
+// flight before this phase.  Block (0, 0) of the body.
+__device__ __forceinline__ void count_phase(const TrwRoutedLaunch& a) {
+  if (blockIdx.x != 0 || blockIdx.y != 0) return;
+  bool any = false;
+  for (int i = threadIdx.x; i < a.num_live; i += kBodyThreads) {
+    any |= a.live_all[i] > 0;
+  }
+  if (__syncthreads_or(any) && threadIdx.x == 0) *a.phases += 1;
 }
 
 // Write walk[step] = v into the wid-owner's walk rows.
@@ -89,13 +122,15 @@ __device__ __forceinline__ void count_block(const TrwRoutedLaunch& a, int my,
 // K11's body: streams 0 = forwarded LOG records (to owner(v)), 1 = drawn
 // records (to the wid-owner).
 __global__ void __launch_bounds__(kBodyThreads)
-    routed_uniform_body_kernel(const TrwRoutedLaunch a) {
+    routed_uniform_body_kernel(const TrwRoutedLaunch a, int cur) {
   constexpr int R = kUniformWidth;
   const int my = blockIdx.y;
   const RoutedShard sh = a.shards[my];
   const int64_t slots = (int64_t)a.num_shards * a.cap;
   const int64_t first = (int64_t)blockIdx.x * kBodyThreads;
+  count_phase(a);
   clear_outbox<R>(sh, first, slots);
+  clear_pool_count(a, sh, 1 - cur);
   const int64_t i = first + threadIdx.x;
   bool logged = false;
   int32_t code = -1;
@@ -135,6 +170,7 @@ __global__ void __launch_bounds__(kBodyThreads)
     }
     sh.code[i] = code;
   }
+  tile_histogram<kUniformStreams>(a, sh, blockIdx.x, code);
   count_block(a, my, logged, code >= 0);
 }
 
@@ -207,13 +243,15 @@ __device__ __forceinline__ float accept_uniform(const TrwRoutedLaunch& a,
 // owner(t)), 3 = replays (STEP records back to owner(v)).
 template <bool SEARCH>
 __global__ void __launch_bounds__(kBodyThreads)
-    routed_node2vec_body_kernel(const TrwRoutedLaunch a) {
+    routed_node2vec_body_kernel(const TrwRoutedLaunch a, int cur) {
   constexpr int R = kNode2VecWidth;
   const int my = blockIdx.y;
   const RoutedShard sh = a.shards[my];
   const int64_t slots = (int64_t)a.num_shards * a.cap;
   const int64_t first = (int64_t)blockIdx.x * kBodyThreads;
+  count_phase(a);
   clear_outbox<R>(sh, first, slots);
+  clear_pool_count(a, sh, 1 - cur);
   const int64_t i = first + threadIdx.x;
   bool logged = false;
   int32_t code = -1;
@@ -387,84 +425,99 @@ __global__ void __launch_bounds__(kBodyThreads)
     }
     sh.code[i] = code;
   }
+  tile_histogram<kNode2VecStreams>(a, sh, blockIdx.x, code);
   count_block(a, my, logged, code >= 0);
 }
 
-template <int R>
-__global__ void __launch_bounds__(kCompactThreads)
-    routed_compact_kernel(const TrwRoutedLaunch a, int num_streams,
-                          int64_t slots) {
-  compact_departures<R>(a, blockIdx.x, num_streams, slots);
+// Phase 0's histogram: the host-staged codes of the first `slots` stage
+// slots, one stream.
+__global__ void __launch_bounds__(kTile)
+    routed_stage_hist_kernel(const TrwRoutedLaunch a, int64_t slots) {
+  const RoutedShard sh = a.shards[blockIdx.y];
+  const int64_t i = (int64_t)blockIdx.x * kTile + threadIdx.x;
+  tile_histogram<1>(a, sh, blockIdx.x, i < slots ? sh.code[i] : -1);
 }
 
 }  // namespace trw
 
 namespace {
 
-bool launch_ok(const TrwRoutedLaunch& a) {
+bool launch_ok(const TrwRoutedLaunch& a, int cur) {
   return a.num_shards >= 1 && a.num_shards <= trw::kRoutedMaxShards &&
          a.cap >= 1 && a.ccap >= 1 && a.blk >= 1 && a.shard_nodes >= 1 &&
-         a.e_max >= 1 && a.walk_length >= 0;
+         a.e_max >= 1 && a.walk_length >= 0 && a.num_live >= 1 &&
+         (cur == 0 || cur == 1);
 }
 
-dim3 body_grid(const TrwRoutedLaunch& a) {
-  const int64_t slots = (int64_t)a.num_shards * a.cap;
-  return dim3((unsigned)((slots + trw::kBodyThreads - 1) / trw::kBodyThreads),
+dim3 tile_grid(const TrwRoutedLaunch& a, int64_t slots, int64_t extra = 0) {
+  return dim3((unsigned)((slots + trw::kTile - 1) / trw::kTile + extra),
               (unsigned)a.num_shards);
+}
+
+// The compaction of `slots` stage slots and the live carry pool `cur`.
+template <int R, int S>
+void compact(const TrwRoutedLaunch& a, int64_t slots, int cur,
+             cudaStream_t st) {
+  trw::routed_compact_kernel<R, S>
+      <<<tile_grid(a, slots, trw::pool_tiles(a)), trw::kTile,
+         trw::routed_compact_smem(S, a.num_shards), st>>>(a, slots, cur);
 }
 
 }  // namespace
 
-// K11: one phase of the uniform engine for every shard.
+// K11: one phase of the uniform engine for every shard; carry pool `cur` is
+// the live one, and the other is filled.
 extern "C" int trw_routed_uniform_phase(const TrwRoutedLaunch* launch,
-                                        void* stream) {
+                                        int cur, void* stream) {
   const TrwRoutedLaunch& a = *launch;
-  if (!launch_ok(a)) return (int)cudaErrorInvalidValue;
+  if (!launch_ok(a, cur)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  trw::routed_uniform_body_kernel<<<body_grid(a), trw::kBodyThreads, 0, st>>>(
-      a);
-  trw::routed_compact_kernel<trw::kUniformWidth>
-      <<<a.num_shards, trw::kCompactThreads, 0, st>>>(
-          a, 2, (int64_t)a.num_shards * a.cap);
+  const int64_t slots = (int64_t)a.num_shards * a.cap;
+  trw::routed_uniform_body_kernel<<<tile_grid(a, slots), trw::kTile, 0, st>>>(
+      a, cur);
+  compact<trw::kUniformWidth, trw::kUniformStreams>(a, slots, cur, st);
   return (int)cudaGetLastError();
 }
 
-// K12: one phase of the node2vec engine for every shard.
+// K12: one phase of the node2vec engine for every shard, as K11's.
 extern "C" int trw_routed_node2vec_phase(const TrwRoutedLaunch* launch,
-                                         void* stream) {
+                                         int cur, void* stream) {
   const TrwRoutedLaunch& a = *launch;
-  if (!launch_ok(a) || a.walk_length >= (1 << 24) || a.spec_rounds < 1 ||
+  if (!launch_ok(a, cur) || a.walk_length >= (1 << 24) || a.spec_rounds < 1 ||
       (!a.use_search && (a.hash_log < 1 || a.hash_log > 31))) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = (cudaStream_t)stream;
+  const int64_t slots = (int64_t)a.num_shards * a.cap;
   if (a.use_search) {
     trw::routed_node2vec_body_kernel<true>
-        <<<body_grid(a), trw::kBodyThreads, 0, st>>>(a);
+        <<<tile_grid(a, slots), trw::kTile, 0, st>>>(a, cur);
   } else {
     trw::routed_node2vec_body_kernel<false>
-        <<<body_grid(a), trw::kBodyThreads, 0, st>>>(a);
+        <<<tile_grid(a, slots), trw::kTile, 0, st>>>(a, cur);
   }
-  trw::routed_compact_kernel<trw::kNode2VecWidth>
-      <<<a.num_shards, trw::kCompactThreads, 0, st>>>(
-          a, 4, (int64_t)a.num_shards * a.cap);
+  compact<trw::kNode2VecWidth, trw::kNode2VecStreams>(a, slots, cur, st);
   return (int)cudaGetLastError();
 }
 
-// Phase 0 of either engine: the compaction alone, of the first blk stage
-// slots (every local walker's first record, as one departure stream) into
-// the outbox, which the caller has reset, and the empty carry pool.
+// Phase 0 of either engine: the histogram and the compaction of the first
+// blk stage slots (every local walker's first record, as one departure
+// stream) into the outbox, which the caller has reset, from carry pool 0
+// into pool 1, whose counts the caller has zeroed, as both pools'.
 extern "C" int trw_routed_start(const TrwRoutedLaunch* launch, int width,
                                 void* stream) {
   const TrwRoutedLaunch& a = *launch;
-  if (!launch_ok(a)) return (int)cudaErrorInvalidValue;
+  if (!launch_ok(a, 0)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const int64_t slots = a.blk;
   if (width == trw::kUniformWidth) {
-    trw::routed_compact_kernel<trw::kUniformWidth>
-        <<<a.num_shards, trw::kCompactThreads, 0, st>>>(a, 1, a.blk);
+    trw::routed_stage_hist_kernel<<<tile_grid(a, slots), trw::kTile, 0, st>>>(
+        a, slots);
+    compact<trw::kUniformWidth, 1>(a, slots, 0, st);
   } else if (width == trw::kNode2VecWidth) {
-    trw::routed_compact_kernel<trw::kNode2VecWidth>
-        <<<a.num_shards, trw::kCompactThreads, 0, st>>>(a, 1, a.blk);
+    trw::routed_stage_hist_kernel<<<tile_grid(a, slots), trw::kTile, 0, st>>>(
+        a, slots);
+    compact<trw::kNode2VecWidth, 1>(a, slots, 0, st);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -33,11 +33,18 @@ Where the JAX package runs ``shard_map`` over a device mesh, the port runs
 D logical shards on one device: each shard has its own graph slice (node
 meta, col) and its own views of the walk's buffers (walk rows, and per
 pipeline its outbox, inbox and carry pool), which the kernels take by base
-pointer; the phase loop runs on the host, and the in-flight count is read
-back once per phase for the loop test.  The phase body is a hand kernel on
-a CUDA device (K11 ``routed_uniform_phase``, K12 ``routed_node2vec_phase``,
-one call a phase for all shards: ``kernels/routed.cu``) and plain PyTorch
-on the CPU; the choice is the device's and nothing else's.  **So far every
+pointer.  The phase loop runs on the host and enqueues up to
+``PHASES_PER_READ`` phases between two reads of the phase counter and the
+in-flight count (on the card, a whole batch of the overlapped schedule as
+one replay of a CUDA graph).  The counter lives on the device: each phase
+adds one to it iff a record was in flight before it (the JAX loop's test),
+and once nothing is in flight nothing ever is again, so a phase enqueued
+after the end changes nothing; the host never enqueues past the phase
+budget.  The phase body is a hand kernel on a CUDA device (K11
+``routed_uniform_phase``, K12 ``routed_node2vec_phase``, one call a phase
+for all shards: ``kernels/routed.cu``; there each pipeline has two carry
+pools, one read and one filled a phase) and plain PyTorch on the CPU (one
+pool); the choice is the device's and nothing else's.  **So far every
 shard lives on one card.**
 
 Draws use the same (seed, stream, walker id, step, round) Threefry counters
@@ -90,6 +97,16 @@ _F_MODE, _F_HAS_A, _F_OVF, _F_LOG = 1, 2, 4, 32
 _STEP_MASK = (1 << 24) - 1
 SCHEDULES = ("serial", "overlapped")
 BODIES = ("kernel", "plain")
+# Phases the loop enqueues between two reads of the phase counter and the
+# in-flight count (chosen from H100 runs of chip_smoke.py, PERF.md §6).
+PHASES_PER_READ = 16
+# Schedules whose whole batches of phases replay on the card as one CUDA
+# graph of the walk's own phase calls, captured once a walk (PERF.md §6:
+# the overlapped schedule's two streams cost the host more than a replay;
+# a serial batch enqueues as fast as a capture).  A graph needs
+# PHASES_PER_READ a multiple of 4, so that a batch leaves the pipelines'
+# roles and live pools as it found them.
+GRAPH_SCHEDULES = ("overlapped",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,21 +257,30 @@ def _carry_candidates(carry, carry_n):
 
 class _Pipe:
     """One pipeline's exchange state, per shard: an outbox and an inbox (D,
-    cap, R), views of (D, D, cap, R) tensors; a carry pool (ccap, R+1)
-    compacted to the front; and the live counts ``live[s]`` = (records
-    boxed, records carried), a row of the engine's (pipelines, D, 2) int64
-    tensor.  K4 exchanges the per-shard views."""
+    cap, R), views of (D, D, cap, R) tensors; ``pools`` carry pools (ccap,
+    R+1) compacted to the front, of which ``parity`` is the live one (the
+    kernels read one and fill the other each phase; the plain body has
+    one); and the live counts ``live[s]`` = (records boxed, records
+    carried), a row of the engine's (pipelines, D, 2) int64 tensor.  K4
+    exchanges the per-shard views."""
 
-    def __init__(self, nshards, cap, ccap, width, dev, live):
+    def __init__(self, nshards, cap, ccap, width, dev, live, pools):
         shape = (nshards, nshards, cap, width)
         self.outbox = torch.empty(shape, dtype=torch.int32, device=dev)
         self.inbox = torch.empty(shape, dtype=torch.int32, device=dev)
-        self.carry = torch.zeros((nshards, ccap, width + 1),
+        self.carry = torch.zeros((nshards, pools, ccap, width + 1),
                                  dtype=torch.int32, device=dev)
+        self.parity = 0
         self.live = live
         self.exchange = exchange.ChunkExchange(list(self.outbox),
                                                list(self.inbox))
         self.launch = None  # the phase kernel's packed launch (on the card)
+        self.pool_count = None  # the kernels' counts of both pools
+
+    @property
+    def pool(self):
+        """The live carry pool of every shard, (D, ccap, R+1)."""
+        return self.carry[:, self.parity]
 
 
 class RoutedWalk:
@@ -265,7 +291,10 @@ class RoutedWalk:
     ``"plain"`` on the CPU).  The plain body on the card is what the kernels
     are held against; ``start``, ``phase``, ``inflight``, ``state`` and
     ``result`` step a walk phase by phase for that.  The plain body runs
-    every shard at once, on stacked copies of the shards' tables."""
+    every shard at once, on stacked copies of the shards' tables.  The
+    phase counter (``phases``) is a device tensor that each phase adds to
+    while anything is in flight, on the card in the body kernel and here in
+    tensor code."""
 
     def __init__(self, pgraph: PartitionedCSR, targets, walk_length: int,
                  key, cfg: RoutedConfig, schedule: str, body: str,
@@ -299,17 +328,22 @@ class RoutedWalk:
         self.stats[:, 0] = self.blk
         npipes = 2 if schedule == "overlapped" else 1
         self.live = torch.zeros((npipes, d, 2), dtype=torch.int64, device=dev)
+        self._counter = torch.zeros((1,), dtype=torch.int64, device=dev)
         self.pipes = [_Pipe(d, self.cap, self.ccap, self.width, dev,
-                            self.live[p]) for p in range(npipes)]
-        self.phases = 0
+                            self.live[p], 2 if body == "kernel" else 1)
+                      for p in range(npipes)]
+        self.enqueued = 0  # phases enqueued, no-ops after the end included
         self._stream = None
+        self._graph = None  # (CUDA graph of a batch, the launches it makes)
         if body == "kernel":
-            slots = max(d * self.cap, self.blk)  # phase 0 stages blk
-            self._stage = torch.empty((d, slots, self.width),
-                                      dtype=torch.int32, device=dev)
-            self._code = torch.empty((d, slots), dtype=torch.int32,
-                                     device=dev)
+            shapes = bindings.routed_scratch_shapes(d, self.cap, self.ccap,
+                                                    self.blk, self.width)
+            self._stage, self._code, self._hist = (
+                torch.empty((d, *shapes[k]), dtype=torch.int32, device=dev)
+                for k in ("stage", "code", "hist"))
             for pipe in self.pipes:
+                pipe.pool_count = torch.zeros((d, *shapes["pool_count"]),
+                                              dtype=torch.int32, device=dev)
                 pipe.launch = self._pack_launch(pipe)
             if npipes == 2:
                 self._stream = torch.cuda.Stream(device=dev)
@@ -349,12 +383,14 @@ class RoutedWalk:
                     keep, dest0, -1).view(d, blk).to(torch.int32)
                 pipe.outbox.zero_()
                 pipe.outbox[..., 0] = _SENTINEL
-                bindings.routed_start(pipe.launch)
+                pipe.pool_count.zero_()
+                bindings.routed_start(pipe.launch)  # pool 0 into pool 1
+                pipe.parity = 1
                 continue
             carry, carried, boxed, ovf = build_outbox(
-                [(rec0[keep], dest0[keep], shard0[keep])], pipe.carry,
+                [(rec0[keep], dest0[keep], shard0[keep])], pipe.pool,
                 self.cap, pipe.outbox)
-            pipe.carry.copy_(carry)
+            pipe.pool.copy_(carry)
             pipe.live[:, 0] = boxed
             pipe.live[:, 1] = carried
             self.stats[:, 2] += ovf
@@ -366,12 +402,16 @@ class RoutedWalk:
     def phase(self) -> None:
         """One body of the schedule: serial, exchange the pipeline and
         process it; overlapped, exchange pipeline X while processing Y,
-        then swap them."""
+        then swap them.  The phase counter adds one if anything was in
+        flight before (the kernels' body does it on the card)."""
+        if self.body == "plain":
+            self._counter += (self.live.sum() > 0).to(torch.int64)
         if len(self.pipes) == 1:
             self.pipes[0].exchange()
             self.process(self.pipes[0])
         else:
-            x, y = self.pipes[self.phases % 2], self.pipes[1 - self.phases % 2]
+            x = self.pipes[self.enqueued % 2]
+            y = self.pipes[1 - self.enqueued % 2]
             if self._stream is not None:
                 main = torch.cuda.current_stream(self.pgraph.device)
                 self._stream.wait_stream(main)
@@ -382,7 +422,12 @@ class RoutedWalk:
             else:
                 x.exchange()
                 self.process(y)
-        self.phases += 1
+        self.enqueued += 1
+
+    @property
+    def phases(self) -> int:
+        """Phases run while anything was in flight (reads the counter)."""
+        return int(self._counter)
 
     def inflight(self) -> int:
         """Records still travelling anywhere: boxed or carried, in every
@@ -396,9 +441,10 @@ class RoutedWalk:
         updated."""
         if self.body == "kernel":
             if self.n2v is None:
-                bindings.routed_uniform_phase(pipe.launch)
+                bindings.routed_uniform_phase(pipe.launch, pipe.parity)
             else:
-                bindings.routed_node2vec_phase(pipe.launch)
+                bindings.routed_node2vec_phase(pipe.launch, pipe.parity)
+            pipe.parity = 1 - pipe.parity
             return
         # Only the arrived records can depart: the body runs on those, in
         # slot order, each with its shard.
@@ -408,13 +454,13 @@ class RoutedWalk:
         self._my = slot // (self.nshards * self.cap)
         streams = (self._uniform_body(recs) if self.n2v is None
                    else self._node2vec_body(recs))
-        cands = [_carry_candidates(pipe.carry, pipe.live[:, 1])]
+        cands = [_carry_candidates(pipe.pool, pipe.live[:, 1])]
         for r, dst, valid in streams:
             cands.append((r[valid], dst[valid], self._my[valid]))
             self.stats[:, 1].index_add_(0, self._my, valid.to(torch.int64))
-        carry, carried, boxed, ovf = build_outbox(cands, pipe.carry,
+        carry, carried, boxed, ovf = build_outbox(cands, pipe.pool,
                                                   self.cap, pipe.outbox)
-        pipe.carry.copy_(carry)
+        pipe.pool.copy_(carry)
         pipe.live[:, 0] = boxed
         pipe.live[:, 1] = carried
         self.stats[:, 2] += ovf
@@ -624,13 +670,15 @@ class RoutedWalk:
         shards = [bindings.RoutedShard(
             meta=pg.node_meta[s], col=pg.col[s], walks=self.walks[s],
             inbox=pipe.inbox[s], outbox=pipe.outbox[s], carry=pipe.carry[s],
-            stage=self._stage[s], code=self._code[s],
+            stage=self._stage[s], code=self._code[s], hist=self._hist[s],
+            pool_count=pipe.pool_count[s],
             hash_table=tables[s] if tables is not None else None,
             bloom=n2v.blooms[s] if n2v is not None else None,
             salt=int(n2v.salts[s]) if tables is not None else 0)
             for s in range(self.nshards)]
         return bindings.routed_phase_launch(
-            shards, self.stats, pipe.live, shard_nodes=pg.shard_nodes,
+            shards, self.stats, pipe.live, self.live.view(-1), self._counter,
+            shard_nodes=pg.shard_nodes,
             blk=self.blk, walk_length=self.walk_length, cap=self.cap,
             ccap=self.ccap, key=self.key, node2vec=n2v)
 
@@ -645,22 +693,68 @@ class RoutedWalk:
         for p, pipe in enumerate(self.pipes):
             out[f"outbox{p}"] = pipe.outbox
             out[f"carry{p}"] = [c[: int(n)] for c, n in
-                                zip(pipe.carry, pipe.live[:, 1].tolist())]
+                                zip(pipe.pool, pipe.live[:, 1].tolist())]
         return out
 
     def run(self):
         """Phase 0, then bodies while anything is in flight and the budget
-        lasts.  Returns (walks (B, L+1) int32, info)."""
+        lasts, enqueued PHASES_PER_READ at a time between two reads of the
+        phase counter and the in-flight count; a batch never passes the
+        budget, and its phases after the end are no-ops.  (The JAX serial
+        loop's first test counts the boxed records only: after phase 0
+        nothing is carried unless something is boxed.)  Returns (walks (B,
+        L+1) int32, info)."""
         self.start()
-        if len(self.pipes) == 1:
-            # The JAX serial loop's first test counts the boxed records.
-            inflight = int(self.live[..., 0].sum())
-        else:
-            inflight = self.inflight()
-        while inflight > 0 and self.phases < self.max_phases:
-            self.phase()
-            inflight = self.inflight()
+        phases, inflight = self._read()
+        while inflight > 0 and phases < self.max_phases:
+            n = min(PHASES_PER_READ, self.max_phases - phases)
+            if (n == PHASES_PER_READ and n % 4 == 0 and self.body == "kernel"
+                    and self.schedule in GRAPH_SCHEDULES):
+                self._replay(n)
+            else:
+                for _ in range(n):
+                    self.phase()
+            phases, inflight = self._read()
         return self.result()
+
+    def _replay(self, k: int) -> None:
+        """k phases as one replay of a CUDA graph of the walk's phase calls,
+        captured at the first batch: every batch starts with the pipelines'
+        roles and live pools as the first one did, since k is a multiple of
+        4.  The kernels' launch counts take the replay's launches."""
+        if self._graph is None:
+            before = dict(bindings.launch_counts)
+            enqueued = self.enqueued
+            parities = [pipe.parity for pipe in self.pipes]
+            # Captured on a side stream, without torch.cuda.graph's garbage
+            # collection and cache flush, which would cost more than the
+            # batch: a walk captures its own graph once.
+            graph = torch.cuda.CUDAGraph()
+            main = torch.cuda.current_stream(self.pgraph.device)
+            side = torch.cuda.Stream(device=self.pgraph.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                graph.capture_begin()
+                for _ in range(k):
+                    self.phase()
+                graph.capture_end()
+            main.wait_stream(side)
+            made = {n: c - before[n] for n, c in bindings.launch_counts.items()
+                    if c != before[n]}
+            bindings.launch_counts.update(before)  # captured, not launched
+            self.enqueued = enqueued
+            assert [pipe.parity for pipe in self.pipes] == parities
+            self._graph = (graph, made)
+        graph, made = self._graph
+        graph.replay()
+        for name, count in made.items():
+            bindings.launch_counts[name] += count
+        self.enqueued += k
+
+    def _read(self) -> tuple[int, int]:
+        """(phases, records in flight), in one read from the device."""
+        return tuple(torch.cat([self._counter, self.live.sum().view(1)])
+                     .tolist())
 
     def result(self):
         """(walks (B, L+1) int32, info) as the walk stands; raises if a
