@@ -22,7 +22,12 @@ the triples with 16 pseudo relations; padding N, restart, seed 7):
 and p=0.5 q=2 (K8), ``walk_triples`` through both entries (K9) and both
 triple window generators
 at W=5 (K10), on the graph and on a copy whose last quarter of nodes has no
-out-edges.  It checks the results and
+out-edges; and those families routed over the 8 shards with 32 768 walkers
+(``walk_edge_list_partitioned_routed`` with restart and absorbing through
+K14, ``walk_edge_list_node2vec_partitioned_routed`` at p=0.5 q=2 with the
+edge-list cuckoo tables and with Bloom filters and saturated ones through
+K15, ``walk_triples_partitioned_routed`` through K13; both schedules; both
+copies).  It checks the results and
 measures every kernel at the shape the main path gives it; the two loss
 kernels also with float32 tables, each with its tile plan and its device time
 by kernel.  The ``build`` line reports each loss kernel's registers and
@@ -76,12 +81,17 @@ take minutes at full depth.  The small checks hold K11 and K12 against the
 plain bodies phase by phase on a 3 000-node graph with dead ends (D = 1, 2,
 8, 16, L = 1 and 12, both schedules, a filling carry pool, one of many
 tiles and an overflowing one, both membership tests, saturated
-filters).
+filters), and K13-K15 the same way on that graph's families.  The routed
+family legs (``phase_routed_families``) hold K13-K15 against the plain
+bodies state by state for the first 8 phases and whole, each leg against
+the single-device walks (K7, K8, K9) and every hop against the graph,
+then time them as the routed CSR legs.
 
 Every phase prints one JSON line.  The line before the last two is
 ``{"kernels": [...]}`` with, per kernel, its launches on the main path (the
 sampling run and the training run, each counted from zero, added up; for
-K7-K10 the families' run, counted from zero), its
+K7-K10 the families' run and for K13-K15 the routed families' run, each
+counted from zero), its
 largest deviation from the plain version (0 for the integer kernels; for the
 two float kernels the limits are ``LOSS_REL_LIMIT`` and ``GRAD_REL_LIMIT``
 below), its time, the plain version's time,
@@ -242,12 +252,29 @@ KERNEL_FACTS = {
         "torch_random_walk_tpu/parallel/partition_v2.py:675 (process of "
         "_routed_n2v_jit with _build_outbox:176; XLA program, no Pallas "
         "counterpart)"),
+    "routed_triples_phase": (
+        "torch_random_walk_tpu_torch/kernels/routed_families.cu",
+        "torch_random_walk_tpu/parallel/partition_v2.py:1163 (process of "
+        "_routed_triples_jit:1121 with _build_outbox:176; XLA program, no "
+        "Pallas counterpart)"),
+    "routed_edge_list_phase": (
+        "torch_random_walk_tpu_torch/kernels/routed_families.cu",
+        "torch_random_walk_tpu/parallel/partition_v2.py:1420 (process of "
+        "_routed_edge_list_jit:1388 with _build_outbox:176; XLA program, no "
+        "Pallas counterpart)"),
+    "routed_edge_list_node2vec_phase": (
+        "torch_random_walk_tpu_torch/kernels/routed_families.cu",
+        "torch_random_walk_tpu/parallel/partition_v2.py:1774 (process of "
+        "_routed_edge_list_n2v_jit:1678 with _build_outbox:176; XLA program, "
+        "no Pallas counterpart)"),
 }
 INTEGER_KERNELS = ("uniform_walk_csr", "node2vec_walk_csr_mixture",
                    "node2vec_walk_csr_rejection", "to_windows",
                    "all_to_all_chunks", "routed_uniform_phase",
                    "routed_node2vec_phase")
 ROUTED_KERNELS = ("routed_uniform_phase", "routed_node2vec_phase")
+ROUTED_FAMILY_KERNELS = ("routed_triples_phase", "routed_edge_list_phase",
+                         "routed_edge_list_node2vec_phase")
 T0 = time.perf_counter()
 
 
@@ -628,9 +655,9 @@ FAMILY_FUNCTIONS = {
 }
 
 
-# K11 and K12: the body kernels (K12's by membership flag), the tiled
-# compaction by record width and streams (one stream: phase 0), and phase
-# 0's histogram.
+# K11-K15: the body kernels (K12's by membership flag, K14's and K15's by
+# restart flag), the tiled compaction by record width and streams (one
+# stream: phase 0), and phase 0's histogram.
 ROUTED_FUNCTIONS = {
     "routed_uniform_body_kernel": "K11 body",
     "routed_compact_kernelILi3ELi2EE": "K11 compaction",
@@ -640,6 +667,15 @@ ROUTED_FUNCTIONS = {
     "routed_compact_kernelILi14ELi4EE": "K12 compaction",
     "routed_compact_kernelILi14ELi1EE": "K12 phase 0 compaction",
     "routed_stage_hist_kernel": "phase 0 histogram",
+    "routed_triples_body_kernel": "K13 body",
+    "routed_edge_list_body_kernelILb1E": "K14 body, restart",
+    "routed_edge_list_body_kernelILb0E": "K14 body, absorbing",
+    "routed_compact_kernelILi4ELi2EE": "K13/K14 compaction",
+    "routed_compact_kernelILi4ELi1EE": "K13/K14 phase 0 compaction",
+    "routed_edge_list_node2vec_body_kernelILb1E": "K15 body, restart",
+    "routed_edge_list_node2vec_body_kernelILb0E": "K15 body, absorbing",
+    "routed_compact_kernelILi15ELi4EE": "K15 compaction",
+    "routed_compact_kernelILi15ELi1EE": "K15 phase 0 compaction",
 }
 
 
@@ -833,7 +869,7 @@ def phase_build() -> None:
             f"ptxas reported no registers for K7-K10: {family_ptxas}")
     require(all(routed_ptxas.get(k, {}).get("registers")
                 for k in ROUTED_FUNCTIONS),
-            f"ptxas reported no registers for K11/K12: {routed_ptxas}")
+            f"ptxas reported no registers for K11-K15: {routed_ptxas}")
     # K2's launch geometry, and how many blocks of 64, 128 and 256 threads
     # one SM holds at its register count.
     emit("walk_geometry", kernel="node2vec_walk_csr", geometry={
@@ -909,7 +945,8 @@ def phase_small_checks() -> None:
     # 16-byte boundary (4-byte words).
     for shards, cap, width, offset in [
             (8, 128, 3, 0), (8, 5, 3, 0), (8, 256, 14, 0), (1, 2048, 3, 0),
-            (2, 1, 14, 0), (16, 128, 3, 0), (8, 2048, 3, 1)]:
+            (2, 1, 14, 0), (16, 128, 3, 0), (8, 2048, 3, 1), (8, 128, 4, 0),
+            (8, 256, 15, 0), (8, 5, 15, 1)]:
         x = rng.integers(-2**31, 2**31, (shards, shards, cap, width))
         outboxes = []
         for s in range(shards):
@@ -921,6 +958,7 @@ def phase_small_checks() -> None:
             exchange.all_to_all_chunks_plain(outboxes)))
     errs["all_to_all_chunks"] = worst
     errs.update(routed_small_checks(graph.device))
+    errs.update(routed_family_small_checks(graph.device))
     # K5/K6: ragged width, a window of one center, -1 ids, both table types,
     # and a shape that takes the negatives in chunks (D > 256).
     float_errs = {}
@@ -941,8 +979,8 @@ def phase_small_checks() -> None:
     emit("kernels_small", max_abs_err=errs, tolerance=0,
          walk_sgns_loss=float_errs,
          walk_sgns_loss_limits=[LOSS_REL_LIMIT, GRAD_REL_LIMIT])
-    require(set(errs) == set(INTEGER_KERNELS), "a kernel was not held "
-            "against its plain version")
+    require(set(errs) == set(INTEGER_KERNELS) | set(ROUTED_FAMILY_KERNELS),
+            "a kernel was not held against its plain version")
     require(all(e == 0 for e in errs.values()), f"kernel != plain: {errs}")
     require(float_errs["loss_rel_err"] <= LOSS_REL_LIMIT
             and float_errs["grad_rel_err"] <= GRAD_REL_LIMIT,
@@ -1425,7 +1463,7 @@ def routed_small_checks(device) -> dict:
         (16, ("overlapped",), 12, None, ("cuckoo",)),
         (2, partition_v2.SCHEDULES, 12, tiles, ("cuckoo",)),
     ]
-    errs = dict.fromkeys(ROUTED_KERNELS, 0)
+    errs = dict.fromkeys(ROUTED_KERNELS, 0)  # K11, K12
     for d, schedules, length, cfg, n2v in cases:
         t = targets[8 * walkers if cfg is tiles else walkers]
         hashes, blooms = tables[d]
@@ -2355,6 +2393,370 @@ def phase_family_kernels(el, tg, targets, launches, checked) -> list[dict]:
     return rows
 
 
+# --- the routed edge-list and KG-triples engines (K13-K15) ---------------------
+
+# leg: (engine, restart, filters of the biased engine).  All at the families'
+# bench setting: padding N, seed 7, the bench targets' first ROUTED_WALKERS.
+ROUTED_FAMILY_LEGS = {
+    "edge_uniform_restart": ("edge_list", True, None),
+    "edge_uniform_absorbing": ("edge_list", False, None),
+    "edge_n2v": ("edge_list_node2vec", True, "blooms"),
+    "edge_n2v_saturated": ("edge_list_node2vec", True, "saturated"),
+    "triples": ("triples", True, None),
+}
+ROUTED_FAMILY_STREAMS = {"triples": prng.STREAM_TRIPLES,
+                         "edge_list": prng.STREAM_EDGE_UNIFORM,
+                         "edge_list_node2vec": prng.STREAM_EDGE_BIASED}
+# The leg each family kernel's row is measured on (serial schedule).
+ROUTED_FAMILY_ROW_LEGS = {"routed_triples_phase": "triples",
+                          "routed_edge_list_phase": "edge_uniform_restart",
+                          "routed_edge_list_node2vec_phase": "edge_n2v"}
+
+
+def routed_family_parts(el, tg, shards=NUM_SHARDS):
+    """Both families partitioned over ``shards`` and the edge list's cuckoo
+    tables and Bloom filters, built on the card; with build times and
+    sizes."""
+    parts, part_ms = wall_ms(lambda: {
+        "edge": tt.PartitionedEdgeList.from_edge_list(el, shards),
+        "triples": tt.PartitionedTriples.from_triples(tg, shards)})
+    hashes, hash_ms = wall_ms(
+        lambda: tt.build_edge_list_partition_hashes(parts["edge"], el))
+    blooms, bloom_ms = wall_ms(
+        lambda: tt.build_edge_list_partition_blooms(parts["edge"], el))
+    parts["tables"] = (hashes, blooms)
+    return parts, {
+        "partition_ms": part_ms, "hash_build_ms": hash_ms,
+        "bloom_build_ms": bloom_ms, "hash_log_size": hashes[2],
+        "hash_bytes": hashes[0].numel() * 4, "bloom_bytes": blooms.numel() * 4,
+        "tails_bytes": sum(c.numel() * 4 for c in parts["edge"].col),
+        "rel_tail_bytes": sum(c.numel() * 4 for c in parts["triples"].col)}
+
+
+def routed_family_call(leg, parts, targets, schedule="serial",
+                       walk_length=WALK_LENGTH):
+    """The leg once through its public entry point."""
+    engine, restart, filters = ROUTED_FAMILY_LEGS[leg]
+    kw = dict(seed=FAMILY_SEED, schedule=schedule)
+    if engine == "triples":
+        return tt.walk_triples_partitioned_routed(
+            parts["triples"], targets, walk_length, NUM_NODES, **kw)
+    if engine == "edge_list":
+        return tt.walk_edge_list_partitioned_routed(
+            parts["edge"], targets, walk_length, NUM_NODES, restart=restart,
+            **kw)
+    hashes, blooms = parts["tables"]
+    return tt.walk_edge_list_node2vec_partitioned_routed(
+        parts["edge"], hashes, targets, P, Q, walk_length, NUM_NODES,
+        restart=restart, spec_rounds=SPEC_ROUNDS,
+        blooms=blooms if filters == "blooms" else None, **kw)
+
+
+def routed_family_walk(leg, parts, targets, schedule, body, config=None,
+                       walk_length=WALK_LENGTH, pad=NUM_NODES):
+    """A ``RoutedWalk`` of the leg with the phase ``body`` given, configured
+    as its entry point resolves ``config``, with padding ``pad``."""
+    engine, restart, filters = ROUTED_FAMILY_LEGS[leg]
+    pg = parts["triples" if engine == "triples" else "edge"]
+    cfg = tt.RoutedConfig.resolve(config, int(targets.shape[0]),
+                                  pg.num_shards, walk_length)
+    routing = None
+    if engine == "edge_list_node2vec":
+        if config is None or config.max_phases <= 0:
+            cfg = partition_v2._biased_phase_budget(cfg, walk_length,
+                                                    SPEC_ROUNDS)
+        hashes, blooms = parts["tables"]
+        routing = partition_v2.node2vec_routing(
+            pg, P, Q, SPEC_ROUNDS, hashes,
+            blooms if filters == "blooms" else None)
+    key = prng.derive_key(FAMILY_SEED, ROUTED_FAMILY_STREAMS[engine])
+    return partition_v2.RoutedWalk(pg, targets, walk_length, key, cfg,
+                                   schedule, body, node2vec=routing,
+                                   engine=engine, padding=pad,
+                                   restart=restart)
+
+
+def single_device_family_walk(leg, el, tg, targets):
+    """The single-device walk the leg equals (padding N, targets in
+    [0, N)): K7, K8 or K9 through the graph entry."""
+    engine, restart, _ = ROUTED_FAMILY_LEGS[leg]
+    if engine == "triples":
+        return tt.walk_triples(tg, target_nodes=targets,
+                               walk_length=WALK_LENGTH, seed=FAMILY_SEED,
+                               padding_idx=NUM_NODES)
+    pq = (P, Q) if engine == "edge_list_node2vec" else (1.0, 1.0)
+    return tt.walk_edge_list(el, target_nodes=targets, p=pq[0], q=pq[1],
+                             walk_length=WALK_LENGTH, seed=FAMILY_SEED,
+                             padding_idx=NUM_NODES, restart=restart)
+
+
+def routed_family_small_checks(device) -> dict:
+    """K13, K14 (restart and absorbing) and K15 (Bloom filters and saturated
+    ones) against the plain bodies phase by phase on the small graph with
+    dead ends: every leg at D = 8 under both schedules, and one leg of each
+    kernel at L = 1, D = 1 and 16, with a pair capacity that fills the
+    carry pool and one of many tiles; K14 with one whose pool overflows
+    (both runs must raise alike; no other case may raise).  Returns the
+    largest difference of each kernel."""
+    graph = small_routed_graph(device)
+    el, tg = family_graphs(graph)
+    walkers = 1024
+    rng = np.random.default_rng(10)
+    targets = {n: common.as_int32(rng.integers(0, graph.num_nodes, n), device)
+               for n in (walkers, 8 * walkers)}
+    parts = {d: routed_family_parts(el, tg, d)[0] for d in (1, 2, 8, 16)}
+    t0 = time.perf_counter()
+    carry = tt.RoutedConfig(pair_capacity=16, carry_capacity=walkers)
+    overflow = tt.RoutedConfig(pair_capacity=2, carry_capacity=5)
+    tiles = tt.RoutedConfig(pair_capacity=160, carry_capacity=8 * walkers)
+    every = tuple(ROUTED_FAMILY_LEGS)
+    one_each = ("triples", "edge_uniform_restart", "edge_n2v")
+    # (shards, schedules, walk length, config, legs)
+    cases = [(8, partition_v2.SCHEDULES, 12, None, every),
+             (8, ("serial",), 1, None, one_each),
+             (8, partition_v2.SCHEDULES, 12, carry, one_each),
+             (8, ("serial",), 12, overflow, ("edge_uniform_restart",)),
+             (1, ("serial",), 12, None, one_each),
+             (16, ("overlapped",), 12, None, one_each),
+             (2, ("serial",), 12, tiles, one_each)]
+    errs = dict.fromkeys(ROUTED_FAMILY_KERNELS, 0)
+    for d, schedules, length, cfg, legs in cases:
+        t = targets[8 * walkers if cfg is tiles else walkers]
+        for schedule in schedules:
+            for leg in legs:
+                kernel = bindings.ROUTED_ENGINES[
+                    ROUTED_FAMILY_LEGS[leg][0]].kernel
+                got = routed_lockstep(lambda body: routed_family_walk(
+                    leg, parts[d], t, schedule, body, cfg, length,
+                    graph.num_nodes))
+                raised = isinstance(got.get("result"), str)
+                if cfg is overflow:
+                    require(raised and "incomplete" in got["result"],
+                            f"{leg}: an overflowing pool did not raise")
+                else:
+                    require(not raised, f"{leg} (D={d}, {schedule}, "
+                            f"L={length}) raised: {got.get('result')}")
+                errs[kernel] = max(errs[kernel], got["max_abs_err"])
+    emit("routed_family_small", seconds=time.perf_counter() - t0,
+         max_abs_err=errs)
+    return errs
+
+
+def phase_routed_families_main_path(graph):
+    """The routed family legs once through the public entry points (serial
+    schedule, D=NUM_SHARDS, ROUTED_WALKERS walkers, L=WALK_LENGTH), with the
+    launch counts set to 0 just before and read just after."""
+    targets = bench_targets(graph.device)[:ROUTED_WALKERS]
+    el, tg = family_graphs(graph)
+    parts, facts = routed_family_parts(el, tg)
+    emit("routed_family_tables", **facts)
+    torch.cuda.synchronize()
+    bindings.reset_launch_counts()
+    out, first_ms = {}, {}
+    for leg in ROUTED_FAMILY_LEGS:
+        out[leg], first_ms[leg] = wall_ms(
+            lambda: routed_family_call(leg, parts, targets))
+    launches = dict(bindings.launch_counts)
+    emit("routed_family_main_path", launches={
+        k: launches[k] for k in (*ROUTED_FAMILY_KERNELS, "all_to_all_chunks")},
+        first_call_ms=first_ms)
+    calls = Counter()
+    for leg, (engine, _, _) in ROUTED_FAMILY_LEGS.items():
+        calls[bindings.ROUTED_ENGINES[engine].kernel] += routed_calls(
+            out[leg][1]["phases"]) + 1
+    for name in ROUTED_FAMILY_KERNELS:
+        require(launches[name] == calls[name] > 0,
+                f"{name}: one call an enqueued phase and one for phase 0 "
+                f"expected, got {launches[name]} for {calls[name]}")
+    require(launches["all_to_all_chunks"] == sum(calls.values())
+            - len(ROUTED_FAMILY_LEGS), "one exchange launch per enqueued "
+            "phase expected")
+    return el, tg, parts, targets, out, launches
+
+
+def check_routed_family_legs(el, tg, parts, targets, out, label) -> dict:
+    """Each leg's walks (serial, through the entry point): shape, ids in
+    [0, N], every walker terminated and nothing dropped, every hop an edge,
+    a triple or a padding move, equal to the single-device walk (K7, K8,
+    K9) where the restart legs' setting makes them equal; then the kernel
+    against the plain body on the card state by state for the first
+    ROUTED_CHECKED_PHASES phases of each leg and schedule, the whole plain
+    leg (serial) against the kernel leg, and the overlapped kernel leg
+    against the serial one.  Returns the checks and plain legs' times."""
+    checks, plain = {}, {}
+    for leg, (engine, restart, _) in ROUTED_FAMILY_LEGS.items():
+        walks, info = out[leg]
+        cols = 2 * WALK_LENGTH + 1 if engine == "triples" else WALK_LENGTH + 1
+        require(tuple(walks.shape) == (ROUTED_WALKERS, cols)
+                and bool(((walks >= 0) & (walks <= NUM_NODES)).all()),
+                f"{label} {leg}: wrong shape or id out of range")
+        require(info["terminated"] == ROUTED_WALKERS
+                and info["overflow_dropped"] == 0,
+                f"{label} {leg}: walkers lost: {info}")
+        hops = (triple_hops_ok(tg, walks, NUM_NODES) if engine == "triples"
+                else edge_hops_ok(el, walks, targets, NUM_NODES, restart))
+        require(hops, f"{label} {leg}: a hop is neither an edge, a triple "
+                "nor a padding move")
+        same = max_abs_err(walks, single_device_family_walk(leg, el, tg,
+                                                            targets))
+        require(same == 0, f"{label} {leg}: the routed walks differ from "
+                "the single-device kernel's")
+        lock = {}
+        for schedule in partition_v2.SCHEDULES:
+            lock[schedule] = routed_lockstep(
+                lambda body: routed_family_walk(leg, parts, targets,
+                                                schedule, body),
+                ROUTED_CHECKED_PHASES)
+        (pw, pinfo), ms = wall_ms(lambda: routed_family_walk(
+            leg, parts, targets, "serial", "plain").run())
+        over_w, over_info = routed_family_call(leg, parts, targets,
+                                               "overlapped")
+        # The overlapped schedule takes its own phase count.
+        same_counts = {k: v for k, v in over_info.items()
+                       if k not in ("phases", "collectives_per_step")} == {
+            k: v for k, v in info.items()
+            if k not in ("phases", "collectives_per_step")}
+        leg_err = max(max_abs_err(walks, pw), int(pinfo != info),
+                      max_abs_err(over_w, walks), int(not same_counts))
+        plain[leg] = {"ms": ms, "phases": pinfo["phases"]}
+        checks[leg] = {"lockstep": lock, "whole_leg_err": leg_err,
+                       "overlapped_phases": over_info["phases"],
+                       "max_abs_err": max(leg_err, *(
+                           c["max_abs_err"] for c in lock.values()))}
+    emit("routed_family_checks", graph=label, checks=checks, plain_leg_ms={
+        k: v["ms"] for k, v in plain.items()}, tolerance=0,
+        padding_share={leg: float((out[leg][0][:, 1:] == NUM_NODES)
+                                  .float().mean()) for leg in out})
+    require(all(c["max_abs_err"] == 0 for c in checks.values()),
+            f"{label}: a family phase kernel differs from the plain body: "
+            f"{checks}")
+    return {"checks": checks, "plain": plain}
+
+
+def phase_routed_families(graph) -> list[dict]:
+    """The routed edge-list and KG-triples legs at the bench shape (D=8,
+    ROUTED_WALKERS walkers, L=WALK_LENGTH, padding N, seed 7): the main path
+    through the entry points, every leg checked (``check_routed_family_legs``)
+    on the bench families and on the copy whose last quarter of nodes has no
+    out-edges; each leg warm under both schedules (host clock, three after
+    one warm-up); K13's, K14's and K15's device time a call by CUDA events
+    around every call of one warm serial leg; the card's launches a phase,
+    idle share and the compaction's, bodies' and K4's device time a phase
+    by torch.profiler over one warm serial leg.  Returns K13-K15's rows."""
+    el, tg, parts, targets, out, launches = \
+        phase_routed_families_main_path(graph)
+    checked = check_routed_family_legs(el, tg, parts, targets, out, "bench")
+
+    timed = {}
+    for leg in ROUTED_FAMILY_LEGS:
+        for schedule in partition_v2.SCHEDULES:
+            routed_family_call(leg, parts, targets, schedule)  # warm
+            runs = [wall_ms(lambda: routed_family_call(leg, parts, targets,
+                                                       schedule))
+                    for _ in range(3)]
+            info = runs[0][0][1]
+            ms = [m for _, m in runs]
+            timed[f"{leg}_{schedule}"] = {
+                "info": info, "warm_leg_ms": ms,
+                "node_steps_per_s": ROUTED_WALKERS * WALK_LENGTH
+                / (statistics.median(ms) / 1e3),
+                "exchange_bytes_per_step": info["exchange_bytes"]
+                / max(info["log_entries"], 1)}
+            require(all(r[0][1] == info for r in runs)
+                    and all(max_abs_err(r[0][0], out[leg][0]) == 0
+                            for r in runs),
+                    f"{leg} {schedule}: the warm legs differ")
+    per_call, profiled = {}, {}
+    for kernel, leg in ROUTED_FAMILY_ROW_LEGS.items():
+        with routed_loop(partition_v2.PHASES_PER_READ, False):
+            (_, info), ms = phase_call_ms(
+                bindings, kernel, lambda: routed_family_call(leg, parts,
+                                                             targets))
+        phases = info["phases"]
+        require(len(ms) == routed_calls(phases),
+                "one call an enqueued phase expected")
+        per_call[kernel] = {
+            "calls": len(ms), "noop_calls": len(ms) - phases,
+            "device_ms_per_call": sum(ms[:phases]) / phases}
+        (_, info), leg_ms, kernels = profile_device(
+            lambda: routed_family_call(leg, parts, targets))
+        busy = sum(v for _, v in kernels.values())
+        n = sum(c for c, _ in kernels.values())
+
+        def per_phase(part):
+            hits = [v for k, v in kernels.items() if part in k]
+            return {"launches": sum(c for c, _ in hits),
+                    "device_ms_per_phase": sum(m for _, m in hits) / phases}
+
+        profiled[kernel] = None if busy <= 0 else {
+            "leg": leg, "phases": phases, "leg_ms": leg_ms,
+            "device_launches_per_phase": n / phases, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / leg_ms,
+            "compaction": per_phase("routed_compact_kernel"),
+            "body": per_phase("body_kernel"),
+            "exchange": per_phase("all_to_all_chunks")}
+        require(profiled[kernel] is not None,
+                f"{kernel}: the profiler saw no device time")
+    emit("routed_families", walkers=ROUTED_WALKERS, shards=NUM_SHARDS,
+         walk_length=WALK_LENGTH, padding_idx=NUM_NODES, seed=FAMILY_SEED,
+         spec_rounds=SPEC_ROUNDS, p=P, q=Q, legs=timed, per_call=per_call,
+         profiled=profiled, timing="warm legs on the host clock, three "
+         "after one warm-up; per_call: CUDA events around every phase call "
+         "of one warm serial leg; profiled: torch.profiler, device activity "
+         "only, one warm serial leg")
+
+    dead_el, dead_tg = family_graphs(graph, dead_quarter=True)
+    dead_parts, _ = routed_family_parts(dead_el, dead_tg)
+    dead_out = {leg: routed_family_call(leg, dead_parts, targets)
+                for leg in ROUTED_FAMILY_LEGS}
+    dead = check_routed_family_legs(dead_el, dead_tg, dead_parts, targets,
+                                    dead_out, "last_quarter_dead")
+    # (The biased law moves an accepted padding on to the target at once.)
+    require(all(bool((dead_out[leg][0] == NUM_NODES).any()) for leg in (
+        "edge_uniform_restart", "edge_uniform_absorbing", "triples")),
+            "the dead-end copy never reached padding")
+    del dead_out, dead_parts, dead_el, dead_tg
+
+    rows = []
+    for kernel, leg in ROUTED_FAMILY_ROW_LEGS.items():
+        engine = ROUTED_FAMILY_LEGS[leg][0]
+        width = bindings.ROUTED_ENGINES[engine].width
+        info = out[leg][1]
+        phases = info["phases"]
+        prof = profiled[kernel]
+        # Bytes a leg needs: every record written once to an outbox and
+        # read once on arrival, every position logged (triples: a relation
+        # and an entity), and a step's meta row, payload row (triples: 8 B,
+        # edge list: a 4-byte tail) and, biased, its 16-byte filter.
+        logged = info["log_entries"] * (2 if engine == "triples" else 1)
+        per_step = {"triples": 16, "edge_list": 12,
+                    "edge_list_node2vec": 28}[engine]
+        moved = (2 * info["exchanged_records"] * width * 4 + logged * 4
+                 + info["log_entries"] * per_step)
+        errs = [checked["checks"][name]["max_abs_err"]
+                for name, (e, _, _) in ROUTED_FAMILY_LEGS.items()
+                if e == engine]
+        errs += [dead["checks"][name]["max_abs_err"]
+                 for name, (e, _, _) in ROUTED_FAMILY_LEGS.items()
+                 if e == engine]
+        source, replaces = KERNEL_FACTS[kernel]
+        rows.append({
+            "name": kernel, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[kernel],
+            "max_abs_err": max(errs),
+            "ms": (prof["body"]["device_ms_per_phase"]
+                   + prof["compaction"]["device_ms_per_phase"]),
+            "call_ms_events": per_call[kernel]["device_ms_per_call"],
+            "plain_ms": checked["plain"][leg]["ms"]
+            / checked["plain"][leg]["phases"],
+            "bound_ms": moved / phases / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None,
+            "leg_ms": statistics.median(timed[f"{leg}_serial"]["warm_leg_ms"]),
+            "plain_leg_ms": checked["plain"][leg]["ms"], "phases": phases,
+            "launches_by_run": {"routed_families": launches[kernel]}})
+    return rows
+
+
 # --- K7-K10 beside other checkouts' builds, in one process ---------------
 
 PACKAGE = "torch_random_walk_tpu_torch"
@@ -2599,6 +3001,13 @@ def main(argv=None) -> int:
     require([r["name"] for r in family_rows] == list(FAMILY_KERNELS)
             and all(r["launches"] > 0 and r["max_abs_err"] == 0
                     for r in family_rows), "a family kernel row is wrong")
+    routed_family_rows = phase_routed_families(graph)
+    rows += routed_family_rows
+    require([r["name"] for r in routed_family_rows]
+            == list(ROUTED_FAMILY_KERNELS)
+            and all(r["launches"] > 0 and r["max_abs_err"] == 0
+                    for r in routed_family_rows),
+            "a routed family kernel row is wrong")
     if args.compare:
         phase_compare_kernels(graph, args.compare)
     torch.cuda.synchronize()

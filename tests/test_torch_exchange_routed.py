@@ -218,7 +218,8 @@ def k4_block_copy(plan, x):
 
 
 @pytest.mark.parametrize("shards", [1, 2, 8, 16])
-@pytest.mark.parametrize("cap,width", [(1, 14), (5, 3), (128, 3), (2048, 3)])
+@pytest.mark.parametrize("cap,width", [(1, 14), (5, 3), (128, 3), (2048, 3),
+                                       (5, 4), (128, 15)])
 def test_exchange_block_mapping_mirror_equals_jax_layout(shards, cap, width):
     """K4's mapping, mirrored on the CPU, gives the layout of
     lax.all_to_all(split_axis=0, concat_axis=0) over the stacked shards (the
@@ -250,7 +251,7 @@ def test_exchange_kernel_equals_plain_version():
     rng = np.random.default_rng(5)
     for shards in (1, 2, 8, 16):
         for cap in (1, 5, 128, 2048):
-            for width in (3, 14):
+            for width in (3, 14, 4, 15):
                 # offset 1: every buffer one word off a 16-byte boundary, so
                 # the 4-byte path runs whatever the chunk size
                 for offset in (0, 1):

@@ -20,6 +20,7 @@ assert "torch_random_walk_tpu_torch.models.skipgram" in sys.modules
 assert "torch_random_walk_tpu_torch.models.node2vec" in sys.modules
 assert "torch_random_walk_tpu_torch.graph.bloom" in sys.modules
 assert "torch_random_walk_tpu_torch.graph.hashset" in sys.modules
+assert "torch_random_walk_tpu_torch.parallel.partition_v2" in sys.modules
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "optax" or m.startswith("optax.")

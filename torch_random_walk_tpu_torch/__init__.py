@@ -57,10 +57,17 @@ from torch_random_walk_tpu_torch.parallel.partition import (
     build_partition_hashes,
 )
 from torch_random_walk_tpu_torch.parallel.partition_v2 import (
+    PartitionedEdgeList,
+    PartitionedTriples,
     RoutedConfig,
+    build_edge_list_partition_blooms,
+    build_edge_list_partition_hashes,
     build_partition_blooms,
+    walk_edge_list_node2vec_partitioned_routed,
+    walk_edge_list_partitioned_routed,
     walk_partitioned_node2vec_routed,
     walk_partitioned_routed,
+    walk_triples_partitioned_routed,
 )
 
 __version__ = "0.1.0"
@@ -71,9 +78,13 @@ __all__ = [
     "Node2Vec",
     "Node2VecConfig",
     "PartitionedCSR",
+    "PartitionedEdgeList",
+    "PartitionedTriples",
     "RoutedConfig",
     "SkipGramModel",
     "TriplesGraph",
+    "build_edge_list_partition_blooms",
+    "build_edge_list_partition_hashes",
     "build_node_edge_index",
     "build_partition_blooms",
     "build_partition_hashes",
@@ -87,7 +98,10 @@ __all__ = [
     "to_windows_triples_cbow",
     "walk",
     "walk_edge_list",
+    "walk_edge_list_node2vec_partitioned_routed",
+    "walk_edge_list_partitioned_routed",
     "walk_partitioned_node2vec_routed",
     "walk_partitioned_routed",
     "walk_triples",
+    "walk_triples_partitioned_routed",
 ]

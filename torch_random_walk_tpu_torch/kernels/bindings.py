@@ -23,7 +23,9 @@ KERNEL_NAMES = ("uniform_walk_csr", "node2vec_walk_csr_mixture",
                 "walk_sgns_loss_bwd", "uniform_walk_edge_list",
                 "biased_walk_edge_list", "uniform_walk_triples",
                 "to_windows_triples", "to_windows_triples_cbow",
-                "routed_uniform_phase", "routed_node2vec_phase")
+                "routed_uniform_phase", "routed_node2vec_phase",
+                "routed_triples_phase", "routed_edge_list_phase",
+                "routed_edge_list_node2vec_phase")
 launch_counts = dict.fromkeys(KERNEL_NAMES, 0)
 
 _lib = None
@@ -86,8 +88,13 @@ def library(verbose: bool = False) -> ctypes.CDLL:
         lib.trw_routed_uniform_phase.argtypes = [_PTR, _I32, _PTR]
         lib.trw_routed_node2vec_phase.argtypes = [_PTR, _I32, _PTR]
         lib.trw_routed_start.argtypes = [_PTR, _I32, _PTR]
+        lib.trw_routed_triples_phase.argtypes = [_PTR, _I32, _PTR]
+        lib.trw_routed_edge_list_phase.argtypes = [_PTR, _I32, _PTR]
+        lib.trw_routed_edge_list_node2vec_phase.argtypes = [_PTR, _I32, _PTR]
         for fn in (lib.trw_routed_uniform_phase, lib.trw_routed_node2vec_phase,
-                   lib.trw_routed_start,
+                   lib.trw_routed_start, lib.trw_routed_triples_phase,
+                   lib.trw_routed_edge_list_phase,
+                   lib.trw_routed_edge_list_node2vec_phase,
                    lib.trw_uniform_walk_edge_list,
                    lib.trw_biased_walk_edge_list, lib.trw_uniform_walk_triples,
                    lib.trw_to_windows_triples_sg,
@@ -694,13 +701,42 @@ def walk_sgns_plan(in_emb, walks, neg_ids, window_size: int) -> dict:
             if any(r)}
 
 
-# K11/K12 take up to 256 shards (routed.cuh kRoutedMaxShards); a phase is two
-# launches, the body kernel and the compaction kernel, counted as one call;
-# phase 0 is a histogram launch and the compaction kernel, counted as one call
-# of the engine's kernel.  The compaction ranks tiles of ROUTED_TILE slots.
+# The routed phase kernels (K11-K15) take up to 256 shards (routed.cuh
+# kRoutedMaxShards); a phase is two launches, the body kernel and the
+# compaction kernel, counted as one call; phase 0 is a histogram launch and
+# the compaction kernel, counted as one call of the engine's kernel.  The
+# compaction ranks tiles of ROUTED_TILE slots.
 ROUTED_MAX_SHARDS = 256
 ROUTED_TILE = 256
-ROUTED_STREAMS = {3: 2, 14: 4}  # departure streams by record width
+ROUTED_STREAMS = {3: 2, 14: 4, 4: 2, 15: 4}  # departure streams by width
+
+
+class RoutedEngine(NamedTuple):
+    """A routed engine's record width, its phase kernel (its label, the
+    name of its wrapper and launch count, and its C entry point) and whether
+    it is a family engine (K13-K15: a fourth stats column, terminated
+    walkers; walk rows filled with the padding id)."""
+
+    width: int
+    label: str
+    kernel: str
+    entry: str
+    family: bool
+
+
+ROUTED_ENGINES = {
+    "uniform": RoutedEngine(3, "K11", "routed_uniform_phase",
+                            "trw_routed_uniform_phase", False),
+    "node2vec": RoutedEngine(14, "K12", "routed_node2vec_phase",
+                             "trw_routed_node2vec_phase", False),
+    "triples": RoutedEngine(4, "K13", "routed_triples_phase",
+                            "trw_routed_triples_phase", True),
+    "edge_list": RoutedEngine(4, "K14", "routed_edge_list_phase",
+                              "trw_routed_edge_list_phase", True),
+    "edge_list_node2vec": RoutedEngine(
+        15, "K15", "routed_edge_list_node2vec_phase",
+        "trw_routed_edge_list_node2vec_phase", True),
+}
 _ROUTED_SHARD_FIELDS = ("meta", "col", "walks", "inbox", "outbox", "carry",
                         "stage", "code", "hist", "pool_count", "hash_table",
                         "bloom")
@@ -724,12 +760,14 @@ def routed_scratch_shapes(num_shards: int, cap: int, ccap: int, blk: int,
 
 
 class RoutedShard(NamedTuple):
-    """One shard's buffers for K11/K12 (``routed.cuh`` ``RoutedShard``):
-    its (S, 2) meta rows and (E_max,) col, its (blk+1, L+2) walk rows, this
-    pipeline's (D, cap, R) inbox and outbox and its two (ccap, R+1) carry
-    pools as one (2, ccap, R+1) tensor, the stage, code and hist scratch and
-    the pipeline's pool counts (``routed_scratch_shapes``), and for K12 its
-    cuckoo table (or None) and (S, 4) Bloom filters, all int32 on one
+    """One shard's buffers for a routed phase kernel (``routed.cuh``
+    ``RoutedShard``): its (S, 2) meta rows and its payload ``col`` ((E_max,)
+    neighbour ids or tails; K13: (E_max, 2) [relation, tail] rows), its
+    (blk+1, walk_cols) walk rows, this pipeline's (D, cap, R) inbox and
+    outbox and its two (ccap, R+1) carry pools as one (2, ccap, R+1)
+    tensor, the stage, code and hist scratch and the pipeline's pool counts
+    (``routed_scratch_shapes``), and for K12 and K15 its cuckoo table (or
+    None: K12's binary search) and (S, 4) Bloom filters, all int32 on one
     card."""
 
     meta: torch.Tensor
@@ -758,39 +796,60 @@ class _RoutedLaunch(ctypes.Structure):
                 ("e_max", _I64), ("key0", _U32), ("key1", _U32),
                 ("spec_rounds", _I32), ("hash_log", _I32),
                 ("use_search", _I32), ("prob0", _F32), ("prob1", _F32),
-                ("prob2", _F32), ("lo_acc", _F32), ("hi_acc", _F32)]
+                ("prob2", _F32), ("lo_acc", _F32), ("hi_acc", _F32),
+                ("stats_width", _I32), ("walk_cols", _I32),
+                ("padding", _I32), ("restart", _I32)]
 
 
 class RoutedLaunch(NamedTuple):
     """A routed pipeline's phase launch, packed once: the scalars
     (``launch``, at ``address``), the device table of the shards' pointers
     and the buffers it points to (held, so that the pointers stay valid),
-    the card, and whether it is K12's (``node2vec``)."""
+    the card, and the engine it was packed for (a key of
+    ``ROUTED_ENGINES``)."""
 
     launch: _RoutedLaunch
     address: int
     table: torch.Tensor
     buffers: tuple
     device_index: int
-    node2vec: bool
+    engine: str
 
 
 def routed_phase_launch(shards, stats, live, live_all, phases, *,
                         shard_nodes: int, blk: int, walk_length: int,
                         cap: int, ccap: int, key: tuple[int, int],
-                        node2vec=None) -> RoutedLaunch:
-    """Check one pipeline's buffers for K11 (``node2vec`` None) or K12
-    (``node2vec`` a ``parallel.partition_v2.Node2VecRouting``) and pack
-    their launch.  ``stats`` is the walk's (D, 3) int64 (logged, sent,
-    dropped), ``live`` the pipeline's (D, 2) int64 (boxed, carried),
-    ``live_all`` every pipeline's live counts (int64, contiguous: the phase
-    counts itself if any is above 0) and ``phases`` the walk's (1,) int64
-    phase counter."""
+                        node2vec=None, engine: str | None = None,
+                        padding: int = 0, restart: bool = False
+                        ) -> RoutedLaunch:
+    """Check one pipeline's buffers for the phase kernel of ``engine`` (a
+    key of ``ROUTED_ENGINES``; by default K11, or K12 where ``node2vec``, a
+    ``parallel.partition_v2.Node2VecRouting``, is given, which K15 needs
+    too) and pack their launch.  ``stats`` is the walk's (D, 3) int64
+    (logged, sent, dropped; the family engines' (D, 4) adds terminated),
+    ``live`` the pipeline's (D, 2) int64 (boxed, carried), ``live_all``
+    every pipeline's live counts (int64, contiguous: the phase counts
+    itself if any is above 0) and ``phases`` the walk's (1,) int64 phase
+    counter.  The walk rows are (blk+1, L+2), K13's (blk+1, 2L+2);
+    ``padding`` and ``restart`` are the family engines' (K13-K15)."""
+    if engine is None:
+        engine = "uniform" if node2vec is None else "node2vec"
+    if engine not in ROUTED_ENGINES:
+        raise ValueError(f"engine must be one of {tuple(ROUTED_ENGINES)}, got "
+                         f"{engine!r}")
+    spec = ROUTED_ENGINES[engine]
+    needs_routing = engine in ("node2vec", "edge_list_node2vec")
+    if needs_routing != (node2vec is not None):
+        raise ValueError(f"the {engine} engine takes "
+                         f"{'a' if needs_routing else 'no'} node2vec routing")
     d = len(shards)
     if not 0 < d <= ROUTED_MAX_SHARDS:
         raise ValueError(f"the phase kernels take 1 to {ROUTED_MAX_SHARDS} "
                          f"shards, got {d}")
-    width = 3 if node2vec is None else 14
+    width = spec.width
+    nstats = 4 if spec.family else 3
+    walk_cols = (2 * walk_length + 2 if engine == "triples"
+                 else walk_length + 2)
     dev = shards[0].col.device
     _check("stats", stats, torch.int64, 2, dev)
     _check("live", live, torch.int64, 2, dev)
@@ -800,27 +859,31 @@ def routed_phase_launch(shards, stats, live, live_all, phases, *,
             and live_all.is_contiguous() and 0 < live_all.numel() < 2 ** 31):
         raise ValueError("live_all must be a contiguous int64 CUDA tensor on "
                          "the shards' card")
-    if tuple(stats.shape) != (d, 3) or tuple(live.shape) != (d, 2):
-        raise ValueError(f"stats must be ({d}, 3) and live ({d}, 2), got "
-                         f"{tuple(stats.shape)} and {tuple(live.shape)}")
+    if tuple(stats.shape) != (d, nstats) or tuple(live.shape) != (d, 2):
+        raise ValueError(f"stats must be ({d}, {nstats}) and live ({d}, 2), "
+                         f"got {tuple(stats.shape)} and {tuple(live.shape)}")
     if tuple(phases.shape) != (1,):
         raise ValueError(f"phases must be (1,), got {tuple(phases.shape)}")
     if not (0 < shard_nodes < 2 ** 31 and 0 < blk < 2 ** 31 and 0 < cap
             and 0 < ccap < 2 ** 31 and 0 <= walk_length
-            and d * cap < 2 ** 31):
+            and d * cap < 2 ** 31 and walk_cols < 2 ** 31):
         raise ValueError("shard sizes or capacities out of range")
-    if node2vec is not None and walk_length >= 2 ** 24:
+    if width >= 14 and walk_length >= 2 ** 24:
         raise ValueError(f"walk_length must be below 2^24, got {walk_length}")
+    if spec.family and not -2 ** 31 <= padding < 2 ** 31:
+        raise ValueError(f"padding {padding} is no int32 id")
     e_max = shards[0].col.shape[0]
-    shapes = {"meta": (shard_nodes, 2), "col": (e_max,),
-              "walks": (blk + 1, walk_length + 2), "inbox": (d, cap, width),
+    shapes = {"meta": (shard_nodes, 2),
+              "col": (e_max, 2) if engine == "triples" else (e_max,),
+              "walks": (blk + 1, walk_cols), "inbox": (d, cap, width),
               "outbox": (d, cap, width), "carry": (2, ccap, width + 1),
               "bloom": (shard_nodes, 4),
               **routed_scratch_shapes(d, cap, ccap, blk, width)}
     rows, buffers = [], []
     for sh in shards:
-        if node2vec is not None and sh.bloom is None:
-            raise ValueError("K12 needs each shard's Bloom filters")
+        if needs_routing and sh.bloom is None:
+            raise ValueError(f"the {engine} engine needs each shard's Bloom "
+                             f"filters")
         ptrs = []
         for name in _ROUTED_SHARD_FIELDS:
             t = getattr(sh, name)
@@ -841,15 +904,22 @@ def routed_phase_launch(shards, stats, live, live_all, phases, *,
             buffers.append(t)
         rows.append(ptrs + [int(sh.salt) & 0xFFFFFFFF])
     if e_max < 1:
-        raise ValueError("every shard's col must hold at least one word")
+        raise ValueError("every shard's col must hold at least one row")
     table = torch.tensor(rows, dtype=torch.int64).to(dev)
     launch = _RoutedLaunch(table.data_ptr(), stats.data_ptr(), live.data_ptr(),
                            live_all.data_ptr(), phases.data_ptr(),
                            live_all.numel(), d, shard_nodes, blk, walk_length,
                            cap, ccap, e_max, key[0] & 0xFFFFFFFF,
                            key[1] & 0xFFFFFFFF)
+    launch.stats_width = nstats
+    launch.walk_cols = walk_cols
+    launch.padding = int(padding) if spec.family else 0
+    launch.restart = int(bool(restart))
     if node2vec is not None:
         search = node2vec.tables is None
+        if search and engine == "edge_list_node2vec":
+            raise ValueError("the edge_list_node2vec engine needs the cuckoo "
+                             "tables")
         if not search and not 0 < node2vec.log_size < 32:
             raise ValueError(f"log_size {node2vec.log_size} out of range")
         if not search and any(sh.hash_table is None for sh in shards):
@@ -861,7 +931,17 @@ def routed_phase_launch(shards, stats, live, live_all, phases, *,
          launch.hi_acc) = node2vec.thresholds
     return RoutedLaunch(launch, ctypes.addressof(launch), table,
                         (*buffers, stats, live, live_all, phases),
-                        _device_index(dev), node2vec is not None)
+                        _device_index(dev), engine)
+
+
+def _routed_phase(engine: str, launch: RoutedLaunch, pool: int) -> None:
+    if launch.engine != engine:
+        raise ValueError(f"this launch was packed for "
+                         f"{ROUTED_ENGINES[launch.engine].label}, not "
+                         f"{ROUTED_ENGINES[engine].label}")
+    spec = ROUTED_ENGINES[engine]
+    _launch(spec.kernel, getattr(library(), spec.entry), launch.device_index,
+            launch.address, int(pool))
 
 
 def routed_uniform_phase(launch: RoutedLaunch, pool: int) -> None:
@@ -869,29 +949,40 @@ def routed_uniform_phase(launch: RoutedLaunch, pool: int) -> None:
     pipeline's inboxes and live carry pools (``pool``, 0 or 1) in; its
     outboxes, other carry pools and live counts out; the walk rows, stats
     and phase counter updated."""
-    if launch.node2vec:
-        raise ValueError("this launch was packed for K12")
-    _launch("routed_uniform_phase", library().trw_routed_uniform_phase,
-            launch.device_index, launch.address, int(pool))
+    _routed_phase("uniform", launch, pool)
 
 
 def routed_node2vec_phase(launch: RoutedLaunch, pool: int) -> None:
     """K12.  One phase of the node2vec routed engine for every shard, as
     K11's."""
-    if not launch.node2vec:
-        raise ValueError("this launch was packed for K11")
-    _launch("routed_node2vec_phase", library().trw_routed_node2vec_phase,
-            launch.device_index, launch.address, int(pool))
+    _routed_phase("node2vec", launch, pool)
+
+
+def routed_triples_phase(launch: RoutedLaunch, pool: int) -> None:
+    """K13.  One phase of the routed KG-triples engine for every shard, as
+    K11's; the stats' fourth column counts the walkers that end."""
+    _routed_phase("triples", launch, pool)
+
+
+def routed_edge_list_phase(launch: RoutedLaunch, pool: int) -> None:
+    """K14.  One phase of the routed uniform edge-list engine for every
+    shard, as K13's."""
+    _routed_phase("edge_list", launch, pool)
+
+
+def routed_edge_list_node2vec_phase(launch: RoutedLaunch, pool: int) -> None:
+    """K15.  One phase of the routed biased (p/q) edge-list engine for every
+    shard, as K13's."""
+    _routed_phase("edge_list_node2vec", launch, pool)
 
 
 def routed_start(launch: RoutedLaunch) -> None:
-    """Phase 0 of K11 or K12, counted as one call of it: compact the first
-    ``blk`` stage slots of every shard (each local walker's first record,
-    code its destination or -1) into the pipeline's outboxes, which the
-    caller has reset to sentinel records, and carry pools 1 (pool 0 is
-    empty; the caller has zeroed both pools' counts), and set the live
-    counts."""
-    name = "routed_node2vec_phase" if launch.node2vec else \
-        "routed_uniform_phase"
-    _launch(name, library().trw_routed_start, launch.device_index,
-            launch.address, 14 if launch.node2vec else 3)
+    """Phase 0 of any routed engine, counted as one call of its kernel:
+    compact the first ``blk`` stage slots of every shard (each local
+    walker's first record, code its destination or -1) into the pipeline's
+    outboxes, which the caller has reset to sentinel records, and carry
+    pools 1 (pool 0 is empty; the caller has zeroed both pools' counts),
+    and set the live counts."""
+    spec = ROUTED_ENGINES[launch.engine]
+    _launch(spec.kernel, library().trw_routed_start, launch.device_index,
+            launch.address, spec.width)

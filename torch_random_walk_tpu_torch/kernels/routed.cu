@@ -26,7 +26,8 @@
 //   histograms and sets the shard's live counts (boxed, carried), which the
 //   host reads once per batch of phases.
 // Phase 0 is a histogram launch and the compaction (trw_routed_start), of
-// the first records the host stages.
+// the first records the host stages; it serves the family engines' phase 0
+// too (kernels/routed_families.cu: record widths 4 and 15).
 //
 // Bound on this card: bytes.  A phase reads each live record once, writes it
 // once to the stage and once to the outbox or the pool, and gathers one graph
@@ -40,84 +41,13 @@
 #include <cuda_runtime.h>
 
 #include "routed.cuh"
-#include "threefry.cuh"
 
 namespace trw {
 
-constexpr int kBodyThreads = kTile;
 constexpr int kUniformStreams = 2;
 constexpr int kNode2VecStreams = 4;
 constexpr int kUniformWidth = 3;
 constexpr int kNode2VecWidth = 14;
-constexpr uint32_t kLogBit = 0x80000000u;  // uniform LOG hop
-// node2vec flags (the top byte of word 1).
-constexpr uint32_t kFMode = 1, kFHasA = 2, kFOvf = 4, kFLog = 32;
-
-// Reset the block's slots of the outbox to the sentinel record, a word a
-// thread at a time.
-template <int R>
-__device__ __forceinline__ void clear_outbox(const RoutedShard& sh,
-                                             int64_t first, int64_t slots) {
-  const int64_t end = min(first + kBodyThreads, slots) * R;
-  for (int64_t w = first * R + threadIdx.x; w < end; w += kBodyThreads) {
-    sh.outbox[w] = (w % R == 0) ? -1 : 0;
-  }
-}
-
-// Zero the counts of carry pool `pool`, which the compaction fills, a word a
-// thread over the body's grid.
-__device__ __forceinline__ void clear_pool_count(const TrwRoutedLaunch& a,
-                                                 const RoutedShard& sh,
-                                                 int pool) {
-  const int64_t words = (pool_tiles(a) + 1) * a.num_shards;
-  int32_t* c = sh.pool_count + pool * words;
-  for (int64_t w = (int64_t)blockIdx.x * kBodyThreads + threadIdx.x;
-       w < words; w += (int64_t)gridDim.x * kBodyThreads) {
-    c[w] = 0;
-  }
-}
-
-// The walk's phase counter: one more if any record of any pipeline was in
-// flight before this phase.  Block (0, 0) of the body.
-__device__ __forceinline__ void count_phase(const TrwRoutedLaunch& a) {
-  if (blockIdx.x != 0 || blockIdx.y != 0) return;
-  bool any = false;
-  for (int i = threadIdx.x; i < a.num_live; i += kBodyThreads) {
-    any |= a.live_all[i] > 0;
-  }
-  if (__syncthreads_or(any) && threadIdx.x == 0) *a.phases += 1;
-}
-
-// Write walk[step] = v into the wid-owner's walk rows.
-__device__ __forceinline__ void log_position(const RoutedShard& sh, int my,
-                                             uint32_t wid, uint32_t step,
-                                             int32_t v,
-                                             const TrwRoutedLaunch& a) {
-  const int64_t row = (int64_t)wid - (int64_t)my * a.blk;
-  sh.walks[row * (a.walk_length + 2) + step] = v;
-}
-
-__device__ __forceinline__ int wid_owner(uint32_t wid,
-                                         const TrwRoutedLaunch& a) {
-  return (int)min(wid / (uint32_t)a.blk, (uint32_t)(a.num_shards - 1));
-}
-
-// Counters of the block: logged positions and departures.
-__device__ __forceinline__ void count_block(const TrwRoutedLaunch& a, int my,
-                                            bool logged, bool sent) {
-  const int n_log = __syncthreads_count(logged);
-  const int n_sent = __syncthreads_count(sent);
-  if (threadIdx.x == 0) {
-    if (n_log) {
-      atomicAdd(reinterpret_cast<unsigned long long*>(&a.stats[3 * my]),
-                (unsigned long long)n_log);
-    }
-    if (n_sent) {
-      atomicAdd(reinterpret_cast<unsigned long long*>(&a.stats[3 * my + 1]),
-                (unsigned long long)n_sent);
-    }
-  }
-}
 
 // K11's body: streams 0 = forwarded LOG records (to owner(v)), 1 = drawn
 // records (to the wid-owner).
@@ -172,70 +102,6 @@ __global__ void __launch_bounds__(kBodyThreads)
   }
   tile_histogram<kUniformStreams>(a, sh, blockIdx.x, code);
   count_block(a, my, logged, code >= 0);
-}
-
-// Slot of key (lo, hi) under hash `which` (graph/hashset.py::hash_slot).
-__device__ __forceinline__ uint32_t cuckoo_slot(uint32_t lo, uint32_t hi,
-                                                uint32_t salt, int which,
-                                                int log_size) {
-  const uint32_t a = (which ? 0xC2B2AE3Du : 0x9E3779B1u) ^ salt;
-  const uint32_t b = (which ? 0x27D4EB2Fu : 0x85EBCA77u) ^ (salt * 0x9E3779B9u);
-  uint32_t h = lo * a + hi * b + (uint32_t)(which + 1);
-  h ^= h >> 16;
-  h *= 0x7FEB352Du;
-  h ^= h >> 15;
-  return h >> (32 - log_size);
-}
-
-// Is cand an out-neighbour of t?  Asked at owner(t) only.
-template <bool SEARCH>
-__device__ __forceinline__ bool contains(const RoutedShard& sh, int my,
-                                         int32_t t, int32_t cand,
-                                         const TrwRoutedLaunch& a) {
-  if (SEARCH) {  // the 32-trip binary search of t's sorted row
-    const int64_t lt = local_row(t, my, a);
-    int64_t lo = sh.meta[2 * lt];
-    int64_t hi = lo + sh.meta[2 * lt + 1];
-    const int64_t end = hi;
-    for (int it = 0; it < 32 && lo < hi; ++it) {
-      const int64_t mid = (lo + hi) >> 1;
-      if (col_at(sh, mid, a) < cand) lo = mid + 1; else hi = mid;
-    }
-    return lo < end && col_at(sh, lo, a) == cand;
-  }
-  const uint32_t lo32 = (uint32_t)cand, hi32 = (uint32_t)t;
-#pragma unroll
-  for (int which = 0; which < 2; ++which) {
-    const uint32_t pos =
-        cuckoo_slot(lo32, hi32, (uint32_t)sh.salt, which, a.hash_log);
-    if ((uint32_t)sh.hash[2 * pos] == lo32 &&
-        (uint32_t)sh.hash[2 * pos + 1] == hi32) {
-      return true;
-    }
-  }
-  return false;
-}
-
-// True unless the 128-bit filter proves x is not in its set
-// (graph/bloom.py::bloom_maybe).
-__device__ __forceinline__ bool bloom_maybe(const uint32_t f[4], uint32_t x) {
-  const uint32_t muls[2] = {0x9E3779B9u, 0x85EBCA6Bu};
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-    const uint32_t pos = __umulhi(x * muls[m], 128u);
-    const uint32_t word = pos >> 5;
-    const uint32_t w = word == 0 ? f[0] : word == 1 ? f[1]
-                     : word == 2 ? f[2] : f[3];
-    if (!((w >> (pos & 31)) & 1u)) return false;
-  }
-  return true;
-}
-
-__device__ __forceinline__ float accept_uniform(const TrwRoutedLaunch& a,
-                                                uint32_t wid, uint32_t s,
-                                                uint32_t rnd) {
-  return uniform24(threefry2x32(a.key0, a.key1, wid,
-                                step_round_counter(s, rnd)).x1);
 }
 
 // K12's body: streams 0 = forwarded LOG records (to owner(v)), 1 = resolved
@@ -440,30 +306,9 @@ __global__ void __launch_bounds__(kTile)
 
 }  // namespace trw
 
-namespace {
-
-bool launch_ok(const TrwRoutedLaunch& a, int cur) {
-  return a.num_shards >= 1 && a.num_shards <= trw::kRoutedMaxShards &&
-         a.cap >= 1 && a.ccap >= 1 && a.blk >= 1 && a.shard_nodes >= 1 &&
-         a.e_max >= 1 && a.walk_length >= 0 && a.num_live >= 1 &&
-         (cur == 0 || cur == 1);
-}
-
-dim3 tile_grid(const TrwRoutedLaunch& a, int64_t slots, int64_t extra = 0) {
-  return dim3((unsigned)((slots + trw::kTile - 1) / trw::kTile + extra),
-              (unsigned)a.num_shards);
-}
-
-// The compaction of `slots` stage slots and the live carry pool `cur`.
-template <int R, int S>
-void compact(const TrwRoutedLaunch& a, int64_t slots, int cur,
-             cudaStream_t st) {
-  trw::routed_compact_kernel<R, S>
-      <<<tile_grid(a, slots, trw::pool_tiles(a)), trw::kTile,
-         trw::routed_compact_smem(S, a.num_shards), st>>>(a, slots, cur);
-}
-
-}  // namespace
+using trw::compact;
+using trw::launch_ok;
+using trw::tile_grid;
 
 // K11: one phase of the uniform engine for every shard; carry pool `cur` is
 // the live one, and the other is filled.
@@ -500,26 +345,27 @@ extern "C" int trw_routed_node2vec_phase(const TrwRoutedLaunch* launch,
   return (int)cudaGetLastError();
 }
 
-// Phase 0 of either engine: the histogram and the compaction of the first
-// blk stage slots (every local walker's first record, as one departure
-// stream) into the outbox, which the caller has reset, from carry pool 0
-// into pool 1, whose counts the caller has zeroed, as both pools'.
+// Phase 0 of any routed engine (K11-K15, by record width: 3, 14, 4 or 15):
+// the histogram and the compaction of the first blk stage slots (every local
+// walker's first record, as one departure stream) into the outbox, which the
+// caller has reset, from carry pool 0 into pool 1, whose counts the caller
+// has zeroed, as both pools'.
 extern "C" int trw_routed_start(const TrwRoutedLaunch* launch, int width,
                                 void* stream) {
   const TrwRoutedLaunch& a = *launch;
-  if (!launch_ok(a, 0)) return (int)cudaErrorInvalidValue;
+  if (!launch_ok(a, 0) || (width != 3 && width != 14 && width != 4 &&
+                           width != 15)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t st = (cudaStream_t)stream;
   const int64_t slots = a.blk;
-  if (width == trw::kUniformWidth) {
-    trw::routed_stage_hist_kernel<<<tile_grid(a, slots), trw::kTile, 0, st>>>(
-        a, slots);
-    compact<trw::kUniformWidth, 1>(a, slots, 0, st);
-  } else if (width == trw::kNode2VecWidth) {
-    trw::routed_stage_hist_kernel<<<tile_grid(a, slots), trw::kTile, 0, st>>>(
-        a, slots);
-    compact<trw::kNode2VecWidth, 1>(a, slots, 0, st);
-  } else {
-    return (int)cudaErrorInvalidValue;
+  trw::routed_stage_hist_kernel<<<tile_grid(a, slots), trw::kTile, 0, st>>>(
+      a, slots);
+  switch (width) {
+    case 3: compact<3, 1>(a, slots, 0, st); break;
+    case 14: compact<14, 1>(a, slots, 0, st); break;
+    case 4: compact<4, 1>(a, slots, 0, st); break;
+    default: compact<15, 1>(a, slots, 0, st); break;
   }
   return (int)cudaGetLastError();
 }

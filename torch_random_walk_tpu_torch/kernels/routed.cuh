@@ -1,6 +1,8 @@
-// What K11 and K12 (kernels/routed.cu) share: the launch's layout, the record
-// words, and the tiled compaction that builds a phase's outboxes and carry
-// pool in the exchange order.
+// What the routed phase kernels share (K11 and K12 in kernels/routed.cu, K13,
+// K14 and K15 in kernels/routed_families.cu): the launch's layout, the record
+// words, the body's bookkeeping, the membership tests and the tiled
+// compaction that builds a phase's outboxes and carry pool in the exchange
+// order.
 //
 // A routed walk keeps, for every shard s of D, the tensors that
 // parallel/partition_v2.py::RoutedWalk allocates; the wrapper
@@ -10,6 +12,9 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda_runtime.h>
+
+#include "threefry.cuh"
 
 namespace trw {
 
@@ -23,8 +28,9 @@ constexpr int kTileWarps = kTile / 32;
 // One shard's buffers (bindings.py _ROUTED_SHARD_FIELDS, in this order).
 struct RoutedShard {
   const int32_t* meta;   // (S, 2) [start, deg] of the shard's nodes
-  const int32_t* col;    // (E_max,) neighbour ids of its rows
-  int32_t* walks;        // (blk + 1, L + 2) its walkers' positions
+  const int32_t* col;    // (E_max,) neighbour ids of its rows; K13: (E_max,
+                         // 2) [relation, tail] rows
+  int32_t* walks;        // (blk + 1, walk_cols) its walkers' positions
   const int32_t* inbox;  // (D * cap, R) this phase's arrivals
   int32_t* outbox;       // (D * cap, R) departures, chunk d for shard d
   int32_t* carry;        // (2, ccap, R + 1) two carry pools, last word the dest
@@ -43,7 +49,8 @@ struct RoutedShard {
 // The phase's scalars and counters (bindings.py _RoutedLaunch).
 struct TrwRoutedLaunch {
   const trw::RoutedShard* shards;  // device array of num_shards
-  int64_t* stats;                  // (D, 3): logged, sent, dropped (add)
+  int64_t* stats;  // (D, stats_width): logged, sent, dropped (add), and
+                   // for K13-K15 terminated
   int64_t* live;                   // (D, 2): boxed, carried (this pipeline)
   const int64_t* live_all;         // every pipeline's live counts
   int64_t* phases;                 // the walk's phase counter
@@ -60,6 +67,10 @@ struct TrwRoutedLaunch {
   int32_t hash_log;     // node2vec: log2 of the cuckoo table's rows
   int32_t use_search;   // node2vec: 1 = binary search, 0 = cuckoo probes
   float prob0, prob1, prob2, lo_acc, hi_acc;  // node2vec thresholds
+  int32_t stats_width;  // 3 (K11, K12) or 4 (K13-K15: terminated)
+  int32_t walk_cols;    // row stride of the walk rows: L + 2, or 2L + 2 (K13)
+  int32_t padding;      // K13-K15: the padding id
+  int32_t restart;      // K14, K15: a dead end jumps back to the target
 };
 
 namespace trw {
@@ -308,8 +319,181 @@ __global__ void __launch_bounds__(kTile)
   if (keeper && tid == 0) {
     a.live[2 * my] = s_boxed;
     a.live[2 * my + 1] = min(s_left, (int64_t)a.ccap);
-    a.stats[3 * my + 2] += max(s_left - (int64_t)a.ccap, (int64_t)0);
+    a.stats[(int64_t)a.stats_width * my + 2] +=
+        max(s_left - (int64_t)a.ccap, (int64_t)0);
   }
+}
+
+// --- the body kernels' shared steps ------------------------------------------
+
+constexpr int kBodyThreads = kTile;
+constexpr uint32_t kLogBit = 0x80000000u;  // LOG hop (K11, K13, K14)
+// node2vec flags (K12, K15: the top byte of word 1).
+constexpr uint32_t kFMode = 1, kFHasA = 2, kFOvf = 4, kFLog = 32;
+
+// Reset the block's slots of the outbox to the sentinel record, a word a
+// thread at a time.
+template <int R>
+__device__ __forceinline__ void clear_outbox(const RoutedShard& sh,
+                                             int64_t first, int64_t slots) {
+  const int64_t end = min(first + kBodyThreads, slots) * R;
+  for (int64_t w = first * R + threadIdx.x; w < end; w += kBodyThreads) {
+    sh.outbox[w] = (w % R == 0) ? -1 : 0;
+  }
+}
+
+// Zero the counts of carry pool `pool`, which the compaction fills, a word a
+// thread over the body's grid.
+__device__ __forceinline__ void clear_pool_count(const TrwRoutedLaunch& a,
+                                                 const RoutedShard& sh,
+                                                 int pool) {
+  const int64_t words = (pool_tiles(a) + 1) * a.num_shards;
+  int32_t* c = sh.pool_count + pool * words;
+  for (int64_t w = (int64_t)blockIdx.x * kBodyThreads + threadIdx.x;
+       w < words; w += (int64_t)gridDim.x * kBodyThreads) {
+    c[w] = 0;
+  }
+}
+
+// The walk's phase counter: one more if any record of any pipeline was in
+// flight before this phase.  Block (0, 0) of the body.
+__device__ __forceinline__ void count_phase(const TrwRoutedLaunch& a) {
+  if (blockIdx.x != 0 || blockIdx.y != 0) return;
+  bool any = false;
+  for (int i = threadIdx.x; i < a.num_live; i += kBodyThreads) {
+    any |= a.live_all[i] > 0;
+  }
+  if (__syncthreads_or(any) && threadIdx.x == 0) *a.phases += 1;
+}
+
+// Write column `col` of the walker's row in the wid-owner's walk rows.
+__device__ __forceinline__ void log_position(const RoutedShard& sh, int my,
+                                             uint32_t wid, uint32_t col,
+                                             int32_t v,
+                                             const TrwRoutedLaunch& a) {
+  const int64_t row = (int64_t)wid - (int64_t)my * a.blk;
+  sh.walks[row * a.walk_cols + col] = v;
+}
+
+__device__ __forceinline__ int wid_owner(uint32_t wid,
+                                         const TrwRoutedLaunch& a) {
+  return (int)min(wid / (uint32_t)a.blk, (uint32_t)(a.num_shards - 1));
+}
+
+__device__ __forceinline__ void add_stat(const TrwRoutedLaunch& a, int my,
+                                         int column, int n) {
+  if (n) {
+    atomicAdd(reinterpret_cast<unsigned long long*>(
+                  &a.stats[(int64_t)a.stats_width * my + column]),
+              (unsigned long long)n);
+  }
+}
+
+// Counters of the block: logged positions and departures.
+__device__ __forceinline__ void count_block(const TrwRoutedLaunch& a, int my,
+                                            bool logged, bool sent) {
+  const int n_log = __syncthreads_count(logged);
+  const int n_sent = __syncthreads_count(sent);
+  if (threadIdx.x == 0) {
+    add_stat(a, my, 0, n_log);
+    add_stat(a, my, 1, n_sent);
+  }
+}
+
+// K13-K15: the block's walkers that ended here (column 3).
+__device__ __forceinline__ void count_terminated(const TrwRoutedLaunch& a,
+                                                 int my, bool done) {
+  const int n = __syncthreads_count(done);
+  if (threadIdx.x == 0) add_stat(a, my, 3, n);
+}
+
+// Slot of key (lo, hi) under hash `which` (graph/hashset.py::hash_slot).
+__device__ __forceinline__ uint32_t cuckoo_slot(uint32_t lo, uint32_t hi,
+                                                uint32_t salt, int which,
+                                                int log_size) {
+  const uint32_t a = (which ? 0xC2B2AE3Du : 0x9E3779B1u) ^ salt;
+  const uint32_t b = (which ? 0x27D4EB2Fu : 0x85EBCA77u) ^ (salt * 0x9E3779B9u);
+  uint32_t h = lo * a + hi * b + (uint32_t)(which + 1);
+  h ^= h >> 16;
+  h *= 0x7FEB352Du;
+  h ^= h >> 15;
+  return h >> (32 - log_size);
+}
+
+// Is cand an out-neighbour of t?  Asked at owner(t) only.
+template <bool SEARCH>
+__device__ __forceinline__ bool contains(const RoutedShard& sh, int my,
+                                         int32_t t, int32_t cand,
+                                         const TrwRoutedLaunch& a) {
+  if (SEARCH) {  // the 32-trip binary search of t's sorted row
+    const int64_t lt = local_row(t, my, a);
+    int64_t lo = sh.meta[2 * lt];
+    int64_t hi = lo + sh.meta[2 * lt + 1];
+    const int64_t end = hi;
+    for (int it = 0; it < 32 && lo < hi; ++it) {
+      const int64_t mid = (lo + hi) >> 1;
+      if (col_at(sh, mid, a) < cand) lo = mid + 1; else hi = mid;
+    }
+    return lo < end && col_at(sh, lo, a) == cand;
+  }
+  const uint32_t lo32 = (uint32_t)cand, hi32 = (uint32_t)t;
+#pragma unroll
+  for (int which = 0; which < 2; ++which) {
+    const uint32_t pos =
+        cuckoo_slot(lo32, hi32, (uint32_t)sh.salt, which, a.hash_log);
+    if ((uint32_t)sh.hash[2 * pos] == lo32 &&
+        (uint32_t)sh.hash[2 * pos + 1] == hi32) {
+      return true;
+    }
+  }
+  return false;
+}
+
+// True unless the 128-bit filter proves x is not in its set
+// (graph/bloom.py::bloom_maybe).
+__device__ __forceinline__ bool bloom_maybe(const uint32_t f[4], uint32_t x) {
+  const uint32_t muls[2] = {0x9E3779B9u, 0x85EBCA6Bu};
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const uint32_t pos = __umulhi(x * muls[m], 128u);
+    const uint32_t word = pos >> 5;
+    const uint32_t w = word == 0 ? f[0] : word == 1 ? f[1]
+                     : word == 2 ? f[2] : f[3];
+    if (!((w >> (pos & 31)) & 1u)) return false;
+  }
+  return true;
+}
+
+__device__ __forceinline__ float accept_uniform(const TrwRoutedLaunch& a,
+                                                uint32_t wid, uint32_t s,
+                                                uint32_t rnd) {
+  return uniform24(threefry2x32(a.key0, a.key1, wid,
+                                step_round_counter(s, rnd)).x1);
+}
+
+// --- host side of a phase call -------------------------------------------------
+
+inline bool launch_ok(const TrwRoutedLaunch& a, int cur) {
+  return a.num_shards >= 1 && a.num_shards <= kRoutedMaxShards &&
+         a.cap >= 1 && a.ccap >= 1 && a.blk >= 1 && a.shard_nodes >= 1 &&
+         a.e_max >= 1 && a.walk_length >= 0 && a.num_live >= 1 &&
+         (a.stats_width == 3 || a.stats_width == 4) &&
+         a.walk_cols >= a.walk_length + 2 && (cur == 0 || cur == 1);
+}
+
+inline dim3 tile_grid(const TrwRoutedLaunch& a, int64_t slots,
+                      int64_t extra = 0) {
+  return dim3((unsigned)((slots + kTile - 1) / kTile + extra),
+              (unsigned)a.num_shards);
+}
+
+// The compaction of `slots` stage slots and the live carry pool `cur`.
+template <int R, int S>
+void compact(const TrwRoutedLaunch& a, int64_t slots, int cur,
+             cudaStream_t st) {
+  routed_compact_kernel<R, S>
+      <<<tile_grid(a, slots, pool_tiles(a)), kTile,
+         routed_compact_smem(S, a.num_shards), st>>>(a, slots, cur);
 }
 
 }  // namespace trw

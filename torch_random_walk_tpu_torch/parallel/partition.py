@@ -67,15 +67,23 @@ class PartitionedCSR:
 def build_partition_hashes(pgraph: PartitionedCSR, graph: CSRGraph):
     """Per-shard cuckoo edge sets for the routed node2vec engine: shard d's
     set holds the edges whose head lives on shard d, so t's owner answers
-    ``cand in N(t)`` alone.  Every shard's table has the size the largest
-    shard needs (log2 of 4 slots an edge, at least 16 slots); an empty
-    shard gets an empty table of that size and salt 0.  Built on the
-    partitioned graph's device.  Returns (tables (D, S_h, 2) int32 bit
-    patterns, salts (D,) int32, log_size)."""
+    ``cand in N(t)`` alone.  Built on the partitioned graph's device.
+    Returns (tables (D, S_h, 2) int32 bit patterns, salts (D,) int32,
+    log_size)."""
+    return shard_hash_tables(graph.row_ptr, graph.col_idx, pgraph)
+
+
+def shard_hash_tables(row_ptr, tails, pgraph):
+    """The per-shard cuckoo edge sets of a CSR form (``row_ptr`` (N+1,),
+    ``tails`` (E,)) node-range sharded like ``pgraph``: every shard's table
+    has the size the largest shard needs (log2 of 4 slots an edge, at least
+    16 slots); an empty shard gets an empty table of that size and salt 0.
+    Returns (tables (D, S_h, 2) int32 bit patterns, salts (D,) int32,
+    log_size)."""
     dev = pgraph.device
-    row_ptr = graph.row_ptr.to(device=dev, dtype=torch.int64)
-    col_idx = graph.col_idx.to(dev)
-    n, s = graph.num_nodes, pgraph.shard_nodes
+    row_ptr = row_ptr.to(device=dev, dtype=torch.int64)
+    col_idx = tails.to(dev)
+    n, s = row_ptr.shape[0] - 1, pgraph.shard_nodes
     shards, max_log = [], 4
     for d in range(pgraph.num_shards):
         lo, hi = min(d * s, n), min((d + 1) * s, n)
@@ -87,13 +95,14 @@ def build_partition_hashes(pgraph: PartitionedCSR, graph: CSRGraph):
         e = max(e_hi - e_lo, 1)
         max_log = max(max_log, int(math.ceil(math.log2(max(4 * e, 16)))))
     tables, salts = [], []
-    for heads, tails in shards:
+    for heads, shard_tails in shards:
         if heads.numel() == 0:
             tables.append(torch.full((1 << max_log, 2), -1, dtype=torch.int32,
                                      device=dev))
             salts.append(0)
             continue
-        hs = EdgeHashSet.from_edges_with_log_size(heads, tails, max_log)
+        hs = EdgeHashSet.from_edges_with_log_size(heads, shard_tails,
+                                                  max_log)
         tables.append(hs.table)
         salts.append(hs.salt)
     return (torch.stack(tables),

@@ -1,9 +1,12 @@
 """Edge-partitioned walks with owner-routed walker exchange (twin of the
-uniform and node2vec CSR engines of
-``torch_random_walk_tpu/parallel/partition_v2.py``).
+routed engines of ``torch_random_walk_tpu/parallel/partition_v2.py``: the
+uniform and node2vec CSR ones, and the KG-triples, uniform edge-list and
+biased edge-list ones).
 
 Each walker is one fixed-width record of uint32 words (int32 bit patterns
-here).  The graph is node-range partitioned (``PartitionedCSR``); every
+here).  The graph is node-range partitioned (``PartitionedCSR``; for the
+families, head ranges of the sorted triples or edge list:
+``PartitionedTriples``, ``PartitionedEdgeList``); every
 *phase*, every shard takes the records that arrived in its inbox, logs a
 position into its even share of the walk tensor (LOG arrivals, at the
 walker's wid-owner) or draws for the walkers standing on its nodes, and
@@ -15,12 +18,18 @@ never drop.
 
 - **Uniform** records are (wid, step, node): STEP at owner(node) draws the
   next node, LOG at the wid-owner writes it.
-- **node2vec** records are 14 words (``_R_N2V``): at owner(v) a STEP record
+- **node2vec** records are 14 words: at owner(v) a STEP record
   draws ``spec_rounds`` rejection rounds and decides each draw that does not
   depend on t's neighbourhood, with N(t)'s Bloom filter, carried in the
   record, ruling most of the others out; draws left frozen go to owner(t)
   as a RESOLVE record, whose exact test (the shard's cuckoo edge set, or a
   binary search of t's row) decides them there.
+- **The families** (records of 4, 4 and 15 words, layouts below): the
+  triples engine logs a (relation, tail) pair a step; the edge-list engines
+  follow ``walk_edge_list``'s padding and restart law, the biased one on
+  the node2vec machine with the cuckoo sets only.  A walker absorbed by
+  padding ends where it is found (its walk row starts as padding), and the
+  engines count the walkers that end (``info["terminated"]``).
 
 Two schedules, one phase body each (``RoutedWalk.process``): ``serial``
 exchanges and then processes one pipeline a phase; ``overlapped`` splits the
@@ -41,14 +50,16 @@ adds one to it iff a record was in flight before it (the JAX loop's test),
 and once nothing is in flight nothing ever is again, so a phase enqueued
 after the end changes nothing; the host never enqueues past the phase
 budget.  The phase body is a hand kernel on a CUDA device (K11
-``routed_uniform_phase``, K12 ``routed_node2vec_phase``, one call a phase
-for all shards: ``kernels/routed.cu``; there each pipeline has two carry
-pools, one read and one filled a phase) and plain PyTorch on the CPU (one
-pool); the choice is the device's and nothing else's.  **So far every
+``routed_uniform_phase``, K12 ``routed_node2vec_phase``: ``kernels/routed.cu``;
+K13 ``routed_triples_phase``, K14 ``routed_edge_list_phase``, K15
+``routed_edge_list_node2vec_phase``: ``kernels/routed_families.cu``; one
+call a phase for all shards; there each pipeline has two carry pools, one
+read and one filled a phase) and plain PyTorch on the CPU (one pool); the
+choice is the device's and nothing else's.  **So far every
 shard lives on one card.**
 
 Draws use the same (seed, stream, walker id, step, round) Threefry counters
-as ``ops/uniform.py`` and ``ops/node2vec.py``, and the carry and arrival
+as the single-device walks (``ops/``), and the carry and arrival
 order is the JAX engine's, so the walks, the phase count and the exchanged
 record count all equal JAX's.
 """
@@ -72,29 +83,42 @@ from torch_random_walk_tpu_torch.ops.common import (
     node2vec_accept_probs,
 )
 from torch_random_walk_tpu_torch.parallel import exchange
-from torch_random_walk_tpu_torch.parallel.partition import PartitionedCSR
+from torch_random_walk_tpu_torch.parallel.partition import (
+    PartitionedCSR,
+    shard_hash_tables,
+)
 from torch_random_walk_tpu_torch.utils import prng
 from torch_random_walk_tpu_torch.utils.device import resolve_device
 
-# Uniform record (uint32 words): wid, step, node.  `step` counts completed
-# steps; `node` is walk[step].
-_R_UNIFORM = 3
+# The records (uint32 words; each engine's width is in
+# bindings.ROUTED_ENGINES).  Uniform (3 words): wid, step, node.  `step`
+# counts completed steps; `node` is walk[step].
 # An empty record slot: wid word 0xFFFFFFFF, which is -1 as int32.
 _SENTINEL = -1
 # Uniform LOG-hop marker, the top bit of the step word (the sign bit as
 # int32).  A record cycles owner(v_s) --draw--> wid-owner (logs walk[s+1],
 # forwards) --> owner(v_s+1).
 _LOG_BIT = 1 << 31
-# node2vec record: w0 wid | w1 step + flags << 24 | w2 t | w3 v | w4 replay
+# node2vec (14 words): w0 wid | w1 step + flags << 24 | w2 t | w3 v | w4 replay
 # round | w5 a_cand | w6 f1_cand | w7 f1_rnd | w8 f2_cand | w9 f2_rnd |
 # w10-w13 a 128-bit Bloom filter: N(t) on STEP records, N(v) on RESOLVE ones.
 # flags: bit0 RESOLVE mode, bit1 has_a, bit2 overflow (a third frozen draw
 # stopped the scan), bits 3-4 frozen draws, bit5 LOG (the record is on its
 # wid-owner hop: walk[step] = w3 is written there, then it forwards to
 # owner(w3) with its flags cleared).
-_R_N2V = 14
 _F_MODE, _F_HAS_A, _F_OVF, _F_LOG = 1, 2, 4, 32
 _STEP_MASK = (1 << 24) - 1
+# KG-triples (4 words): wid, step (| LOG), relation, entity.  At
+# owner(entity) a STEP record draws a (relation, tail) transition; at the
+# wid-owner a LOG record writes it at columns (2 step - 1, 2 step) of its
+# walk row.  Edge list (4 words): wid, step (| LOG | FUSE), node, target.
+# The target rides along so that a dead end with restart is resolved where
+# it is found: the padding position and the jump back to the target go to
+# the wid-owner as one FUSE record, which logs the jump at step + 1
+# (position step holds the padding already) and forwards the walker to
+# owner(target).  Biased edge list (15 words): the node2vec record with the
+# target in word 10 and the Bloom filter in words 11-14.
+_FUSE_BIT = 1 << 30
 SCHEDULES = ("serial", "overlapped")
 BODIES = ("kernel", "plain")
 # Phases the loop enqueues between two reads of the phase counter and the
@@ -171,17 +195,48 @@ def _biased_phase_budget(cfg: RoutedConfig, walk_length: int,
     return dataclasses.replace(cfg, max_phases=need)
 
 
-def build_partition_blooms(pgraph: PartitionedCSR, graph) -> torch.Tensor:
-    """(D, S, 4) int32 bit patterns: each node's 128-bit Bloom filter over
-    its out-neighbours, node-range sharded like ``pgraph`` (rows past the
-    last node are empty), on the partitioned graph's device."""
+def shard_blooms(row_ptr, tails, pgraph) -> torch.Tensor:
+    """(D, S, 4) int32 bit patterns: the 128-bit Bloom filter over each
+    node's out-neighbours, of a CSR form (``row_ptr``, ``tails``),
+    node-range sharded like ``pgraph`` (rows past the last node are empty),
+    on the partitioned graph's device."""
     dev = pgraph.device
-    flat = build_node_blooms(graph.row_ptr.to(dev), graph.col_idx.to(dev))
+    flat = build_node_blooms(row_ptr.to(dev), tails.to(dev))
     s = pgraph.shard_nodes
     padded = torch.zeros((pgraph.num_shards * s, BLOOM_WORDS),
                          dtype=torch.int32, device=dev)
     padded[: flat.shape[0]] = flat
     return padded.view(pgraph.num_shards, s, BLOOM_WORDS)
+
+
+def build_partition_blooms(pgraph: PartitionedCSR, graph) -> torch.Tensor:
+    """(D, S, 4) int32 bit patterns: each node's 128-bit Bloom filter over
+    its out-neighbours, node-range sharded like ``pgraph``."""
+    return shard_blooms(graph.row_ptr, graph.col_idx, pgraph)
+
+
+def _routed_info(stats, width: int, what: str, num_walkers: int,
+                 cfg: RoutedConfig, phases: int) -> dict:
+    """The family engines' info from their (D, 4) stats (logged, sent,
+    dropped, terminated), and their completeness check: nothing dropped and
+    every walker terminated (``_routed_info`` of the JAX package)."""
+    logged, sent, dropped, done = (int(x) for x in stats.sum(0).tolist())
+    info = {
+        "log_entries": logged,
+        "exchanged_records": sent,
+        "phases": phases,
+        "overflow_dropped": dropped,
+        "terminated": done,
+        "exchange_bytes": sent * width * 4,
+    }
+    if dropped or done != num_walkers:
+        raise RuntimeError(
+            f"routed {what} walk incomplete: {dropped} records dropped, "
+            f"{done}/{num_walkers} walkers terminated after {phases} phases "
+            f"— raise RoutedConfig capacities (pair_capacity="
+            f"{cfg.pair_capacity}, carry={cfg.carry}, max_phases="
+            f"{cfg.max_phases})")
+    return info
 
 
 def _check_complete(info, num_walkers: int, walk_length: int,
@@ -285,32 +340,48 @@ class _Pipe:
 
 class RoutedWalk:
     """One routed walk: its shards' state, the phase body and the two
-    schedules' phase loops.  ``walk_partitioned_routed`` and
-    ``walk_partitioned_node2vec_routed`` build one and ``run`` it, with the
-    phase body that the device takes (``body="kernel"`` on a CUDA device,
-    ``"plain"`` on the CPU).  The plain body on the card is what the kernels
-    are held against; ``start``, ``phase``, ``inflight``, ``state`` and
-    ``result`` step a walk phase by phase for that.  The plain body runs
+    schedules' phase loops.  The entry points (``walk_partitioned_routed``,
+    ``walk_partitioned_node2vec_routed`` and the three family engines
+    below) build one and ``run`` it, with the phase body that the device
+    takes (``body="kernel"`` on a CUDA device, ``"plain"`` on the CPU).
+    ``engine`` is a key of ``bindings.ROUTED_ENGINES`` (by default
+    ``"uniform"``, or ``"node2vec"`` where ``node2vec`` is given, which
+    ``"edge_list_node2vec"`` needs too); the family engines (``"triples"``,
+    ``"edge_list"``, ``"edge_list_node2vec"``) take ``padding`` and
+    ``restart``, count the walkers that end (a fourth stats column) and
+    start from walk rows filled with ``padding``, so that a walker absorbed
+    by padding needs no record.  The plain body on the card is what the
+    kernels are held against; ``start``, ``phase``, ``inflight``, ``state``
+    and ``result`` step a walk phase by phase for that.  The plain body runs
     every shard at once, on stacked copies of the shards' tables.  The
     phase counter (``phases``) is a device tensor that each phase adds to
     while anything is in flight, on the card in the body kernel and here in
     tensor code."""
 
-    def __init__(self, pgraph: PartitionedCSR, targets, walk_length: int,
-                 key, cfg: RoutedConfig, schedule: str, body: str,
-                 node2vec=None):
+    def __init__(self, pgraph, targets, walk_length: int, key,
+                 cfg: RoutedConfig, schedule: str, body: str,
+                 node2vec=None, engine: str | None = None, padding: int = 0,
+                 restart: bool = False):
         if schedule not in SCHEDULES:
             raise ValueError(f"schedule must be one of {SCHEDULES}, got "
                              f"{schedule!r}")
         if body not in BODIES:
             raise ValueError(f"body must be one of {BODIES}, got {body!r}")
+        if engine is None:
+            engine = "uniform" if node2vec is None else "node2vec"
+        if engine not in bindings.ROUTED_ENGINES:
+            raise ValueError(f"engine must be one of "
+                             f"{tuple(bindings.ROUTED_ENGINES)}, got "
+                             f"{engine!r}")
         dev = pgraph.device
         if body == "kernel" and dev.type != "cuda":
             raise ValueError("the phase kernels run on a CUDA device only")
         self.pgraph, self.key, self.cfg = pgraph, key, cfg
-        self.schedule, self.body = schedule, body
+        self.schedule, self.body, self.engine = schedule, body, engine
         self.n2v = node2vec
-        self.width = _R_N2V if node2vec is not None else _R_UNIFORM
+        spec = bindings.ROUTED_ENGINES[engine]
+        self.width, self.family = spec.width, spec.family
+        self.padding, self.restart = int(padding), bool(restart)
         self.nshards = d = pgraph.num_shards
         self.num_walkers = int(targets.shape[0])
         self.blk = self.num_walkers // d
@@ -318,14 +389,23 @@ class RoutedWalk:
         self.cap, self.ccap = cfg.pair_capacity, cfg.carry
         self.max_phases = cfg.max_phases * (2 if schedule == "overlapped"
                                             else 1)
-        # Walk shares (D, blk+1, L+2): row blk and column L+1 are spare, the
-        # plain body scatters the records that log nothing there.
-        self.walks = torch.zeros((d, self.blk + 1, self.walk_length + 2),
-                                 dtype=torch.int32, device=dev)
+        # Walk shares (D, blk+1, cols + 1): a walk row has cols = L+1
+        # positions (triples: 2L+1, relations between the entities); row blk
+        # and the last column are spare.  The family engines' rows start as
+        # padding.
+        cols = (2 * self.walk_length + 1 if engine == "triples"
+                else self.walk_length + 1)
+        self.out_cols = cols
+        self.walks = torch.full((d, self.blk + 1, cols + 1),
+                                self.padding if self.family else 0,
+                                dtype=torch.int32, device=dev)
         self.walks[:, : self.blk, 0] = targets.view(d, self.blk)
-        # Per shard: positions logged, records sent, records dropped.
-        self.stats = torch.zeros((d, 3), dtype=torch.int64, device=dev)
-        self.stats[:, 0] = self.blk
+        # Per shard: positions logged, records sent, records dropped; and the
+        # family engines' walkers terminated.
+        self.stats = torch.zeros((d, 4 if self.family else 3),
+                                 dtype=torch.int64, device=dev)
+        if not self.family:
+            self.stats[:, 0] = self.blk
         npipes = 2 if schedule == "overlapped" else 1
         self.live = torch.zeros((npipes, d, 2), dtype=torch.int64, device=dev)
         self._counter = torch.zeros((1,), dtype=torch.int64, device=dev)
@@ -365,9 +445,16 @@ class RoutedWalk:
         rec0 = torch.zeros((d * blk, self.width), dtype=torch.int32,
                            device=dev)
         rec0[:, 0] = prng.to_i32_bits(torch.arange(d * blk, device=dev))
-        rec0[:, 2] = tgt
-        if self.n2v is not None:
+        # The node the walker stands on: word 3 for triples (its entity) and
+        # the node2vec records (v), word 2 for the uniform ones; the
+        # edge-list records also carry the target (word 3, node2vec's word
+        # 10) and node2vec's start with t = v.
+        if self.engine != "triples":
+            rec0[:, 2] = tgt
+        if self.engine != "uniform":
             rec0[:, 3] = tgt
+        if self.engine == "edge_list_node2vec":
+            rec0[:, 10] = tgt
         dest0 = self._owner(tgt.to(torch.int64))
         shard0 = torch.arange(d, device=dev).repeat_interleave(blk)
         lane = torch.arange(d * blk, device=dev) % blk
@@ -440,10 +527,8 @@ class RoutedWalk:
         outbox, carry pool and live counts out, walk shares and stats
         updated."""
         if self.body == "kernel":
-            if self.n2v is None:
-                bindings.routed_uniform_phase(pipe.launch, pipe.parity)
-            else:
-                bindings.routed_node2vec_phase(pipe.launch, pipe.parity)
+            getattr(bindings, bindings.ROUTED_ENGINES[self.engine].kernel)(
+                pipe.launch, pipe.parity)
             pipe.parity = 1 - pipe.parity
             return
         # Only the arrived records can depart: the body runs on those, in
@@ -452,8 +537,7 @@ class RoutedWalk:
         slot = (recs[:, 0] != _SENTINEL).nonzero()[:, 0]
         recs = recs[slot]
         self._my = slot // (self.nshards * self.cap)
-        streams = (self._uniform_body(recs) if self.n2v is None
-                   else self._node2vec_body(recs))
+        streams = getattr(self, f"_{self.engine}_body")(recs)
         cands = [_carry_candidates(pipe.pool, pipe.live[:, 1])]
         for r, dst, valid in streams:
             cands.append((r[valid], dst[valid], self._my[valid]))
@@ -477,15 +561,24 @@ class RoutedWalk:
         e_max = self._col.shape[1]
         return self._col[self._my, idx.clamp(0, e_max - 1)].to(torch.int64)
 
+    def _write(self, wid, col, value, mask):
+        """Write ``value`` at column ``col`` of each masked record's walk
+        row (this shard is the walker's wid-owner)."""
+        my = self._my[mask]
+        self.walks[my, wid[mask] - my * self.blk, col[mask]] = \
+            value[mask].to(torch.int32)
+
+    def _count(self, column, mask):
+        """Add each shard's masked records to its stats ``column``."""
+        self.stats[:, column].index_add_(0, self._my, mask.to(torch.int64))
+
     def _log(self, wid, step, node_word, is_log):
-        """LOG arrivals: this shard is the walker's wid-owner; write
-        walk[step] into its share (others go to the spare row and column)."""
-        wrow = torch.where(is_log, wid - self._my * self.blk,
-                           torch.full_like(wid, self.blk))
-        wcol = torch.where(is_log, step,
-                           torch.full_like(step, self.walk_length + 1))
-        self.walks[self._my, wrow, wcol] = node_word
-        self.stats[:, 0].index_add_(0, self._my, is_log.to(torch.int64))
+        """LOG arrivals: write walk[step] and count the positions."""
+        self._write(wid, step, node_word, is_log)
+        self._count(0, is_log)
+
+    def _wid_owner(self, wid):
+        return (wid // self.blk).clamp(0, self.nshards - 1)
 
     def _uniform_body(self, recs):
         """The uniform shard body (``_routed_uniform_jit``'s ``process``):
@@ -512,8 +605,8 @@ class RoutedWalk:
         new_rec = torch.stack([recs[:, 0],
                                prng.to_i32_bits((step + 1) | _LOG_BIT),
                                nxt.to(torch.int32)], dim=1)
-        dest_new = (wid // self.blk).clamp(0, self.nshards - 1)
-        return [(rec_fwd, self._owner(v), fwd), (new_rec, dest_new, stepping)]
+        return [(rec_fwd, self._owner(v), fwd),
+                (new_rec, self._wid_owner(wid), stepping)]
 
     def _contains(self, t, cand):
         """Exact ``cand in N(t)`` at t's owner: the shard's cuckoo edge set,
@@ -656,9 +749,234 @@ class RoutedWalk:
                     zero, zero, zero, zero, zero,
                     torch.where(res_col, n2v.blooms[self._my, self._local(t)],
                                 rec_bloom))
-        wid_dest = (wid // self.blk).clamp(0, self.nshards - 1)
         return [(rec_fwd, self._owner(v), fwd),
-                (fresh, wid_dest, step_done | res_ok),
+                (fresh, self._wid_owner(wid), step_done | res_ok),
+                (pend, self._owner(t), pending),
+                (rep, self._owner(v), allrej | res_fail)]
+
+    def _triples_body(self, recs):
+        """The triples shard body (``_routed_triples_jit``'s ``process``):
+        departure streams [forwarded LOG records, drawn transitions].  A
+        walker ends at its wid-owner after its last transition or on
+        reaching the padding, and at its draw shard on a head without
+        triples or at the padding (its padding positions are written
+        already)."""
+        wid = prng.as_u32(recs[:, 0])
+        word1 = prng.as_u32(recs[:, 1])
+        arrived = recs[:, 0] != _SENTINEL
+        is_log = arrived & ((word1 & _LOG_BIT) != 0)
+        step = word1 & (_LOG_BIT - 1)
+        v = recs[:, 3].to(torch.int64)
+        pad = self.padding
+        # LOG arrivals: (relation, tail) at columns (2 step - 1, 2 step).
+        self._write(wid, 2 * step - 1, recs[:, 2], is_log)
+        self._log(wid, 2 * step, recs[:, 3], is_log)
+        fwd = is_log & (step < self.walk_length) & (v != pad)
+        self._count(3, is_log & ~fwd)
+        rec_fwd = torch.stack([recs[:, 0], prng.to_i32_bits(step),
+                               torch.zeros_like(recs[:, 0]), recs[:, 3]], 1)
+        # STEP arrivals: draw a (relation, tail) row of v's triples.
+        stepping = arrived & ~is_log & (step < self.walk_length)
+        rows = self._meta[self._my, self._local(v)]
+        start, cnt = rows[:, 0].to(torch.int64), rows[:, 1].to(torch.int64)
+        has = (cnt > 0) & (v != pad)
+        bits, _ = prng.counter_bits(self.key, wid,
+                                    prng.step_round_counter(step + 1))
+        idx = start + prng.randint_from_bits(bits, cnt.clamp(min=1))
+        rel_tail = self._col[self._my,
+                             idx.clamp(0, self._col.shape[1] - 1)]
+        self._count(3, stepping & ~has)
+        new_rec = torch.cat([recs[:, :1],
+                             prng.to_i32_bits((step + 1) | _LOG_BIT)[:, None],
+                             rel_tail], 1)
+        return [(rec_fwd, self._owner(v), fwd),
+                (new_rec, self._wid_owner(wid), stepping & has)]
+
+    def _edge_list_body(self, recs):
+        """The uniform edge-list shard body (``_routed_edge_list_jit``'s
+        ``process``): departure streams [forwarded LOG records, drawn
+        records].  A dead end draws the padding; with ``restart`` it goes to
+        the wid-owner as one FUSE record with the jump back to the target
+        (unless it is the last step), without it the walker ends here."""
+        wid = prng.as_u32(recs[:, 0])
+        word1 = prng.as_u32(recs[:, 1])
+        arrived = recs[:, 0] != _SENTINEL
+        is_log = arrived & ((word1 & _LOG_BIT) != 0)
+        fused = arrived & ((word1 & _FUSE_BIT) != 0)
+        step = word1 & (_FUSE_BIT - 1)
+        v = recs[:, 2].to(torch.int64)
+        tgt = recs[:, 3].to(torch.int64)
+        pad = self.padding
+        # LOG arrivals: walk[step] = v; a FUSE record walk[step + 1] = target.
+        fstep = torch.where(fused, step + 1, step)
+        fnode = torch.where(fused, tgt, v)
+        self._log(wid, fstep, fnode, is_log)
+        fwd = is_log & (fstep < self.walk_length)
+        self._count(3, is_log & ~fwd)
+        rec_fwd = torch.stack([recs[:, 0], prng.to_i32_bits(fstep),
+                               fnode.to(torch.int32), recs[:, 3]], 1)
+        # STEP arrivals: the edge-list law (a walker at the padding draws
+        # the jump node).
+        stepping = arrived & ~is_log & (step < self.walk_length)
+        rows = self._meta[self._my, self._local(v)]
+        start, cnt = rows[:, 0].to(torch.int64), rows[:, 1].to(torch.int64)
+        bits, _ = prng.counter_bits(self.key, wid,
+                                    prng.step_round_counter(step + 1))
+        nxt = torch.where(cnt > 0, self._col_at(
+            start + prng.randint_from_bits(bits, cnt.clamp(min=1))), pad)
+        jump = tgt if self.restart else torch.full_like(tgt, pad)
+        nxt = torch.where(v == pad, jump, nxt)
+        s1 = step + 1
+        fuse = (stepping & (nxt == pad) & self.restart
+                & (s1 < self.walk_length))
+        norm = stepping & (nxt != pad)
+        self._count(3, stepping & ~fuse & ~norm)
+        flags = torch.where(fuse, _LOG_BIT | _FUSE_BIT, _LOG_BIT)
+        new_rec = torch.stack([recs[:, 0], prng.to_i32_bits(s1 | flags),
+                               nxt.to(torch.int32), recs[:, 3]], 1)
+        return [(rec_fwd, self._owner(fnode), fwd),
+                (new_rec, self._wid_owner(wid), fuse | norm)]
+
+    def _edge_list_node2vec_body(self, recs):
+        """The biased edge-list shard body (``_routed_edge_list_n2v_jit``'s
+        ``process``): ``_node2vec_body``'s streams with the edge-list law.
+        A draw at the padding is the jump node (the target with
+        ``restart``, else the padding), at a dead end the padding; a
+        candidate equal to t or to the padding is decided here at prob_0,
+        and an accepted padding moves to the jump node; the exact test is
+        the shard's cuckoo edge set.  Without ``restart`` an accepted
+        padding ends the walk here."""
+        n2v = self.n2v
+        mask = prng.MASK32
+        words = prng.as_u32(recs)
+        wid = words[:, 0]
+        arrived = recs[:, 0] != _SENTINEL
+        step = words[:, 1] & _STEP_MASK
+        flags = words[:, 1] >> 24
+        mode_log = arrived & ((flags & _F_LOG) != 0)
+        mode_resolve = arrived & ~mode_log & ((flags & _F_MODE) != 0)
+        mode_step = arrived & ~mode_log & ~mode_resolve
+        t = recs[:, 2].to(torch.int64)
+        v = recs[:, 3].to(torch.int64)
+        rnd0 = words[:, 4]
+        a_cand, f1c, f2c = (recs[:, i].to(torch.int64) for i in (5, 6, 8))
+        f1r, f2r = words[:, 7], words[:, 9]
+        tgt = recs[:, 10].to(torch.int64)
+        rec_bloom = recs[:, 11:15]
+        has_a = (flags & _F_HAS_A) != 0
+        n_f = flags >> 3
+        s1 = step + 1  # the step being taken
+        pad = self.padding
+        jump = tgt if self.restart else torch.full_like(tgt, pad)
+        p0, p1, p2, lo_acc, hi_acc = (torch.tensor(x, dtype=torch.float32,
+                                                   device=recs.device)
+                                      for x in n2v.thresholds)
+
+        # LOG arrivals: log, then forward with the flags cleared.
+        self._log(wid, step, recs[:, 3], mode_log)
+        fwd = mode_log & (step < self.walk_length)
+        self._count(3, mode_log & ~fwd)
+        rec_fwd = recs.clone()
+        rec_fwd[:, 1] = prng.to_i32_bits(step)
+
+        # STEP arrivals: first hop, or the speculative rejection scan.
+        local = self._local(v)
+        rows = self._meta[self._my, local]
+        start, cnt = rows[:, 0].to(torch.int64), rows[:, 1].to(torch.int64)
+
+        def draw(bits):
+            nxt = torch.where(cnt > 0, self._col_at(
+                start + prng.randint_from_bits(bits, cnt.clamp(min=1))), pad)
+            return torch.where(v == pad, jump, nxt)
+
+        bits_first, _ = prng.counter_bits(self.key, wid,
+                                          prng.step_round_counter(1))
+        first_nxt = draw(bits_first)
+        zero = torch.zeros_like(wid)
+        no = torch.zeros_like(mode_step)
+        sc_has_a, sc_ovf, stopped = no, no, no
+        sc_a, sc_f1, sc_f2 = v, v, v
+        sc_nf, sc_f1r, sc_f2r, sc_stop3 = zero, zero, zero, zero
+        for k in range(n2v.spec_rounds):
+            rk = (rnd0 + k) & mask
+            b_cand, b_acc = prng.counter_bits(
+                self.key, wid, (s1 * prng.MAX_ROUNDS_PER_STEP + rk) & mask)
+            cand = draw(b_cand)
+            r = prng.uniform_from_bits(b_acc)
+            is_t = cand == t
+            is_pad = cand == pad
+            here = is_t | is_pad
+            maybe = bloom_maybe(rec_bloom, cand)
+            acc = torch.where(here, r < p0,
+                              torch.where(maybe, r < lo_acc, r < p2))
+            rej = torch.where(here, r >= p0,
+                              torch.where(maybe, r >= hi_acc, r >= p2))
+            value = torch.where(is_pad & ~is_t, jump, cand)
+            frz = ~stopped & ~acc & ~rej
+            new_f1 = frz & (sc_nf == 0)
+            new_f2 = frz & (sc_nf == 1)
+            new_f3 = frz & (sc_nf == 2)
+            sc_f1 = torch.where(new_f1, cand, sc_f1)
+            sc_f1r = torch.where(new_f1, rk, sc_f1r)
+            sc_f2 = torch.where(new_f2, cand, sc_f2)
+            sc_f2r = torch.where(new_f2, rk, sc_f2r)
+            sc_nf = sc_nf + (new_f1 | new_f2 | new_f3).to(torch.int64)
+            sc_ovf = sc_ovf | new_f3
+            sc_stop3 = torch.where(new_f3, rk, sc_stop3)
+            new_a = ~stopped & acc
+            sc_a = torch.where(new_a, value, sc_a)
+            sc_has_a = sc_has_a | new_a
+            stopped = stopped | new_a | new_f3
+        active = mode_step & (step < self.walk_length)
+        first = s1 == 1
+        step_next = torch.where(first, first_nxt, sc_a)
+        step_done = active & (first | (sc_has_a & (sc_nf == 0)))
+        pending = active & ~first & (sc_nf >= 1)
+        allrej = active & ~first & ~sc_has_a & (sc_nf == 0)
+        replay_rnd = torch.where(sc_ovf, sc_stop3,
+                                 (rnd0 + n2v.spec_rounds) & mask)
+
+        # RESOLVE arrivals: answer the frozen draws with the cuckoo set.
+        def accept_r(rnd):
+            _, b = prng.counter_bits(
+                self.key, wid, (s1 * prng.MAX_ROUNDS_PER_STEP + rnd) & mask)
+            return prng.uniform_from_bits(b)
+
+        def contains(cand):
+            return table_contains(n2v.tables, n2v.salts, n2v.log_size, t,
+                                  cand, shard=self._my)
+
+        r1, r2 = accept_r(f1r), accept_r(f2r)
+        acc1 = mode_resolve & torch.where(contains(f1c), r1 < p1, r1 < p2)
+        acc2 = (mode_resolve & (n_f >= 2) & ~acc1
+                & torch.where(contains(f2c), r2 < p1, r2 < p2))
+        res_ok = acc1 | acc2 | (mode_resolve & has_a)
+        res_next = torch.where(acc1, f1c, torch.where(acc2, f2c, a_cand))
+        res_fail = mode_resolve & ~res_ok
+
+        # A step that advances goes to the wid-owner as a LOG record, unless
+        # it was absorbed by the padding (no restart).
+        adv_next = torch.where(mode_resolve, res_next, step_next)
+        adv_valid = step_done | res_ok
+        absorbed = adv_valid & (adv_next == pad) & (not self.restart)
+        self._count(3, absorbed)
+        res_col = mode_resolve[:, None]
+        v_bloom = n2v.blooms[self._my, local]
+        fresh = _pack(wid, s1, zero + _F_LOG, v, adv_next, zero, zero, zero,
+                      zero, zero, zero,
+                      torch.where(res_col, rec_bloom, v_bloom), tgt)
+        pend_flags = (_F_MODE + _F_HAS_A * sc_has_a.to(torch.int64)
+                      + _F_OVF * sc_ovf.to(torch.int64)
+                      + (sc_nf.clamp(max=2) << 3))
+        pend = _pack(wid, step, pend_flags, t, v, replay_rnd, sc_a, sc_f1,
+                     sc_f1r, sc_f2, sc_f2r, v_bloom, tgt)
+        rep = _pack(wid, step, zero, t, v,
+                    torch.where(mode_resolve, rnd0, replay_rnd),
+                    zero, zero, zero, zero, zero,
+                    torch.where(res_col, n2v.blooms[self._my, self._local(t)],
+                                rec_bloom), tgt)
+        return [(rec_fwd, self._owner(v), fwd),
+                (fresh, self._wid_owner(wid), adv_valid & ~absorbed),
                 (pend, self._owner(t), pending),
                 (rep, self._owner(v), allrej | res_fail)]
 
@@ -680,7 +998,8 @@ class RoutedWalk:
             shards, self.stats, pipe.live, self.live.view(-1), self._counter,
             shard_nodes=pg.shard_nodes,
             blk=self.blk, walk_length=self.walk_length, cap=self.cap,
-            ccap=self.ccap, key=self.key, node2vec=n2v)
+            ccap=self.ccap, key=self.key, node2vec=n2v, engine=self.engine,
+            padding=self.padding, restart=self.restart)
 
     # -- the phase loop -------------------------------------------------
 
@@ -688,7 +1007,7 @@ class RoutedWalk:
         """Every pipeline's outboxes, carry pools' live prefixes and live
         counts, the walk shares and the stats (for phase-by-phase
         comparisons)."""
-        out = {"walks": self.walks[:, : self.blk, : self.walk_length + 1],
+        out = {"walks": self.walks[:, : self.blk, : self.out_cols],
                "stats": self.stats, "live": self.live}
         for p, pipe in enumerate(self.pipes):
             out[f"outbox{p}"] = pipe.outbox
@@ -757,32 +1076,45 @@ class RoutedWalk:
                      .tolist())
 
     def result(self):
-        """(walks (B, L+1) int32, info) as the walk stands; raises if a
-        record was dropped or a walker has not logged every position."""
-        walks = self.walks[:, : self.blk, : self.walk_length + 1].reshape(
-            self.num_walkers, self.walk_length + 1)
-        log_n, sent, dropped = (int(x) for x in self.stats.sum(0).tolist())
-        info = {
-            "log_entries": log_n,
-            "exchanged_records": sent,
-            "phases": self.phases,
-            "overflow_dropped": dropped,
-            "exchange_bytes": sent * self.width * 4,
-        }
+        """(walks (B, L+1) int32, or the triples engine's (B, 2L+1), and
+        info) as the walk stands; raises if a record was dropped, or a
+        walker has not logged every position (the CSR engines) or not
+        terminated (the family engines)."""
+        walks = self.walks[:, : self.blk, : self.out_cols].reshape(
+            self.num_walkers, self.out_cols)
+        if self.family:
+            info = _routed_info(self.stats, self.width,
+                                self.engine.replace("_", "-"),
+                                self.num_walkers, self.cfg, self.phases)
+        else:
+            log_n, sent, dropped = (int(x) for x in self.stats.sum(0).tolist())
+            info = {
+                "log_entries": log_n,
+                "exchanged_records": sent,
+                "phases": self.phases,
+                "overflow_dropped": dropped,
+                "exchange_bytes": sent * self.width * 4,
+            }
         if self.n2v is not None:
             info["collectives_per_step"] = round(
                 self.phases / max(self.walk_length, 1), 2)
-        info["schedule"] = self.schedule
-        _check_complete(info, self.num_walkers, self.walk_length, self.cfg)
+        if not self.family:
+            info["schedule"] = self.schedule
+            _check_complete(info, self.num_walkers, self.walk_length,
+                            self.cfg)
         return walks, info
 
 
-def _pack(wid, step, flags, t, v, rnd, a, f1, f1r, f2, f2r, bloom_rows):
+def _pack(wid, step, flags, t, v, rnd, a, f1, f1r, f2, f2r, bloom_rows,
+          target=None):
     """(M, 14) int32 node2vec records from uint32 words held as int64 (or
-    signed node ids) and (M, 4) int32 filters."""
+    signed node ids) and (M, 4) int32 filters; with ``target`` the (M, 15)
+    biased edge-list records, the target in word 10."""
     word1 = (step | (flags << 24)) & prng.MASK32
-    cols = [prng.to_i32_bits(x & prng.MASK32)
-            for x in (wid, word1, t, v, rnd, a, f1, f1r, f2, f2r)]
+    words = [wid, word1, t, v, rnd, a, f1, f1r, f2, f2r]
+    if target is not None:
+        words.append(target)
+    cols = [prng.to_i32_bits(x & prng.MASK32) for x in words]
     return torch.cat([torch.stack(cols, dim=1), bloom_rows], dim=1)
 
 
@@ -841,9 +1173,11 @@ def walk_partitioned_routed(pgraph: PartitionedCSR, target_nodes,
 def node2vec_routing(pgraph: PartitionedCSR, p: float, q: float,
                      spec_rounds: int = 6, hashes=None,
                      blooms=None) -> Node2VecRouting:
-    """Check and gather the node2vec engine's tables: ``hashes`` from
-    ``build_partition_hashes`` (or None), ``blooms`` from
-    ``build_partition_blooms`` (or None: saturated filters)."""
+    """Check and gather the node2vec machine's tables: ``hashes`` from
+    ``build_partition_hashes`` or ``build_edge_list_partition_hashes`` (or
+    None: the CSR engine's binary search), ``blooms`` from
+    ``build_partition_blooms`` or ``build_edge_list_partition_blooms`` (or
+    None: saturated filters)."""
     dev, d, s = pgraph.device, pgraph.num_shards, pgraph.shard_nodes
     if spec_rounds < 1:
         raise ValueError(f"spec_rounds must be >= 1, got {spec_rounds}")
@@ -904,3 +1238,234 @@ def walk_partitioned_node2vec_routed(pgraph: PartitionedCSR, hashes,
     key = prng.derive_key(int(seed), prng.STREAM_CSR_BIASED)
     return RoutedWalk(pgraph, targets, walk_length, key, cfg, schedule, body,
                       node2vec=routing).run()
+
+
+# --- the edge-list and KG-triples families ----------------------------------
+
+def _range_partition(index, payload, n: int, num_shards: int):
+    """Split a head-sorted ``payload`` ((E,) tails or (E, 2) [relation,
+    tail] rows) and its (N, 2) [start, end-inclusive] range ``index``
+    ((-1, -1) for an empty head) into contiguous head-range shards, on the
+    payload's device.  Returns (meta: per shard (S, 2) int32 [local start,
+    cnt], with the cumulative form's start for an empty head; payload: per
+    shard (E_max, ...) int32, zero-padded to the largest shard's rows, at
+    least 1; S)."""
+    if num_shards < 1:
+        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    dev = payload.device
+    s = -(-n // num_shards)
+    starts = index[:, 0].to(torch.int64)
+    cnts = torch.where(starts >= 0, index[:, 1].to(torch.int64) - starts + 1,
+                       0)
+    gstart = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    gstart[1:] = torch.cumsum(cnts, 0)
+    bounds = [min(d * s, n) for d in range(num_shards + 1)]
+    edge_bounds = gstart[torch.tensor(bounds, device=dev)].tolist()
+    e_max = max(max(b - a for a, b in zip(edge_bounds, edge_bounds[1:])), 1)
+    metas, shards = [], []
+    for d in range(num_shards):
+        lo, hi = bounds[d], bounds[d + 1]
+        e_lo, e_hi = edge_bounds[d], edge_bounds[d + 1]
+        meta = torch.zeros((s, 2), dtype=torch.int32, device=dev)
+        meta[: hi - lo, 0] = gstart[lo:hi] - e_lo
+        meta[: hi - lo, 1] = cnts[lo:hi]
+        shard = torch.zeros((e_max, *payload.shape[1:]), dtype=torch.int32,
+                            device=dev)
+        shard[: e_hi - e_lo] = payload[e_lo:e_hi]
+        metas.append(meta)
+        shards.append(shard)
+    return tuple(metas), tuple(shards), s
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitionedTriples:
+    """A ``TriplesGraph`` split into contiguous head-entity ranges of
+    ``shard_nodes`` ids (twin of the JAX package's ``PartitionedTriples``,
+    with ``PartitionedCSR``'s field names): ``node_meta[d]`` (S, 2) int32
+    [local start, cnt] of shard d's heads and ``col[d]`` (E_max, 2) int32
+    its [relation, tail] rows, one tensor pair a shard."""
+
+    node_meta: tuple[torch.Tensor, ...]
+    col: tuple[torch.Tensor, ...]
+    num_nodes: int
+    num_shards: int
+    shard_nodes: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.col[0].device
+
+    @classmethod
+    def from_triples(cls, graph, num_shards: int) -> "PartitionedTriples":
+        """Partition on the graph's own device."""
+        meta, rel_tail, s = _range_partition(
+            graph.relation_tail_index, graph.triples[:, 1:3],
+            graph.num_entities, num_shards)
+        return cls(node_meta=meta, col=rel_tail, num_nodes=graph.num_entities,
+                   num_shards=num_shards, shard_nodes=s)
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitionedEdgeList:
+    """An ``EdgeListGraph`` split into contiguous head-node ranges of
+    ``shard_nodes`` ids (twin of the JAX package's ``PartitionedEdgeList``,
+    with ``PartitionedCSR``'s field names): ``node_meta[d]`` (S, 2) int32
+    [local start, cnt] and ``col[d]`` (E_max,) int32 the tails of shard d's
+    out-edges, one tensor pair a shard."""
+
+    node_meta: tuple[torch.Tensor, ...]
+    col: tuple[torch.Tensor, ...]
+    num_nodes: int
+    num_shards: int
+    shard_nodes: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.col[0].device
+
+    @classmethod
+    def from_edge_list(cls, graph, num_shards: int) -> "PartitionedEdgeList":
+        """Partition on the graph's own device."""
+        meta, tails, s = _range_partition(graph.node_edge_index, graph.tails,
+                                          graph.num_nodes, num_shards)
+        return cls(node_meta=meta, col=tails, num_nodes=graph.num_nodes,
+                   num_shards=num_shards, shard_nodes=s)
+
+
+def _edge_list_head_sorted(graph):
+    """(row_ptr (N+1,) int64, tails (E,) int32) of the head-sorted edge
+    list, the CSR form of the rows that ``_range_partition`` slices."""
+    index = graph.node_edge_index
+    starts = index[:, 0].to(torch.int64)
+    cnts = torch.where(starts >= 0, index[:, 1].to(torch.int64) - starts + 1,
+                       0)
+    row_ptr = torch.zeros(graph.num_nodes + 1, dtype=torch.int64,
+                          device=graph.device)
+    row_ptr[1:] = torch.cumsum(cnts, 0)
+    return row_ptr, graph.tails
+
+
+def build_edge_list_partition_hashes(pgraph: PartitionedEdgeList, graph):
+    """Per-shard cuckoo edge sets for the routed biased edge-list engine:
+    shard d's set holds the edges whose head lies in shard d's range, so
+    that owner(t) answers ``cand in N(t)`` alone; built on the partitioned
+    graph's device, bit for bit the JAX package's NumPy build.  Returns
+    (tables (D, S_h, 2) int32 bit patterns, salts (D,) int32, log_size)."""
+    row_ptr, tails = _edge_list_head_sorted(graph)
+    return shard_hash_tables(row_ptr, tails, pgraph)
+
+
+def build_edge_list_partition_blooms(pgraph: PartitionedEdgeList,
+                                     graph) -> torch.Tensor:
+    """(D, S, 4) int32 bit patterns: each node's 128-bit Bloom filter over
+    its out-neighbours, node-range sharded like ``pgraph``."""
+    return shard_blooms(*_edge_list_head_sorted(graph), pgraph)
+
+
+def _family_prepare(pgraph, target_nodes, walk_length, padding_idx, device):
+    """The checks of ``_prepare`` and the padding's; returns (targets, body,
+    the walk of length 0 with its info, or None)."""
+    _, targets, body = _prepare(pgraph, target_nodes, walk_length, device)
+    if not -2 ** 31 <= int(padding_idx) < 2 ** 31:
+        raise ValueError(f"padding_idx must be an int32 id, got "
+                         f"{padding_idx}")
+    empty = None
+    if walk_length == 0:  # the target column, nothing routed
+        num_walkers = int(targets.shape[0])
+        empty = (targets.reshape(-1, 1).clone(), {
+            "log_entries": 0, "exchanged_records": 0, "phases": 0,
+            "overflow_dropped": 0, "terminated": num_walkers,
+            "exchange_bytes": 0})
+    return targets, body, empty
+
+
+def walk_triples_partitioned_routed(pgraph: PartitionedTriples, target_nodes,
+                                    walk_length: int, padding_idx: int,
+                                    seed: int = 0,
+                                    config: RoutedConfig | None = None,
+                                    schedule: str = "serial", device=None):
+    """KG-triples walks over head-range shards with owner-routed walkers.
+
+    Returns (walks (B, 2L+1) int32: entity, relation, entity, ...; info
+    with ``log_entries``, ``exchanged_records``, ``phases``,
+    ``overflow_dropped``, ``terminated``, ``exchange_bytes``).  A walker
+    absorbed by a head without triples or by the padding keeps padding in
+    its remaining positions.  Equal to the JAX package's
+    ``walk_triples_partitioned_routed`` for the same graph, targets and
+    seed, under either ``schedule``.
+    """
+    targets, body, empty = _family_prepare(
+        pgraph, target_nodes, walk_length, padding_idx, device)
+    if empty is not None:
+        return empty
+    cfg = RoutedConfig.resolve(config, targets.shape[0], pgraph.num_shards,
+                               int(walk_length))
+    key = prng.derive_key(int(seed), prng.STREAM_TRIPLES)
+    return RoutedWalk(pgraph, targets, walk_length, key, cfg, schedule, body,
+                      engine="triples", padding=padding_idx).run()
+
+
+def walk_edge_list_partitioned_routed(pgraph: PartitionedEdgeList,
+                                      target_nodes, walk_length: int,
+                                      padding_idx: int, restart: bool = True,
+                                      seed: int = 0,
+                                      config: RoutedConfig | None = None,
+                                      schedule: str = "serial", device=None):
+    """Uniform edge-list walks (padding and restart at dead ends) over
+    head-range shards with owner-routed walkers.
+
+    Returns (walks (B, L+1) int32, info as
+    ``walk_triples_partitioned_routed``'s).  Equal to the JAX package's
+    ``walk_edge_list_partitioned_routed`` for the same graph, targets and
+    seed, under either ``schedule``.
+    """
+    targets, body, empty = _family_prepare(
+        pgraph, target_nodes, walk_length, padding_idx, device)
+    if empty is not None:
+        return empty
+    cfg = RoutedConfig.resolve(config, targets.shape[0], pgraph.num_shards,
+                               int(walk_length))
+    key = prng.derive_key(int(seed), prng.STREAM_EDGE_UNIFORM)
+    return RoutedWalk(pgraph, targets, walk_length, key, cfg, schedule, body,
+                      engine="edge_list", padding=padding_idx,
+                      restart=restart).run()
+
+
+def walk_edge_list_node2vec_partitioned_routed(
+        pgraph: PartitionedEdgeList, hashes, target_nodes, p: float, q: float,
+        walk_length: int, padding_idx: int, restart: bool = True,
+        seed: int = 0, config: RoutedConfig | None = None,
+        spec_rounds: int = 6, blooms=None, schedule: str = "serial",
+        device=None):
+    """Biased (p/q) edge-list walks over head-range shards with owner-routed
+    walkers: the node2vec engine's phase machine with the edge-list law.
+
+    ``hashes`` = ``build_edge_list_partition_hashes(pgraph, graph)`` (the
+    exact test at owner(t)); ``blooms`` =
+    ``build_edge_list_partition_blooms(pgraph, graph)`` (None: saturated
+    filters, every in-band draw travels).  Returns (walks (B, L+1) int32,
+    info as ``walk_triples_partitioned_routed``'s plus
+    ``collectives_per_step``).  Equal to the JAX package's
+    ``walk_edge_list_node2vec_partitioned_routed`` for the same graph,
+    targets and seed, whatever the filters and the schedule.
+    """
+    targets, body, empty = _family_prepare(
+        pgraph, target_nodes, walk_length, padding_idx, device)
+    if empty is not None:
+        return empty
+    if walk_length >= 1 << 24:
+        raise ValueError(f"walk_length must be below 2^24 (the step field "
+                         f"of a record), got {walk_length}")
+    if hashes is None:
+        raise ValueError("hashes must be build_edge_list_partition_hashes of "
+                         "this partition (the engine has no search)")
+    num_walkers = int(targets.shape[0])
+    cfg = RoutedConfig.resolve(config, num_walkers, pgraph.num_shards,
+                               int(walk_length))
+    if config is None or config.max_phases <= 0:
+        cfg = _biased_phase_budget(cfg, int(walk_length), spec_rounds)
+    routing = node2vec_routing(pgraph, p, q, spec_rounds, hashes, blooms)
+    key = prng.derive_key(int(seed), prng.STREAM_EDGE_BIASED)
+    return RoutedWalk(pgraph, targets, walk_length, key, cfg, schedule, body,
+                      node2vec=routing, engine="edge_list_node2vec",
+                      padding=padding_idx, restart=restart).run()
