@@ -27,7 +27,8 @@ out-edges; and those families routed over the 8 shards with 32 768 walkers
 K14, ``walk_edge_list_node2vec_partitioned_routed`` at p=0.5 q=2 with the
 edge-list cuckoo tables and with Bloom filters and saturated ones through
 K15, ``walk_triples_partitioned_routed`` through K13; both schedules; both
-copies).  It checks the results and
+copies; K14 and K15 are one persistent cooperative launch a walk after
+phase 0, K13 a call a phase).  It checks the results and
 measures every kernel at the shape the main path gives it; the two loss
 kernels also with float32 tables, each with its tile plan and its device time
 by kernel.  The ``build`` line reports each loss kernel's registers and
@@ -62,8 +63,11 @@ edge-list entries and K10's two generators at the families' bench shape
 this one and its kernels built from its own sources, timed in this one process, in turns
 (``phase_compare_kernels``); then a ``routed_comparison`` line, the routed
 uniform and node2vec serial legs of each checkout the same way, with the
-device time of their phase calls.  Without arguments it needs one card and
-nothing else.
+device time of their phase calls; then a ``routed_family_comparison``
+line, K14's and K15's bench legs (uniform with restart, p=0.5 q=2 with
+Bloom filters; both schedules) of each checkout the same way, and each
+leg's device time a phase and idle share by the profiler.  Without
+arguments it needs one card and nothing else.
 
 Every kernel is held against its plain version on all the rows the main path
 gives it.  The routed legs (``phase_routed``) hold K11 and K12 against the
@@ -81,17 +85,24 @@ take minutes at full depth.  The small checks hold K11 and K12 against the
 plain bodies phase by phase on a 3 000-node graph with dead ends (D = 1, 2,
 8, 16, L = 1 and 12, both schedules, a filling carry pool, one of many
 tiles and an overflowing one, both membership tests, saturated
-filters), and K13-K15 the same way on that graph's families.  The routed
-family legs (``phase_routed_families``) hold K13-K15 against the plain
-bodies state by state for the first 8 phases and whole, each leg against
-the single-device walks (K7, K8, K9) and every hop against the graph,
-then time them as the routed CSR legs.
+filters), and K13-K15 the same way on that graph's families (K14's and
+K15's batch kernel a launch of one phase each, and each leg also whole in
+one launch).  The routed family legs (``phase_routed_families``) hold
+K13-K15 against the plain bodies state by state for the first 8 phases and
+whole, each leg against the single-device walks (K7, K8, K9) and every hop
+against the graph, then time them as the routed CSR legs; the
+``routed_families`` line adds, for K14's and K15's legs, the launches and
+phases a leg, the batch kernel's grid, blocks per SM, registers and
+barriers a phase, the warm leg ms, the device us a phase (profiler) and
+the idle share, and the serial legs with 1, 2 and every resident block an
+SM.
 
 Every phase prints one JSON line.  The line before the last two is
 ``{"kernels": [...]}`` with, per kernel, its launches on the main path (the
 sampling run and the training run, each counted from zero, added up; for
 K7-K10 the families' run and for K13-K15 the routed families' run, each
-counted from zero), its
+counted from zero; K14's and K15's are launches a walk, their phases beside
+them), its
 largest deviation from the plain version (0 for the integer kernels; for the
 two float kernels the limits are ``LOSS_REL_LIMIT`` and ``GRAD_REL_LIMIT``
 below), its time, the plain version's time,
@@ -257,12 +268,12 @@ KERNEL_FACTS = {
         "torch_random_walk_tpu/parallel/partition_v2.py:1163 (process of "
         "_routed_triples_jit:1121 with _build_outbox:176; XLA program, no "
         "Pallas counterpart)"),
-    "routed_edge_list_phase": (
+    "routed_edge_list_batch": (
         "torch_random_walk_tpu_torch/kernels/routed_families.cu",
         "torch_random_walk_tpu/parallel/partition_v2.py:1420 (process of "
         "_routed_edge_list_jit:1388 with _build_outbox:176; XLA program, no "
         "Pallas counterpart)"),
-    "routed_edge_list_node2vec_phase": (
+    "routed_edge_list_node2vec_batch": (
         "torch_random_walk_tpu_torch/kernels/routed_families.cu",
         "torch_random_walk_tpu/parallel/partition_v2.py:1774 (process of "
         "_routed_edge_list_n2v_jit:1678 with _build_outbox:176; XLA program, "
@@ -273,8 +284,14 @@ INTEGER_KERNELS = ("uniform_walk_csr", "node2vec_walk_csr_mixture",
                    "all_to_all_chunks", "routed_uniform_phase",
                    "routed_node2vec_phase")
 ROUTED_KERNELS = ("routed_uniform_phase", "routed_node2vec_phase")
-ROUTED_FAMILY_KERNELS = ("routed_triples_phase", "routed_edge_list_phase",
-                         "routed_edge_list_node2vec_phase")
+ROUTED_FAMILY_KERNELS = ("routed_triples_phase", "routed_edge_list_batch",
+                         "routed_edge_list_node2vec_batch")
+# K14 and K15: one persistent cooperative launch a walk after phase 0, its
+# phases' steps separated by grid barriers (three a serial phase, two an
+# overlapped interval).
+ROUTED_BATCH_KERNELS = ("routed_edge_list_batch",
+                        "routed_edge_list_node2vec_batch")
+BATCH_BARRIERS_PER_PHASE = {"serial": 3, "overlapped": 2}
 T0 = time.perf_counter()
 
 
@@ -655,9 +672,9 @@ FAMILY_FUNCTIONS = {
 }
 
 
-# K11-K15: the body kernels (K12's by membership flag, K14's and K15's by
-# restart flag), the tiled compaction by record width and streams (one
-# stream: phase 0), and phase 0's histogram.
+# K11-K15: the body kernels (K12's by membership flag), the tiled
+# compaction by record width and streams (one stream: phase 0), phase 0's
+# histogram, and K14's and K15's batch kernels by restart flag.
 ROUTED_FUNCTIONS = {
     "routed_uniform_body_kernel": "K11 body",
     "routed_compact_kernelILi3ELi2EE": "K11 compaction",
@@ -668,15 +685,15 @@ ROUTED_FUNCTIONS = {
     "routed_compact_kernelILi14ELi1EE": "K12 phase 0 compaction",
     "routed_stage_hist_kernel": "phase 0 histogram",
     "routed_triples_body_kernel": "K13 body",
-    "routed_edge_list_body_kernelILb1E": "K14 body, restart",
-    "routed_edge_list_body_kernelILb0E": "K14 body, absorbing",
-    "routed_compact_kernelILi4ELi2EE": "K13/K14 compaction",
+    "routed_compact_kernelILi4ELi2EE": "K13 compaction",
     "routed_compact_kernelILi4ELi1EE": "K13/K14 phase 0 compaction",
-    "routed_edge_list_node2vec_body_kernelILb1E": "K15 body, restart",
-    "routed_edge_list_node2vec_body_kernelILb0E": "K15 body, absorbing",
-    "routed_compact_kernelILi15ELi4EE": "K15 compaction",
     "routed_compact_kernelILi15ELi1EE": "K15 phase 0 compaction",
+    "routed_edge_list_batch_kernelILb1E": "K14 batch, restart",
+    "routed_edge_list_batch_kernelILb0E": "K14 batch, absorbing",
+    "routed_edge_list_node2vec_batch_kernelILb1E": "K15 batch, restart",
+    "routed_edge_list_node2vec_batch_kernelILb0E": "K15 batch, absorbing",
 }
+BATCH_FUNCTIONS = tuple(k for k in ROUTED_FUNCTIONS if "batch_kernel" in k)
 
 
 def function_key(name: str, functions: dict) -> str | None:
@@ -870,6 +887,9 @@ def phase_build() -> None:
     require(all(routed_ptxas.get(k, {}).get("registers")
                 for k in ROUTED_FUNCTIONS),
             f"ptxas reported no registers for K11-K15: {routed_ptxas}")
+    require(all(routed_ptxas[k]["spill_store_bytes"] == 0
+                for k in BATCH_FUNCTIONS),
+            f"a batch kernel (K14, K15) spills: {routed_ptxas}")
     # K2's launch geometry, and how many blocks of 64, 128 and 256 threads
     # one SM holds at its register count.
     emit("walk_geometry", kernel="node2vec_walk_csr", geometry={
@@ -1371,6 +1391,22 @@ def routed_lockstep(make, phases=None) -> dict:
             "max_abs_err": worst if same else max(worst, 1),
             "result": results[0] if isinstance(results[0], str)
             else results[0][1]}
+
+
+def whole_leg_err(make) -> int:
+    """A kernel run and a plain run (``make(body)``) each to its end through
+    ``run`` (K14 and K15: one batch launch after phase 0): 0 if their walks
+    and info are equal, or both raised the same error; else 1."""
+    got = []
+    for body in ("kernel", "plain"):
+        try:
+            got.append(make(body).run())
+        except RuntimeError as err:
+            got.append(str(err))
+    if isinstance(got[0], str) or isinstance(got[1], str):
+        return int(got[0] != got[1])
+    return int(max_abs_err(got[0][0], got[1][0]) != 0
+               or got[0][1] != got[1][1])
 
 
 def small_routed_graph(device):
@@ -2409,8 +2445,8 @@ ROUTED_FAMILY_STREAMS = {"triples": prng.STREAM_TRIPLES,
                          "edge_list_node2vec": prng.STREAM_EDGE_BIASED}
 # The leg each family kernel's row is measured on (serial schedule).
 ROUTED_FAMILY_ROW_LEGS = {"routed_triples_phase": "triples",
-                          "routed_edge_list_phase": "edge_uniform_restart",
-                          "routed_edge_list_node2vec_phase": "edge_n2v"}
+                          "routed_edge_list_batch": "edge_uniform_restart",
+                          "routed_edge_list_node2vec_batch": "edge_n2v"}
 
 
 def routed_family_parts(el, tg, shards=NUM_SHARDS):
@@ -2476,6 +2512,50 @@ def routed_family_walk(leg, parts, targets, schedule, body, config=None,
                                    restart=restart)
 
 
+def batch_leg_launches(leg, parts, targets, schedule) -> dict:
+    """One warm leg of a K14 or K15 engine through its entry point, with the
+    launch counts set to 0 just before and read just after: its kernel's
+    calls (phase 0 a pipeline and the batch launches) and K4's."""
+    kernel = bindings.ROUTED_ENGINES[ROUTED_FAMILY_LEGS[leg][0]].kernel
+    torch.cuda.synchronize()
+    bindings.reset_launch_counts()
+    routed_family_call(leg, parts, targets, schedule)
+    torch.cuda.synchronize()
+    counts = dict(bindings.launch_counts)
+    return {"launches": counts[kernel],
+            "exchange_launches": counts["all_to_all_chunks"],
+            "other_launches": sum(v for k, v in counts.items()
+                                  if k not in (kernel, "all_to_all_chunks"))}
+
+
+def batch_leg_split_ms(leg, parts, targets, schedule) -> dict:
+    """Where a warm K14 or K15 leg's host time goes, as ``RoutedWalk.run``
+    spends it: the walk's set-up (configuration, buffers, packed launches,
+    the occupancy query), phase 0 (``start``: tensor code, its launches and,
+    overlapped, K4), the batch launch up to the read of the phase counter,
+    and the result's gather; host clock, the device synchronized at each
+    boundary."""
+    torch.cuda.synchronize()
+    marks = [time.perf_counter()]
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    run = routed_family_walk(leg, parts, targets, schedule, "kernel")
+    mark()
+    run.start()
+    phases, inflight = run._read()
+    mark()
+    while inflight > 0 and phases < run.max_phases:
+        phases, inflight = run._run_batch(run.max_phases - phases)
+    mark()
+    run.result()
+    mark()
+    spans = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    return dict(zip(("set_up", "phase0", "batch", "result"), spans))
+
+
 def single_device_family_walk(leg, el, tg, targets):
     """The single-device walk the leg equals (padding N, targets in
     [0, N)): K7, K8 or K9 through the graph entry."""
@@ -2495,16 +2575,19 @@ def routed_family_small_checks(device) -> dict:
     ones) against the plain bodies phase by phase on the small graph with
     dead ends: every leg at D = 8 under both schedules, and one leg of each
     kernel at L = 1, D = 1 and 16, with a pair capacity that fills the
-    carry pool and one of many tiles; K14 with one whose pool overflows
-    (both runs must raise alike; no other case may raise).  Returns the
-    largest difference of each kernel."""
+    carry pool and one of many tiles; K14 and K15 also at D = 32, where
+    the D * D box counts outnumber a block's threads; K14 with one whose
+    pool overflows (both runs must raise alike; no other case may
+    raise).  K14's and K15's
+    legs also run whole, one batch launch each, against the plain run.
+    Returns the largest difference of each kernel."""
     graph = small_routed_graph(device)
     el, tg = family_graphs(graph)
     walkers = 1024
     rng = np.random.default_rng(10)
     targets = {n: common.as_int32(rng.integers(0, graph.num_nodes, n), device)
                for n in (walkers, 8 * walkers)}
-    parts = {d: routed_family_parts(el, tg, d)[0] for d in (1, 2, 8, 16)}
+    parts = {d: routed_family_parts(el, tg, d)[0] for d in (1, 2, 8, 16, 32)}
     t0 = time.perf_counter()
     carry = tt.RoutedConfig(pair_capacity=16, carry_capacity=walkers)
     overflow = tt.RoutedConfig(pair_capacity=2, carry_capacity=5)
@@ -2518,6 +2601,8 @@ def routed_family_small_checks(device) -> dict:
              (8, ("serial",), 12, overflow, ("edge_uniform_restart",)),
              (1, ("serial",), 12, None, one_each),
              (16, ("overlapped",), 12, None, one_each),
+             (32, ("serial",), 12, None, ("edge_uniform_restart",
+                                          "edge_n2v")),
              (2, ("serial",), 12, tiles, one_each)]
     errs = dict.fromkeys(ROUTED_FAMILY_KERNELS, 0)
     for d, schedules, length, cfg, legs in cases:
@@ -2526,9 +2611,13 @@ def routed_family_small_checks(device) -> dict:
             for leg in legs:
                 kernel = bindings.ROUTED_ENGINES[
                     ROUTED_FAMILY_LEGS[leg][0]].kernel
-                got = routed_lockstep(lambda body: routed_family_walk(
+                make = (lambda body: routed_family_walk(
                     leg, parts[d], t, schedule, body, cfg, length,
                     graph.num_nodes))
+                got = routed_lockstep(make)
+                if kernel in ROUTED_BATCH_KERNELS:
+                    got["max_abs_err"] = max(got["max_abs_err"],
+                                             whole_leg_err(make))
                 raised = isinstance(got.get("result"), str)
                 if cfg is overflow:
                     require(raised and "incomplete" in got["result"],
@@ -2560,17 +2649,24 @@ def phase_routed_families_main_path(graph):
     emit("routed_family_main_path", launches={
         k: launches[k] for k in (*ROUTED_FAMILY_KERNELS, "all_to_all_chunks")},
         first_call_ms=first_ms)
-    calls = Counter()
+    # K13: a call an enqueued phase, and K4 beside each; K14, K15: one batch
+    # launch a leg, which exchanges itself; each leg one call for phase 0.
+    calls, exchanges = Counter(), 0
     for leg, (engine, _, _) in ROUTED_FAMILY_LEGS.items():
-        calls[bindings.ROUTED_ENGINES[engine].kernel] += routed_calls(
-            out[leg][1]["phases"]) + 1
+        name = bindings.ROUTED_ENGINES[engine].kernel
+        if name in ROUTED_BATCH_KERNELS:
+            calls[name] += 2
+        else:
+            calls[name] += routed_calls(out[leg][1]["phases"]) + 1
+            exchanges += routed_calls(out[leg][1]["phases"])
     for name in ROUTED_FAMILY_KERNELS:
         require(launches[name] == calls[name] > 0,
-                f"{name}: one call an enqueued phase and one for phase 0 "
-                f"expected, got {launches[name]} for {calls[name]}")
-    require(launches["all_to_all_chunks"] == sum(calls.values())
-            - len(ROUTED_FAMILY_LEGS), "one exchange launch per enqueued "
-            "phase expected")
+                f"{name}: {calls[name]} calls expected (phase 0 and the "
+                f"phases: one a phase for K13, one batch a leg for K14 and "
+                f"K15), got {launches[name]}")
+    require(launches["all_to_all_chunks"] == exchanges,
+            "one exchange launch per enqueued K13 phase expected, and none "
+            "for K14 and K15")
     return el, tg, parts, targets, out, launches
 
 
@@ -2639,10 +2735,12 @@ def phase_routed_families(graph) -> list[dict]:
     through the entry points, every leg checked (``check_routed_family_legs``)
     on the bench families and on the copy whose last quarter of nodes has no
     out-edges; each leg warm under both schedules (host clock, three after
-    one warm-up); K13's, K14's and K15's device time a call by CUDA events
-    around every call of one warm serial leg; the card's launches a phase,
-    idle share and the compaction's, bodies' and K4's device time a phase
-    by torch.profiler over one warm serial leg.  Returns K13-K15's rows."""
+    one warm-up); device time by CUDA events around every call of one warm
+    serial leg (K13 a call a phase, K14 and K15 one batch launch a leg);
+    the card's launches, idle share and the compaction's, bodies', K4's and
+    batch kernel's device time a phase by torch.profiler over one warm leg
+    a schedule; K14's and K15's serial legs at one and at every resident
+    block an SM.  Returns K13-K15's rows."""
     el, tg, parts, targets, out, launches = \
         phase_routed_families_main_path(graph)
     checked = check_routed_family_legs(el, tg, parts, targets, out, "bench")
@@ -2668,42 +2766,119 @@ def phase_routed_families(graph) -> list[dict]:
                     f"{leg} {schedule}: the warm legs differ")
     per_call, profiled = {}, {}
     for kernel, leg in ROUTED_FAMILY_ROW_LEGS.items():
+        batch = kernel in ROUTED_BATCH_KERNELS
         with routed_loop(partition_v2.PHASES_PER_READ, False):
             (_, info), ms = phase_call_ms(
                 bindings, kernel, lambda: routed_family_call(leg, parts,
                                                              targets))
         phases = info["phases"]
-        require(len(ms) == routed_calls(phases),
-                "one call an enqueued phase expected")
+        # K13: a call an enqueued phase; K14, K15: one batch launch of the
+        # whole walk (phase 0 is routed_start's, timed by neither).
+        require(len(ms) == (1 if batch else routed_calls(phases)),
+                f"{kernel}: {len(ms)} calls for {phases} phases")
         per_call[kernel] = {
-            "calls": len(ms), "noop_calls": len(ms) - phases,
-            "device_ms_per_call": sum(ms[:phases]) / phases}
-        (_, info), leg_ms, kernels = profile_device(
-            lambda: routed_family_call(leg, parts, targets))
-        busy = sum(v for _, v in kernels.values())
-        n = sum(c for c, _ in kernels.values())
+            "calls": len(ms), "noop_calls": len(ms) - (1 if batch else phases),
+            "device_ms_per_phase": sum(ms[:phases]) / phases}
+        for schedule in partition_v2.SCHEDULES:
+            (_, info), leg_ms, kernels = profile_device(
+                lambda: routed_family_call(leg, parts, targets, schedule))
+            busy = sum(v for _, v in kernels.values())
+            n = sum(c for c, _ in kernels.values())
+            phases = info["phases"]
 
-        def per_phase(part):
-            hits = [v for k, v in kernels.items() if part in k]
-            return {"launches": sum(c for c, _ in hits),
-                    "device_ms_per_phase": sum(m for _, m in hits) / phases}
+            def per_phase(part):
+                hits = [v for k, v in kernels.items() if part in k]
+                return {"launches": sum(c for c, _ in hits),
+                        "device_ms_per_phase": sum(m for _, m in hits)
+                        / phases}
 
-        profiled[kernel] = None if busy <= 0 else {
-            "leg": leg, "phases": phases, "leg_ms": leg_ms,
-            "device_launches_per_phase": n / phases, "device_busy_ms": busy,
-            "device_idle_share": 1 - busy / leg_ms,
-            "compaction": per_phase("routed_compact_kernel"),
-            "body": per_phase("body_kernel"),
-            "exchange": per_phase("all_to_all_chunks")}
-        require(profiled[kernel] is not None,
-                f"{kernel}: the profiler saw no device time")
+            require(busy > 0, f"{kernel}: the profiler saw no device time")
+            profiled[f"{kernel}_{schedule}"] = {
+                "leg": leg, "schedule": schedule, "phases": phases,
+                "leg_ms": leg_ms, "device_launches": n,
+                "device_launches_per_phase": n / phases,
+                "device_busy_ms": busy,
+                "device_idle_share": 1 - busy / leg_ms,
+                "batch": per_phase("batch_kernel"),
+                "compaction": per_phase("routed_compact_kernel"),
+                "body": per_phase("body_kernel"),
+                "exchange": per_phase("all_to_all_chunks"),
+                "phase0": per_phase("routed_stage_hist_kernel")}
+    # The batch kernels' serial legs warm with one block an SM and with every
+    # resident block: the grid barriers' cost against the blocks' share of
+    # the work.
+    sweep = {}
+    for kernel, leg in ROUTED_FAMILY_ROW_LEGS.items():
+        if kernel not in ROUTED_BATCH_KERNELS:
+            continue
+        for per_sm in (1, None):
+            def leg_run():
+                run = routed_family_walk(leg, parts, targets, "serial",
+                                         "kernel")
+                if per_sm is not None:
+                    run._batch = run._batch._replace(
+                        grid=per_sm * run._batch.geometry["sms"])
+                return run.run()
+            leg_run()  # warm
+            runs = [wall_ms(leg_run) for _ in range(3)]
+            require(all(r[0][1] == out[leg][1]
+                        and max_abs_err(r[0][0], out[leg][0]) == 0
+                        for r in runs),
+                    f"{leg}: {per_sm} blocks an SM changed the walks")
+            sweep.setdefault(leg, {})[per_sm or "resident"] = [
+                m for _, m in runs]
+    # What the batch kernels launch with, a leg by schedule: the launches
+    # counted over one warm leg (a serial walk is phase 0 and one batch; an
+    # overlapped one phase 0 twice, one K4 and one batch), and its host time
+    # by part, median of three warm legs.
+    batch_legs = {}
+    for kernel, leg in ROUTED_FAMILY_ROW_LEGS.items():
+        if kernel not in ROUTED_BATCH_KERNELS:
+            continue
+        run = routed_family_walk(leg, parts, targets, "serial", "kernel")
+        geometry = dict(run._batch.geometry, grid=run._batch.grid)
+        del run
+        for schedule in partition_v2.SCHEDULES:
+            prof = profiled[f"{kernel}_{schedule}"]
+            counted = batch_leg_launches(leg, parts, targets, schedule)
+            want = ({"launches": 2, "exchange_launches": 0}
+                    if schedule == "serial" else
+                    {"launches": 3, "exchange_launches": 1})
+            require({k: counted[k] for k in want} == want,
+                    f"{leg} {schedule}: {want} launches expected (phase 0 "
+                    f"a pipeline, one batch, K4 once when overlapped), "
+                    f"counted {counted}")
+            batch_leg_split_ms(leg, parts, targets, schedule)  # warm
+            splits = [batch_leg_split_ms(leg, parts, targets, schedule)
+                      for _ in range(3)]
+            batch_legs[f"{leg}_{schedule}"] = {
+                "kernel": kernel, "launches_a_leg": counted["launches"],
+                "exchange_launches_a_leg": counted["exchange_launches"],
+                "exchange_device_launches_a_leg":
+                    prof["exchange"]["launches"],
+                "phases": prof["phases"], **geometry,
+                "barriers_a_phase": BATCH_BARRIERS_PER_PHASE[schedule],
+                "warm_leg_ms": timed[f"{leg}_{schedule}"]["warm_leg_ms"],
+                "split_ms": {k: statistics.median(x[k] for x in splits)
+                             for k in splits[0]},
+                "batch_kernel_device_ms":
+                    prof["batch"]["device_ms_per_phase"] * prof["phases"],
+                "device_us_a_phase":
+                    prof["batch"]["device_ms_per_phase"] * 1e3,
+                "device_idle_share": prof["device_idle_share"]}
     emit("routed_families", walkers=ROUTED_WALKERS, shards=NUM_SHARDS,
          walk_length=WALK_LENGTH, padding_idx=NUM_NODES, seed=FAMILY_SEED,
          spec_rounds=SPEC_ROUNDS, p=P, q=Q, legs=timed, per_call=per_call,
-         profiled=profiled, timing="warm legs on the host clock, three "
-         "after one warm-up; per_call: CUDA events around every phase call "
-         "of one warm serial leg; profiled: torch.profiler, device activity "
-         "only, one warm serial leg")
+         profiled=profiled, batch_legs=batch_legs,
+         batch_blocks_per_sm_warm_leg_ms=sweep,
+         timing="warm legs on the host clock, three after one warm-up; "
+         "per_call: CUDA events around every call of one warm serial leg "
+         "(K13 a phase, K14 and K15 one batch a leg); profiled: "
+         "torch.profiler, device activity only, one warm leg a schedule; "
+         "batch_legs: launches counted over one warm leg, split_ms on the "
+         "host clock with the device synchronized between the parts, "
+         "median of three, barriers_a_phase the kernel's steps (not "
+         "counted)")
 
     dead_el, dead_tg = family_graphs(graph, dead_quarter=True)
     dead_parts, _ = routed_family_parts(dead_el, dead_tg)
@@ -2723,7 +2898,7 @@ def phase_routed_families(graph) -> list[dict]:
         width = bindings.ROUTED_ENGINES[engine].width
         info = out[leg][1]
         phases = info["phases"]
-        prof = profiled[kernel]
+        prof = profiled[f"{kernel}_serial"]
         # Bytes a leg needs: every record written once to an outbox and
         # read once on arrival, every position logged (triples: a relation
         # and an entity), and a step's meta row, payload row (triples: 8 B,
@@ -2744,9 +2919,11 @@ def phase_routed_families(graph) -> list[dict]:
             "name": kernel, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[kernel],
             "max_abs_err": max(errs),
-            "ms": (prof["body"]["device_ms_per_phase"]
+            "ms": (prof["batch"]["device_ms_per_phase"]
+                   if kernel in ROUTED_BATCH_KERNELS else
+                   prof["body"]["device_ms_per_phase"]
                    + prof["compaction"]["device_ms_per_phase"]),
-            "call_ms_events": per_call[kernel]["device_ms_per_call"],
+            "call_ms_events": per_call[kernel]["device_ms_per_phase"],
             "plain_ms": checked["plain"][leg]["ms"]
             / checked["plain"][leg]["phases"],
             "bound_ms": moved / phases / HBM_BYTES_PER_S * 1e3,
@@ -2881,6 +3058,7 @@ def phase_compare_kernels(graph, checkouts: dict) -> dict:
             f"a compared checkout's outputs differ from this tree's: {errs}")
     del builds, walks, bench_tg, families, args
     compare_routed(graph, targets[:ROUTED_WALKERS], pkgs)
+    compare_routed_families(graph, targets[:ROUTED_WALKERS], pkgs)
     return times
 
 
@@ -2938,13 +3116,82 @@ def compare_routed(graph, targets, pkgs: dict) -> None:
             f"{errs}")
 
 
+def compare_routed_families(graph, targets, pkgs: dict) -> None:
+    """K14's and K15's bench legs (the uniform edge list with restart, and
+    p=P q=Q with Bloom filters; D = NUM_SHARDS, padding N, seed 7; both
+    schedules) of each package of ``pkgs`` (this tree's first) through its
+    own public entry points, on its own edge-list graph, partition and
+    tables built from the bench graph: warm legs on the host clock, three a
+    turn, the packages in turns A B ... B A; then one warm leg of each by
+    the profiler (all device time over the phases, and the idle share).
+    Walks and info must equal this tree's.  The
+    ``routed_family_comparison`` line."""
+    n = graph.num_nodes
+    heads = torch.repeat_interleave(
+        torch.arange(n, device=graph.device),
+        (graph.row_ptr[1:] - graph.row_ptr[:-1]).to(torch.int64))
+    edge_list = torch.stack([heads, graph.col_idx.to(torch.int64)], dim=1)
+    del heads
+    legs = {}
+    for name, pkg in pkgs.items():
+        el = pkg.EdgeListGraph.from_arrays(edge_list, num_nodes=n)
+        pe = pkg.PartitionedEdgeList.from_edge_list(el, NUM_SHARDS)
+        hashes = pkg.build_edge_list_partition_hashes(pe, el)
+        blooms = pkg.build_edge_list_partition_blooms(pe, el)
+        del el
+        legs[name] = {}
+        for schedule in partition_v2.SCHEDULES:
+            legs[name][f"edge_uniform_restart_{schedule}"] = (
+                lambda pkg=pkg, pe=pe, schedule=schedule:
+                pkg.walk_edge_list_partitioned_routed(
+                    pe, targets, WALK_LENGTH, n, restart=True,
+                    seed=FAMILY_SEED, schedule=schedule))
+            legs[name][f"edge_n2v_{schedule}"] = (
+                lambda pkg=pkg, pe=pe, h=hashes, b=blooms, schedule=schedule:
+                pkg.walk_edge_list_node2vec_partitioned_routed(
+                    pe, h, targets, P, Q, WALK_LENGTH, n, restart=True,
+                    seed=FAMILY_SEED, spec_rounds=SPEC_ROUNDS, blooms=b,
+                    schedule=schedule))
+    del edge_list
+    want = {leg: fn() for leg, fn in legs["this_tree"].items()}
+    errs, times = {}, {name: {} for name in legs}
+    order = list(legs) + list(reversed(legs))
+    for name in order:
+        for leg, fn in legs[name].items():
+            walks, info = fn()  # warm
+            if leg not in errs.setdefault(name, {}):
+                errs[name][leg] = (max_abs_err(walks, want[leg][0])
+                                   if info == want[leg][1] else -1)
+            times[name].setdefault(leg, []).extend(
+                wall_ms(fn)[1] for _ in range(3))
+    profiled = {}
+    for name in legs:
+        for leg, fn in legs[name].items():
+            (_, info), ms, kernels = profile_device(fn)
+            busy = sum(v for _, v in kernels.values())
+            profiled.setdefault(name, {})[leg] = {
+                "phases": info["phases"], "leg_ms": ms,
+                "device_launches": sum(c for c, _ in kernels.values()),
+                "device_us_a_phase": busy / info["phases"] * 1e3,
+                "device_idle_share": 1 - busy / ms}
+    emit("routed_family_comparison", warm_leg_ms=times, profiled=profiled,
+         max_abs_err=errs, order=order,
+         timing="warm legs on the host clock, three a turn, A B ... B A; "
+         "profiled: torch.profiler, device activity only, one warm leg")
+    require(all(e == 0 for v in errs.values() for e in v.values()),
+            f"a compared checkout's routed family legs differ from this "
+            f"tree's: {errs}")
+
+
 def parse_args(argv):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--compare", metavar="NAME=DIR", action="append", default=[],
         help="another checkout of the repo (e.g. the parent commit's "
-             "git archive under build/): time its K7-K10 entry points "
-             "beside this tree's in one process (kernel_comparison line)")
+             "git archive under build/): time its K7-K10 entry points, "
+             "routed CSR legs and K14/K15 legs beside this tree's in one "
+             "process (kernel_comparison, routed_comparison and "
+             "routed_family_comparison lines)")
     args = parser.parse_args(argv)
     args.compare = dict(v.split("=", 1) for v in args.compare)
     return args

@@ -406,6 +406,398 @@ def test_edge_list_partition_and_tables_at_other_shapes(numpy_cuckoo, n,
        .view(np.int32))
 
 
+# --- K14's and K15's batch kernel, mirrored on the CPU ------------------------
+
+TILE = bindings.ROUTED_TILE
+PIECE = 256 * 4  # exchange.cuh kPieceElems: words a block copies at once
+
+
+def box_counts(pipe):
+    """(D src, D dst) records of each outbox chunk, which stand at its front
+    (the batch kernel's flow counts)."""
+    live = pipe.outbox[..., 0] != tv2._SENTINEL
+    counts = live.sum(-1)
+    assert bool((live == (torch.arange(live.shape[-1])
+                          < counts[..., None])).all())
+    return counts
+
+
+def mirror_batch(run, n):
+    """One launch of the batch kernel on a plain-body walk, step by step in
+    its barrier order: before each phase every block reads the live counts
+    (nothing in flight: all stop) and the phase counter adds one; (a) the
+    exchanged pipeline X copies only the live prefix of each chunk (the
+    rest of its inboxes keeps what earlier phases left); (b) the processed
+    pipeline Y's body reads only the records its chunks took in, by the
+    counts of its exchange; (c) its compaction fills the other carry pool,
+    which becomes the live one; under ``overlapped`` the roles then swap.
+    The pipelines start as the host passes them (live pools, and X = the
+    pipeline ``enqueued % 2``) and are left so; returns (phases run, each
+    pipeline's live pool at the end)."""
+    d, cap = run.nshards, run.cap
+    two = len(run.pipes) == 2
+    start = [pipe.parity for pipe in run.pipes]
+    y = 1 - run.enqueued % 2 if two else 0
+    ran = 0
+    while ran < n and int(run.live.sum()) > 0:
+        run._counter += 1
+        x = 1 - y if two else y
+        px, py = run.pipes[x], run.pipes[y]
+        box_x, box_y = box_counts(px), box_counts(py)
+        for src in range(d):
+            for dst in range(d):
+                c = int(box_x[src, dst])
+                px.inbox[dst, src, :c] = px.outbox[src, dst, :c]
+        took = torch.arange(cap) < box_y.T[:, :, None]  # (shard, src, slot)
+        run.process(py, took.reshape(-1).nonzero()[:, 0])
+        py.carry[:, 1 - py.parity] = py.carry[:, py.parity]
+        py.parity ^= 1
+        y = x
+        ran += 1
+    final = [pipe.parity for pipe in run.pipes]
+    for pipe, parity in zip(run.pipes, start):
+        pipe.parity = parity
+    return ran, final
+
+
+def family_run(world, engine, nshards, length, pad, restart, schedule,
+               config, targets, p=None, q=None, blooms=True):
+    """A plain-body RoutedWalk of an edge-list engine on ``world``'s edge
+    list at ``nshards`` shards, configured as the entry point resolves
+    ``config``."""
+    tel = world["el"][3]
+    if nshards == D:
+        tpe, (hashes, blm) = world["el"][1], world["el_tables"][1]
+    else:
+        tpe = tt.PartitionedEdgeList.from_edge_list(tel, nshards)
+        hashes = tt.build_edge_list_partition_hashes(tpe, tel)
+        blm = tt.build_edge_list_partition_blooms(tpe, tel)
+    targets = torch.as_tensor(targets, dtype=torch.int32)
+    cfg = tt.RoutedConfig.resolve(config, targets.shape[0], nshards, length)
+    routing, stream = None, prng.STREAM_EDGE_UNIFORM
+    if engine == "edge_list_node2vec":
+        if config is None or config.max_phases <= 0:
+            cfg = tv2._biased_phase_budget(cfg, length, 6)
+        routing = tv2.node2vec_routing(tpe, p, q, 6, hashes,
+                                       blm if blooms else None)
+        stream = prng.STREAM_EDGE_BIASED
+    return tv2.RoutedWalk(tpe, targets, length,
+                          prng.derive_key(SEED, stream), cfg, schedule,
+                          "plain", node2vec=routing, engine=engine,
+                          padding=pad, restart=bool(restart))
+
+
+def mirrored(run, cap=None):
+    """``run`` driven by its own batch loop (``RoutedWalk.run`` and
+    ``_run_batch``), each launch the mirror of the batch kernel, with at
+    most ``cap`` phases a launch; the pipelines get the kernels' two carry
+    pools.  Returns (its result or the error it raised, the launches as
+    (phases asked, phases run, live pools after))."""
+    for pipe in run.pipes:
+        pipe.carry = pipe.carry.repeat(1, 2, 1, 1)
+    launches = []
+
+    def launch(n):
+        ran, final = mirror_batch(run, n if cap is None else min(n, cap))
+        launches.append((n, ran, final))
+
+    run._batch = "mirror"
+    run._launch_batch = launch
+    try:
+        out = run.run()
+    except RuntimeError as err:
+        out = str(err)
+    assert [pipe.parity for pipe in run.pipes] == launches[-1][2]
+    assert run.enqueued == sum(ran for _, ran, _ in launches)
+    return out, launches
+
+
+def _same_result(got, want):
+    if isinstance(want, str):
+        assert got == want
+        return
+    eq(got[0], np.asarray(want[0]))
+    assert got[1] == want[1]
+
+
+# (run of RUNS, saturated filters, phases a launch at most)
+MIRROR_JAX_CASES = [
+    ("el_restart_serial_target_at_pad", False, None),
+    ("el_absorbing_real_pad_overlapped_carry_pool", False, 3),
+    ("n2v_pq0.5-2_restart_serial_target_at_pad", False, 5),
+    ("n2v_pq0.5-2_restart_serial_target_at_pad", True, None),
+    ("n2v_pq4-0.25_absorbing_real_pad_overlapped_carry_pool", False, None),
+]
+
+
+@pytest.mark.parametrize("name,saturated,cap", MIRROR_JAX_CASES,
+                         ids=[f"{n}{'_saturated' if s else ''}_n{c or 'all'}"
+                              for n, s, c in MIRROR_JAX_CASES])
+def test_batch_schedule_mirror_equals_jax(world, jax_runs, name, saturated,
+                                          cap):
+    """At D = 8 the batch kernel's schedule, mirrored on the plain pieces
+    and driven by the walk's own batch loop, gives the JAX routed engine's
+    walks and every ``info`` count (restart and absorbing, biased with
+    Bloom filters and saturated, both schedules, a filling carry pool):
+    in one launch for the whole budget, which stops early once nothing is
+    in flight, and in launches of 3 and 5 phases, the roles swapping inside
+    and across launches."""
+    engine, graph, length, pad, restart, schedule, cfg, _, p, q = RUNS[name]
+    run = family_run(world, engine, D, length, pad, restart, schedule,
+                     _config(cfg, tt.RoutedConfig), _targets(RUNS[name]),
+                     p, q, not saturated)
+    got, launches = mirrored(run, cap)
+    jw, jinfo = jax_runs(name, not saturated)
+    _same_result(got, (jw, jinfo))
+    asked, ran, _ = launches[-1]
+    assert ran < asked  # the last launch stopped once nothing was in flight
+    if cap is not None:
+        assert len(launches) > 2 and all(r == cap for _, r, _ in
+                                          launches[:-1])
+
+
+# (engine, shards, schedule, restart, saturated filters, phases a launch at
+# most, pair capacity and phase budget, or None)
+MIRROR_CASES = [
+    ("edge_list", 1, "serial", True, False, None, None),
+    ("edge_list", 2, "overlapped", False, False, 4, (8, 0)),
+    ("edge_list_node2vec", 2, "overlapped", True, False, None, None),
+    ("edge_list_node2vec", 1, "serial", True, True, 3, None),
+    ("edge_list", 2, "serial", True, False, None, (128, 5)),
+    ("edge_list_node2vec", 1, "overlapped", False, False, 2, (128, 9)),
+]
+
+
+@pytest.mark.parametrize(
+    "engine,nshards,schedule,restart,saturated,cap,cfg", MIRROR_CASES,
+    ids=[f"{e}_D{d}_{s}_{'restart' if r else 'absorbing'}"
+         f"{'_saturated' if f else ''}_n{c or 'all'}"
+         f"{'_budget' if g and g[1] else ''}"
+         for e, d, s, r, f, c, g in MIRROR_CASES])
+def test_batch_schedule_mirror_equals_the_plain_run(world, engine, nshards,
+                                                    schedule, restart,
+                                                    saturated, cap, cfg):
+    """At D = 1 and 2 the mirrored batch schedule gives the plain run's
+    walks and every ``info`` count, its state at the end too; a budget cut
+    short (5 and 9 phases, in launches of 2 and of the whole budget) raises
+    as the plain run does."""
+    t = targets_for("with_pad")
+    config = None if cfg is None else tt.RoutedConfig(
+        pair_capacity=cfg[0], max_phases=cfg[1])
+    args = (world, engine, nshards, 10, N, restart, schedule, config, t,
+            0.5, 2.0, not saturated)
+    plain = family_run(*args)
+    try:
+        want = plain.run()
+    except RuntimeError as err:
+        want = str(err)
+    run = family_run(*args)
+    got, launches = mirrored(run, cap)
+    _same_result(got, want)
+    if cfg is not None and cfg[1]:
+        assert isinstance(want, str) and "incomplete" in want
+        assert run.phases == cfg[1] * (2 if schedule == "overlapped" else 1)
+    a, b = run.state(), plain.state()
+    for key in ("walks", "stats", "live"):
+        eq(a[key], b[key].numpy())
+
+
+def block_prefix(values):
+    """routed_families.cu block_prefix: [0, v0, v0 + v1, ...]."""
+    return np.concatenate([[0], np.cumsum(values)]).astype(np.int64)
+
+
+def find_segment(off, k):
+    """routed_families.cu find_segment: the s with off[s] <= k < off[s + 1],
+    by the same bisection."""
+    lo, hi = 0, len(off) - 1
+    while hi - lo > 1:
+        mid = (lo + hi) >> 1
+        if off[mid] <= k:
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
+def tiles(n):
+    return -(-n // TILE)
+
+
+def batch_items(box, carried, width, vec, grid, serial):
+    """Every block's items in one phase of the batch kernel, as its
+    grid-stride loops take them (routed_batch): the exchange's pieces of
+    each chunk's live prefix, the body's tiles of the records each shard
+    took in, with the (source, slot) each thread reads, the outbox reset's
+    tiles with the (destination, slot) each thread resets, and the
+    compaction's stage tiles (at least the keeper) and pool tiles.  ``box``
+    is the flow counts (source, destination).  Returns a list of visits."""
+    nd = box.shape[0]
+    took, out = box.sum(0), box.sum(1)
+    work = block_prefix([tiles(i) + tiles(o) for i, o in zip(took, out)])
+    comp = block_prefix([max(tiles(i), 1) + tiles(c)
+                         for i, c in zip(took, carried)])
+    words = int(box.max()) * width
+    elems = -(-words // 4) if vec else words
+    n_ex = nd * nd * -(-elems // PIECE)
+    visits = []
+    for b in range(grid):
+        first = 0 if serial else n_ex
+        steps = ([range(b, n_ex, grid)] if serial else []) + [
+            range(b, first + int(work[nd]), grid)]
+        for step in steps:
+            for v in step:
+                if v < first or (serial and step is steps[0]):
+                    pair, piece = v % (nd * nd), v // (nd * nd)
+                    src, dst = divmod(pair, nd)
+                    live = int(box[src, dst]) * width
+                    live = -(-live // 4) if vec else live
+                    if piece * PIECE < live:
+                        visits.append(("exchange", src, dst, piece))
+                    continue
+                my = find_segment(work, v - first)
+                t = v - first - int(work[my])
+                if t < tiles(int(took[my])):
+                    seg = block_prefix(box[:, my])
+                    for k in range(t * TILE, min((t + 1) * TILE,
+                                                 int(took[my]))):
+                        src = find_segment(seg, k)
+                        visits.append(("body", my, src, k - int(seg[src])))
+                else:
+                    seg = block_prefix(box[my])
+                    q0 = (t - tiles(int(took[my]))) * TILE
+                    for q in range(q0, min(q0 + TILE, int(out[my]))):
+                        d = find_segment(seg, q)
+                        visits.append(("reset", my, d, q - int(seg[d])))
+        for v in range(b, int(comp[nd]), grid):
+            my = find_segment(comp, v)
+            t = v - int(comp[my])
+            stage = max(tiles(int(took[my])), 1)
+            visits.append(("stage", my, t) if t < stage
+                          else ("pool", my, t - stage))
+    return visits
+
+
+@pytest.mark.parametrize("grid", [1, 7, 264])
+@pytest.mark.parametrize("width,vec,serial", [(4, True, True),
+                                              (15, False, False),
+                                              (15, True, True)],
+                         ids=["K14_serial", "K15_overlapped",
+                              "K15_serial_vec"])
+def test_batch_grid_stride_visits_each_item_once(grid, width, vec, serial):
+    """The batch kernel's grid-stride loops over virtual tiles visit each
+    exchange piece of a live prefix, each record a shard took in (as
+    source chunk and slot), each outbox slot that was live, and each
+    compaction tile (every shard's keeper, its stage tiles and its live
+    pool's tiles) exactly once, for grids of 1, 7 and 264 blocks; shards
+    with no record in or out, and empty chunks, are passed over."""
+    rng = np.random.default_rng(grid + width)
+    nd, cap = 8, 300
+    box = rng.integers(0, cap + 1, (nd, nd))
+    box[rng.random((nd, nd)) < 0.2] = 0
+    box[:, 3] = 0  # a shard that takes nothing in
+    box[5] = 0  # and one that sent nothing
+    carried = rng.integers(0, 700, nd)
+    carried[2] = 0
+    visits = batch_items(box, carried, width, vec, grid, serial)
+    assert len(visits) == len(set(visits))
+    want = set()
+    for src in range(nd):
+        for dst in range(nd):
+            live = int(box[src, dst]) * width
+            live = -(-live // 4) if vec else live
+            want |= {("exchange", src, dst, p)
+                     for p in range(-(-live // PIECE))}
+            want |= {("body", dst, src, j) for j in range(box[src, dst])}
+            want |= {("reset", src, dst, j) for j in range(box[src, dst])}
+    for my in range(nd):
+        want |= {("stage", my, t) for t in range(max(tiles(box[:, my].sum()),
+                                                     1))}
+        want |= {("pool", my, t) for t in range(tiles(carried[my]))}
+    assert set(visits) == want
+
+
+@pytest.mark.parametrize("engine", ["edge_list", "edge_list_node2vec"])
+def test_live_prefix_body_stages_as_every_slot(world, engine):
+    """Mid-walk (a carry pool filling, D = 8), a body that reads only each
+    inbox chunk's live prefix, staging its departures at the records'
+    index, gives the same departures in the same order, the same totals by
+    (stream, destination), and through the kernels' tiled compaction (its
+    mirror) the same outbox, carry pool and counts as one that reads every
+    slot and stages at the slot's index."""
+    from test_torch_routed_node2vec import (
+        compaction_mirror, pool_histogram, stage_histogram)
+    run = family_run(world, engine, D, 10, N, True, "serial",
+                     tt.RoutedConfig(pair_capacity=6, carry_capacity=B),
+                     targets_for("with_pad"), 0.5, 2.0)
+    run.start()
+    for _ in range(3):
+        run.phase()
+    pipe = run.pipes[0]
+    box = box_counts(pipe)
+    pipe.exchange()
+    nd, cap, width = run.nshards, run.cap, run.width
+    streams = len(range(bindings.ROUTED_STREAMS[width]))
+    body = getattr(run, f"_{engine}_body")
+
+    def staged(slots):
+        """Each slot's departure: (records, codes), -1 for none."""
+        run._my = slots // (nd * cap)
+        recs = pipe.inbox.view(-1, width)[slots]
+        code = torch.full((slots.shape[0],), -1, dtype=torch.int64)
+        stage = torch.zeros_like(recs)
+        for k, (r, dst, valid) in enumerate(body(recs)):
+            assert not bool((valid & (code >= 0)).any())
+            code = torch.where(valid, (k << 16) | dst, code)
+            stage[valid] = r[valid]
+        return stage.numpy().astype(np.int64), code.numpy()
+
+    every = torch.arange(nd * nd * cap)
+    took = torch.arange(cap) < box.T[:, :, None]
+    prefix = took.reshape(-1).nonzero()[:, 0]
+    full_stage, full_code = staged(every)
+    live_stage, live_code = staged(prefix)
+    pool = pipe.pool.numpy().astype(np.int64)
+    carried = pipe.live[:, 1].numpy()
+    assert int(carried.sum()) > 0
+    ccap = pool.shape[1]
+    per_shard = box.sum(0).numpy()
+    at = block_prefix(per_shard)
+    for my in range(nd):
+        fs = full_stage[my * nd * cap:(my + 1) * nd * cap]
+        fc = full_code[my * nd * cap:(my + 1) * nd * cap]
+        ls, lc = live_stage[at[my]:at[my + 1]], live_code[at[my]:at[my + 1]]
+        np.testing.assert_array_equal(fc[fc >= 0], lc[lc >= 0])
+        np.testing.assert_array_equal(fs[fc >= 0], ls[lc >= 0])
+        fh = stage_histogram(fc, streams, nd)
+        lh = stage_histogram(lc, streams, nd)
+        np.testing.assert_array_equal(fh.sum(0), lh.sum(0))
+        count = pool_histogram(pool[my], int(carried[my]), nd, ccap)
+        got = compaction_mirror(pool[my], count, ls, lc, lh, cap, ccap, nd)
+        want = compaction_mirror(pool[my], count, fs, fc, fh, cap, ccap, nd)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_routed_entry_points_need_a_card_or_the_cpu(world):
+    """Without a card every routed entry point raises unless it is given
+    device="cpu"; none falls back to the CPU by itself."""
+    if torch.cuda.is_available():
+        pytest.skip("the card is there: the entry points run on it")
+    tpe, tpt = world["el"][1], world["kg0"][1]
+    th, tb = world["el_tables"][1]
+    t = targets_for("random")
+    for call in (
+            lambda **k: tt.walk_triples_partitioned_routed(tpt, t, 4, N, **k),
+            lambda **k: tt.walk_edge_list_partitioned_routed(tpe, t, 4, N,
+                                                             **k),
+            lambda **k: tt.walk_edge_list_node2vec_partitioned_routed(
+                tpe, th, t, 0.5, 2.0, 4, N, blooms=tb, **k)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        assert call(device="cpu")[1]["terminated"] == B
+
+
 # --- K13, K14 and K15 against the plain bodies (on the card only) ---------------
 
 # engine: (stream, restart, p, q, saturated filters)
@@ -421,7 +813,9 @@ CARD_ENGINES = {
                                 prng.STREAM_EDGE_BIASED, False, 4.0, 0.25,
                                 True),
 }
-CARD_SHARDS = {"D1": 1, "D2": 2, "D16": 16}
+# D32: beyond the 16 shards of the other cases; its D * D = 1 024 box counts
+# outnumber a block's 256 threads.
+CARD_SHARDS = {"D1": 1, "D2": 2, "D16": 16, "D32": 32}
 CARD_N = 3000
 
 
@@ -451,6 +845,7 @@ def card_walk(kind, case, schedule, body, walk_length=12):
     cfg = {"carry_pool": tt.RoutedConfig(pair_capacity=3,
                                          carry_capacity=walkers),
            "overflow": tt.RoutedConfig(pair_capacity=2, carry_capacity=5),
+           "budget": tt.RoutedConfig(pair_capacity=128, max_phases=7),
            }.get(case)
     length = 1 if case == "L1" else walk_length
     resolved = tt.RoutedConfig.resolve(cfg, walkers, nshards, length)
@@ -479,19 +874,33 @@ def _same_state(a, b):
             eq(x, y.cpu().numpy())
 
 
+def _launches(run, info):
+    """Calls of the walk's kernel by ``run``: phase 0 a pipeline, then K13
+    a call an enqueued phase, K14 and K15 one batch launch."""
+    pipes = len(run.pipes)  # phase 0: one a pipeline
+    if bindings.ROUTED_ENGINES[run.engine].batch:
+        return pipes + (1 if info["phases"] else 0)
+    k = tv2.PHASES_PER_READ
+    return -(-info["phases"] // k) * k + pipes
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("schedule", ["serial", "overlapped"])
-@pytest.mark.parametrize("case", ["D1", "D2", "D8", "D16", "L1", "carry_pool",
-                                  "real_pad", "overflow"])
+@pytest.mark.parametrize("case", ["D1", "D2", "D8", "D16", "D32", "L1",
+                                  "carry_pool", "real_pad", "overflow",
+                                  "budget"])
 @pytest.mark.parametrize("kind", list(CARD_ENGINES))
 def test_family_kernels_equal_plain_body_phase_by_phase(kind, case,
                                                         schedule):
     """K13, K14 (restart and absorbing) and K15 (restart, p=0.5 q=2 with
     Bloom filters; absorbing, p=4 q=0.25 with saturated filters) against
     the plain bodies on the card, the whole state after phase 0 and after
-    every phase: D = 1, 2, 8, 16, L = 1, a filling carry pool, the padding
-    a node of the graph, targets on the padding, an overflowing pool (both
-    raise alike); then the public entry point's walks, info and launches."""
+    every phase (K14, K15: a batch launch of one phase each): D = 1, 2, 8,
+    16, 32, L = 1, a filling carry pool, the padding a node of the graph,
+    targets on the padding, all on a graph whose last quarter has no
+    out-edge; an overflowing pool and a phase budget of 7, which no phase
+    count divides (both runs raise alike); then the whole walk through
+    ``run`` (K14, K15: one batch launch), its walks, info and launches."""
     need_cuda()
     runs = [card_walk(kind, case, schedule, body)
             for body in ("kernel", "plain")]
@@ -509,24 +918,24 @@ def test_family_kernels_equal_plain_body_phase_by_phase(kind, case,
             got.append(r.result())
         except RuntimeError as err:
             got.append(str(err))
-    if case == "overflow":
-        assert all(isinstance(x, str) and "incomplete" in x for x in got)
-        assert got[0] == got[1]
-        return
-    (kw, ki), (pw, pi) = got
-    eq(kw, pw.cpu().numpy())
-    assert ki == pi and ki["terminated"] == 1024
     run = runs[0]
     kernel = bindings.ROUTED_ENGINES[run.engine].kernel
     before = bindings.launch_counts[kernel]
     again = card_walk(kind, case, schedule, "kernel")
+    if case in ("overflow", "budget"):
+        assert all(isinstance(x, str) and "incomplete" in x for x in got)
+        assert got[0] == got[1]
+        with pytest.raises(RuntimeError) as err:
+            again.run()
+        assert str(err.value) == got[0]
+        return
+    (kw, ki), (pw, pi) = got
+    eq(kw, pw.cpu().numpy())
+    assert ki == pi and ki["terminated"] == 1024
     walks, info = again.run()
     eq(walks, kw.cpu().numpy())
     assert info == ki
-    pipes = 2 if schedule == "overlapped" else 1  # phase 0: one a pipeline
-    k = tv2.PHASES_PER_READ
-    assert bindings.launch_counts[kernel] - before == \
-        -(-info["phases"] // k) * k + pipes
+    assert bindings.launch_counts[kernel] - before == _launches(again, info)
 
 
 @pytest.mark.cuda
@@ -536,7 +945,9 @@ def test_family_batched_loop_equals_one_phase_a_read(monkeypatch, kind,
                                                      schedule):
     """The family legs' final state, info and phase calls with k = 3 and 8
     phases a read, eager, and with k = 4 and 8 replayed as CUDA graphs,
-    equal those of the loop that reads after every phase."""
+    equal those of the loop that reads after every phase.  K14 and K15 run
+    a walk as one batch launch whatever k: the same state, info and
+    calls each time, and the phases enqueued are the phases run."""
     need_cuda()
     out = {}
     for k, graph in ((1, False), (3, False), (8, False), (4, True), (8, True)):
@@ -550,25 +961,110 @@ def test_family_batched_loop_equals_one_phase_a_read(monkeypatch, kind,
         out[k, graph] = (info, run, run.enqueued,
                          bindings.launch_counts[kernel] - before)
     want, base, _, _ = out[1, False]
-    pipes = 2 if schedule == "overlapped" else 1
+    batch = bindings.ROUTED_ENGINES[base.engine].batch
     for (k, graph), (info, run, enqueued, calls) in out.items():
         assert info == want
         _same_state(run, base)
-        assert enqueued == -(-want["phases"] // k) * k
-        assert calls == enqueued + pipes
+        assert enqueued == (want["phases"] if batch
+                            else -(-want["phases"] // k) * k)
+        assert calls == _launches(run, info)
 
 
 @pytest.mark.cuda
-def test_family_phase_kernels_refuse_bad_launches():
+@pytest.mark.parametrize("schedule", ["serial", "overlapped"])
+@pytest.mark.parametrize("case", ["D8", "D32", "carry_pool", "L1"])
+@pytest.mark.parametrize("kind", ["K14_restart", "K14_absorbing",
+                                  "K15_restart", "K15_absorbing_saturated"])
+def test_batch_kernel_in_batches_of_n_equals_the_plain_walk(kind, case,
+                                                             schedule):
+    """K14's and K15's batch kernel run in launches of n = 1, 3 and 7
+    phases (no divisor of the phase count: roles and pools carried from
+    one launch to the next; the last launch stops early) and of the whole
+    budget: each the plain walk's final state, walks and info; at D = 8
+    and at D = 32, whose D * D box counts outnumber a block's threads."""
+    need_cuda()
+    plain = card_walk(kind, case, schedule, "plain")
+    want = plain.run()
+    for n in (1, 3, 7, None):
+        run = card_walk(kind, case, schedule, "kernel")
+        kernel = bindings.ROUTED_ENGINES[run.engine].kernel
+        run.start()
+        before = bindings.launch_counts[kernel]
+        phases, inflight = run._read()
+        while inflight > 0 and phases < run.max_phases:
+            phases, inflight = run._run_batch(
+                run.max_phases - phases if n is None else n)
+        launches = bindings.launch_counts[kernel] - before
+        _same_state(run, plain)
+        walks, info = run.result()
+        eq(walks, want[0].cpu().numpy())
+        assert info == want[1] and run.enqueued == info["phases"]
+        assert launches == (1 if n is None else -(-info["phases"] // n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["edge_list", "edge_list_node2vec"])
+def test_batch_engines_at_walk_length_zero_launch_nothing(engine):
+    """L = 0 on the card returns the target column and the JAX ``info``
+    without a launch, as on the CPU."""
+    need_cuda()
+    pg, pad, (hashes, blooms) = card_graphs(8, engine)
+    cpu_pg = tv2.PartitionedEdgeList(
+        tuple(m.cpu() for m in pg.node_meta), tuple(c.cpu() for c in pg.col),
+        pg.num_nodes, pg.num_shards, pg.shard_nodes)
+    cpu_hashes = (hashes[0].cpu(), hashes[1].cpu(), hashes[2])
+    t = torch.arange(64, dtype=torch.int32, device="cuda")
+    before = dict(bindings.launch_counts)
+    if engine == "edge_list":
+        got = tt.walk_edge_list_partitioned_routed(pg, t, 0, pad)
+        want = tt.walk_edge_list_partitioned_routed(cpu_pg, t.cpu(), 0, pad,
+                                                    device="cpu")
+    else:
+        got = tt.walk_edge_list_node2vec_partitioned_routed(
+            pg, hashes, t, 0.5, 2.0, 0, pad, blooms=blooms)
+        want = tt.walk_edge_list_node2vec_partitioned_routed(
+            cpu_pg, cpu_hashes, t.cpu(), 0.5, 2.0, 0, pad,
+            blooms=blooms.cpu(), device="cpu")
+    assert bindings.launch_counts == before
+    eq(got[0], want[0].numpy())
+    assert got[1] == want[1] and got[1]["phases"] == 0
+
+
+@pytest.mark.cuda
+def test_family_phase_kernels_refuse_bad_launches(monkeypatch):
+    """Launches packed for another engine, bad scalars (a pool of 2, no
+    phase, a first pipeline of 2), a grid of no block or of more blocks
+    than the card holds resident, and a card that holds no block of the
+    batch kernel are refused; so are buffers that do not fit."""
     need_cuda()
     run = card_walk("K14_restart", "D2", "serial", "kernel")
     launch = run.pipes[0].launch
+    batch = run._batch
     with pytest.raises(ValueError, match="packed for K14, not K13"):
         bindings.routed_triples_phase(launch, 0)
     with pytest.raises(ValueError, match="packed for K14, not K11"):
         bindings.routed_uniform_phase(launch, 0)
-    with pytest.raises(RuntimeError, match="launch failed"):  # pool 2
-        bindings.routed_edge_list_phase(launch, 2)
+    with pytest.raises(ValueError, match="packed for K14, not K15"):
+        bindings.routed_edge_list_node2vec_batch(batch, 1, [1])
+    resident = batch.geometry["blocks_per_sm"] * batch.geometry["sms"]
+    assert batch.grid == batch.batch.resident == resident
+    for phases, pools, first, grid in ((1, [2], 0, resident),
+                                       (0, [1], 0, resident),
+                                       (1, [1], 2, resident), (1, [1], 0, 0),
+                                       (1, [1], 0, resident + 1)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            bindings.routed_edge_list_batch(batch._replace(grid=grid), phases,
+                                            pools, first)
+    assert int(run._counter) == 0  # nothing ran
+    monkeypatch.setattr(bindings, "routed_batch_geometry",
+                        lambda *a, **k: dict(batch.geometry,
+                                             blocks_per_sm=0))
+    with pytest.raises(RuntimeError, match="no resident block"):
+        bindings.routed_batch_launch([launch])
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="runs K14 or K15 launches"):
+        bindings.routed_batch_launch([launch, run.pipes[0].launch._replace(
+            engine="edge_list_node2vec")])
     pipe = run.pipes[0]
     shards = [bindings.RoutedShard(
         meta=run.pgraph.node_meta[s], col=run.pgraph.col[s],
@@ -589,3 +1085,9 @@ def test_family_phase_kernels_refuse_bad_launches():
             shard_nodes=run.pgraph.shard_nodes, blk=run.blk,
             walk_length=run.walk_length, cap=run.cap, ccap=run.ccap,
             key=(1, 2), engine="edge_list_node2vec", padding=CARD_N)
+    with pytest.raises(ValueError, match="takes a flow buffer"):
+        bindings.routed_phase_launch(
+            shards, run.stats, run.live[0], run.live.view(-1), run._counter,
+            shard_nodes=run.pgraph.shard_nodes, blk=run.blk,
+            walk_length=run.walk_length, cap=run.cap, ccap=run.ccap,
+            key=(1, 2), engine="edge_list", padding=CARD_N)

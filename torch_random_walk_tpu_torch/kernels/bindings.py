@@ -24,8 +24,8 @@ KERNEL_NAMES = ("uniform_walk_csr", "node2vec_walk_csr_mixture",
                 "biased_walk_edge_list", "uniform_walk_triples",
                 "to_windows_triples", "to_windows_triples_cbow",
                 "routed_uniform_phase", "routed_node2vec_phase",
-                "routed_triples_phase", "routed_edge_list_phase",
-                "routed_edge_list_node2vec_phase")
+                "routed_triples_phase", "routed_edge_list_batch",
+                "routed_edge_list_node2vec_batch")
 launch_counts = dict.fromkeys(KERNEL_NAMES, 0)
 
 _lib = None
@@ -89,12 +89,14 @@ def library(verbose: bool = False) -> ctypes.CDLL:
         lib.trw_routed_node2vec_phase.argtypes = [_PTR, _I32, _PTR]
         lib.trw_routed_start.argtypes = [_PTR, _I32, _PTR]
         lib.trw_routed_triples_phase.argtypes = [_PTR, _I32, _PTR]
-        lib.trw_routed_edge_list_phase.argtypes = [_PTR, _I32, _PTR]
-        lib.trw_routed_edge_list_node2vec_phase.argtypes = [_PTR, _I32, _PTR]
+        lib.trw_routed_edge_list_batch.argtypes = [_PTR, _I32, _PTR]
+        lib.trw_routed_edge_list_node2vec_batch.argtypes = [_PTR, _I32, _PTR]
+        lib.trw_routed_batch_geometry.argtypes = [_I32, _I32, _I32, _PTR]
         for fn in (lib.trw_routed_uniform_phase, lib.trw_routed_node2vec_phase,
                    lib.trw_routed_start, lib.trw_routed_triples_phase,
-                   lib.trw_routed_edge_list_phase,
-                   lib.trw_routed_edge_list_node2vec_phase,
+                   lib.trw_routed_edge_list_batch,
+                   lib.trw_routed_edge_list_node2vec_batch,
+                   lib.trw_routed_batch_geometry,
                    lib.trw_uniform_walk_edge_list,
                    lib.trw_biased_walk_edge_list, lib.trw_uniform_walk_triples,
                    lib.trw_to_windows_triples_sg,
@@ -702,26 +704,30 @@ def walk_sgns_plan(in_emb, walks, neg_ids, window_size: int) -> dict:
 
 
 # The routed phase kernels (K11-K15) take up to 256 shards (routed.cuh
-# kRoutedMaxShards); a phase is two launches, the body kernel and the
-# compaction kernel, counted as one call; phase 0 is a histogram launch and
-# the compaction kernel, counted as one call of the engine's kernel.  The
-# compaction ranks tiles of ROUTED_TILE slots.
+# kRoutedMaxShards).  K11-K13: a phase is two launches, the body kernel and
+# the compaction kernel, counted as one call.  K14, K15: one cooperative
+# launch runs up to a walk's phases, counted as one call.  Phase 0 is a
+# histogram launch and the compaction kernel, counted as one call of the
+# engine's kernel.  The compaction ranks tiles of ROUTED_TILE slots.
 ROUTED_MAX_SHARDS = 256
 ROUTED_TILE = 256
 ROUTED_STREAMS = {3: 2, 14: 4, 4: 2, 15: 4}  # departure streams by width
 
 
 class RoutedEngine(NamedTuple):
-    """A routed engine's record width, its phase kernel (its label, the
-    name of its wrapper and launch count, and its C entry point) and whether
-    it is a family engine (K13-K15: a fourth stats column, terminated
-    walkers; walk rows filled with the padding id)."""
+    """A routed engine's record width, its kernel (its label, the name of
+    its wrapper and launch count, and its C entry point), whether it is a
+    family engine (K13-K15: a fourth stats column, terminated walkers; walk
+    rows filled with the padding id) and whether its kernel is the
+    persistent batch kernel (K14, K15: phases a launch, ``routed_batch``)
+    or a phase a call."""
 
     width: int
     label: str
     kernel: str
     entry: str
     family: bool
+    batch: bool = False
 
 
 ROUTED_ENGINES = {
@@ -731,15 +737,23 @@ ROUTED_ENGINES = {
                              "trw_routed_node2vec_phase", False),
     "triples": RoutedEngine(4, "K13", "routed_triples_phase",
                             "trw_routed_triples_phase", True),
-    "edge_list": RoutedEngine(4, "K14", "routed_edge_list_phase",
-                              "trw_routed_edge_list_phase", True),
+    "edge_list": RoutedEngine(4, "K14", "routed_edge_list_batch",
+                              "trw_routed_edge_list_batch", True, True),
     "edge_list_node2vec": RoutedEngine(
-        15, "K15", "routed_edge_list_node2vec_phase",
-        "trw_routed_edge_list_node2vec_phase", True),
+        15, "K15", "routed_edge_list_node2vec_batch",
+        "trw_routed_edge_list_node2vec_batch", True, True),
 }
 _ROUTED_SHARD_FIELDS = ("meta", "col", "walks", "inbox", "outbox", "carry",
                         "stage", "code", "hist", "pool_count", "hash_table",
                         "bloom")
+
+
+def routed_flow_words(num_shards: int) -> int:
+    """Words of one parity of a batch pipeline's flow counts (routed.cuh
+    ``flow_words``): the (D, D) records each shard boxed for each
+    destination, each destination's records in, and the largest box
+    count."""
+    return num_shards * num_shards + num_shards + 1
 
 
 def routed_scratch_shapes(num_shards: int, cap: int, ccap: int, blk: int,
@@ -798,15 +812,18 @@ class _RoutedLaunch(ctypes.Structure):
                 ("use_search", _I32), ("prob0", _F32), ("prob1", _F32),
                 ("prob2", _F32), ("lo_acc", _F32), ("hi_acc", _F32),
                 ("stats_width", _I32), ("walk_cols", _I32),
-                ("padding", _I32), ("restart", _I32)]
+                ("padding", _I32), ("restart", _I32),
+                ("flow", ctypes.c_void_p)]
 
 
 class RoutedLaunch(NamedTuple):
     """A routed pipeline's phase launch, packed once: the scalars
     (``launch``, at ``address``), the device table of the shards' pointers
     and the buffers it points to (held, so that the pointers stay valid),
-    the card, and the engine it was packed for (a key of
-    ``ROUTED_ENGINES``)."""
+    the card, the engine it was packed for (a key of ``ROUTED_ENGINES``),
+    and whether every shard's outbox, inbox and stage start on 16 bytes and
+    a chunk's words are a multiple of 4 (the batch kernel's 16-byte
+    copies)."""
 
     launch: _RoutedLaunch
     address: int
@@ -814,14 +831,15 @@ class RoutedLaunch(NamedTuple):
     buffers: tuple
     device_index: int
     engine: str
+    aligned: bool
 
 
 def routed_phase_launch(shards, stats, live, live_all, phases, *,
                         shard_nodes: int, blk: int, walk_length: int,
                         cap: int, ccap: int, key: tuple[int, int],
                         node2vec=None, engine: str | None = None,
-                        padding: int = 0, restart: bool = False
-                        ) -> RoutedLaunch:
+                        padding: int = 0, restart: bool = False,
+                        flow: torch.Tensor | None = None) -> RoutedLaunch:
     """Check one pipeline's buffers for the phase kernel of ``engine`` (a
     key of ``ROUTED_ENGINES``; by default K11, or K12 where ``node2vec``, a
     ``parallel.partition_v2.Node2VecRouting``, is given, which K15 needs
@@ -831,7 +849,9 @@ def routed_phase_launch(shards, stats, live, live_all, phases, *,
     every pipeline's live counts (int64, contiguous: the phase counts
     itself if any is above 0) and ``phases`` the walk's (1,) int64 phase
     counter.  The walk rows are (blk+1, L+2), K13's (blk+1, 2L+2);
-    ``padding`` and ``restart`` are the family engines' (K13-K15)."""
+    ``padding`` and ``restart`` are the family engines' (K13-K15).  ``flow``
+    is the pipeline's (2, ``routed_flow_words(D)``) int32 outbox counts,
+    which the batch engines (K14, K15) need and the others take not."""
     if engine is None:
         engine = "uniform" if node2vec is None else "node2vec"
     if engine not in ROUTED_ENGINES:
@@ -872,6 +892,14 @@ def routed_phase_launch(shards, stats, live, live_all, phases, *,
         raise ValueError(f"walk_length must be below 2^24, got {walk_length}")
     if spec.family and not -2 ** 31 <= padding < 2 ** 31:
         raise ValueError(f"padding {padding} is no int32 id")
+    if spec.batch != (flow is not None):
+        raise ValueError(f"the {engine} engine takes "
+                         f"{'a' if spec.batch else 'no'} flow buffer")
+    if flow is not None:
+        _check("flow", flow, torch.int32, 2, dev)
+        if tuple(flow.shape) != (2, routed_flow_words(d)):
+            raise ValueError(f"flow must be (2, {routed_flow_words(d)}), got "
+                             f"{tuple(flow.shape)}")
     e_max = shards[0].col.shape[0]
     shapes = {"meta": (shard_nodes, 2),
               "col": (e_max, 2) if engine == "triples" else (e_max,),
@@ -915,6 +943,9 @@ def routed_phase_launch(shards, stats, live, live_all, phases, *,
     launch.walk_cols = walk_cols
     launch.padding = int(padding) if spec.family else 0
     launch.restart = int(bool(restart))
+    if flow is not None:
+        launch.flow = flow.data_ptr()
+        buffers.append(flow)
     if node2vec is not None:
         search = node2vec.tables is None
         if search and engine == "edge_list_node2vec":
@@ -929,9 +960,12 @@ def routed_phase_launch(shards, stats, live, live_all, phases, *,
         launch.use_search = int(search)
         (launch.prob0, launch.prob1, launch.prob2, launch.lo_acc,
          launch.hi_acc) = node2vec.thresholds
+    aligned = (cap * width) % 4 == 0 and all(
+        getattr(sh, name).data_ptr() % 16 == 0
+        for sh in shards for name in ("inbox", "outbox", "stage"))
     return RoutedLaunch(launch, ctypes.addressof(launch), table,
                         (*buffers, stats, live, live_all, phases),
-                        _device_index(dev), engine)
+                        _device_index(dev), engine, aligned)
 
 
 def _routed_phase(engine: str, launch: RoutedLaunch, pool: int) -> None:
@@ -964,18 +998,6 @@ def routed_triples_phase(launch: RoutedLaunch, pool: int) -> None:
     _routed_phase("triples", launch, pool)
 
 
-def routed_edge_list_phase(launch: RoutedLaunch, pool: int) -> None:
-    """K14.  One phase of the routed uniform edge-list engine for every
-    shard, as K13's."""
-    _routed_phase("edge_list", launch, pool)
-
-
-def routed_edge_list_node2vec_phase(launch: RoutedLaunch, pool: int) -> None:
-    """K15.  One phase of the routed biased (p/q) edge-list engine for every
-    shard, as K13's."""
-    _routed_phase("edge_list_node2vec", launch, pool)
-
-
 def routed_start(launch: RoutedLaunch) -> None:
     """Phase 0 of any routed engine, counted as one call of its kernel:
     compact the first ``blk`` stage slots of every shard (each local
@@ -986,3 +1008,127 @@ def routed_start(launch: RoutedLaunch) -> None:
     spec = ROUTED_ENGINES[launch.engine]
     _launch(spec.kernel, library().trw_routed_start, launch.device_index,
             launch.address, spec.width)
+
+
+# K14 and K15: the persistent batch kernel, launched with as many blocks on
+# each SM as the occupancy query allows (every block must be resident, for
+# the kernel's grid barriers).
+_GEOMETRY_FIELDS = ("blocks_per_sm", "sms", "registers", "local_bytes",
+                    "static_smem_bytes", "dynamic_smem_bytes")
+
+
+class _RoutedBatch(ctypes.Structure):
+    """``TrwRoutedBatch`` of ``kernels/routed_families.cu``."""
+
+    _fields_ = [("pipe", _RoutedLaunch * 2), ("max_phases", _I64),
+                ("num_pipes", _I32), ("first", _I32), ("cur", _I32 * 2),
+                ("vec", _I32), ("resident", _I32)]
+
+
+class RoutedBatch(NamedTuple):
+    """A walk's batch launch, packed once: the scalars (``batch``, at
+    ``address``; the phases, live pools and first pipeline are set at each
+    launch), the pipelines' launches (held), the card, the engine, the grid
+    it launches with (every resident block; at most ``batch.resident``) and
+    the kernel's geometry (``routed_batch_geometry``)."""
+
+    batch: _RoutedBatch
+    address: int
+    launches: tuple
+    device_index: int
+    engine: str
+    grid: int
+    geometry: dict
+
+
+def routed_batch_geometry(engine: str, restart: bool, num_shards: int,
+                          device_index: int | None = None) -> dict:
+    """The batch kernel of ``engine`` (K14 or K15) by restart flag at D
+    shards on the card: its resident blocks per SM under a cooperative
+    launch (0 where the card cannot launch one), the SMs, its registers,
+    local (spill) bytes and static and dynamic shared bytes a block."""
+    spec = ROUTED_ENGINES[engine]
+    if not spec.batch:
+        raise ValueError(f"the {engine} engine has no batch kernel")
+    out = (ctypes.c_int32 * len(_GEOMETRY_FIELDS))()
+    if device_index is None:
+        device_index = torch.cuda.current_device()
+    with torch.cuda.device(device_index):
+        rc = library().trw_routed_batch_geometry(
+            spec.width, int(bool(restart)), int(num_shards),
+            ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"routed_batch_geometry: CUDA error code {rc}")
+    return dict(zip(_GEOMETRY_FIELDS, out))
+
+
+def routed_batch_launch(launches) -> RoutedBatch:
+    """Pack the batch launch of a walk's pipelines (``launches``: one
+    ``RoutedLaunch`` under the serial schedule, two under the overlapped
+    one, packed for K14 or K15 with their flow buffers).  Raises where the
+    card cannot hold a block of the kernel resident (no cooperative launch
+    is possible)."""
+    launches = tuple(launches)
+    if not 1 <= len(launches) <= 2:
+        raise ValueError(f"a walk has one or two pipelines, got "
+                         f"{len(launches)}")
+    engine = launches[0].engine
+    spec = ROUTED_ENGINES[engine]
+    if not spec.batch or any(x.engine != engine for x in launches):
+        raise ValueError(f"the batch kernel runs K14 or K15 launches, got "
+                         f"{[x.engine for x in launches]}")
+    dev_index = launches[0].device_index
+    if any(x.device_index != dev_index for x in launches):
+        raise ValueError("the pipelines' launches are on different cards")
+    if spec.width == 4 and not all(x.aligned for x in launches):
+        raise ValueError("K14's inboxes and stages must start on 16 bytes")
+    a = launches[0].launch
+    geometry = routed_batch_geometry(engine, bool(a.restart), a.num_shards,
+                                     dev_index)
+    per_sm = geometry["blocks_per_sm"]
+    if per_sm < 1:
+        raise RuntimeError(f"{spec.label}'s batch kernel has no resident "
+                           f"block on this card: {geometry}")
+    batch = _RoutedBatch()
+    for p, x in enumerate(launches):
+        batch.pipe[p] = x.launch
+    batch.num_pipes = len(launches)
+    batch.vec = int(all(x.aligned for x in launches))
+    batch.resident = per_sm * geometry["sms"]
+    return RoutedBatch(batch, ctypes.addressof(batch), launches, dev_index,
+                       engine, batch.resident, geometry)
+
+
+def _routed_batch(engine: str, batch: RoutedBatch, phases: int, pools,
+                  first: int) -> None:
+    if batch.engine != engine:
+        raise ValueError(f"this batch was packed for "
+                         f"{ROUTED_ENGINES[batch.engine].label}, not "
+                         f"{ROUTED_ENGINES[engine].label}")
+    spec = ROUTED_ENGINES[engine]
+    b = batch.batch
+    b.max_phases = int(phases)
+    for p, cur in enumerate(pools):
+        b.cur[p] = int(cur)
+    b.first = int(first)
+    _launch(spec.kernel, getattr(library(), spec.entry), batch.device_index,
+            batch.address, int(batch.grid))
+
+
+def routed_edge_list_batch(batch: RoutedBatch, phases: int, pools,
+                           first: int = 0) -> None:
+    """K14.  Up to ``phases`` phases of the routed uniform edge-list engine
+    for every shard, in one cooperative launch: under the serial schedule
+    each phase exchanges the pipeline and processes it; under the
+    overlapped one each interval exchanges one pipeline (``first`` in the
+    first interval) while it processes the other, and the roles swap.
+    ``pools`` is each pipeline's live carry pool (0 or 1) at the start.  It
+    stops early once nothing is in flight; the walk's phase counter counts
+    the phases run."""
+    _routed_batch("edge_list", batch, phases, pools, first)
+
+
+def routed_edge_list_node2vec_batch(batch: RoutedBatch, phases: int, pools,
+                                    first: int = 0) -> None:
+    """K15.  The same for the routed biased (p/q) edge-list engine."""
+    _routed_batch("edge_list_node2vec", batch, phases, pools, first)

@@ -26,17 +26,15 @@
 //   store, so a block has all its bytes in flight at once;
 // - the wrapper packs the launch's arguments once per set of buffers, and
 //   the C side launches with them as they are.
+// A block's copy is exchange.cuh's copy_piece, which the persistent routed
+// kernel (kernels/routed_families.cu) runs as its exchange step.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-namespace trw {
+#include "exchange.cuh"
 
-// bindings.py mirrors these three (EXCHANGE_THREADS, EXCHANGE_LOADS,
-// MAX_SHARDS).
-constexpr int kExchangeThreads = 256;
-constexpr int kLoads = 4;  // words in flight per thread
-constexpr int kMaxShards = 256;  // 2 * 256 pointers: 4 KB of parameters
+namespace trw {
 
 // One base pointer per shard for its outbox and for its inbox.
 template <int MAX_SHARDS>
@@ -53,19 +51,7 @@ __global__ void __launch_bounds__(kExchangeThreads) all_to_all_chunks_kernel(
   const T* __restrict__ from =
       static_cast<const T*>(bases.out[src]) + (int64_t)dst * elems;
   T* __restrict__ to = static_cast<T*>(bases.in[dst]) + (int64_t)src * elems;
-  const int64_t first =
-      (int64_t)blockIdx.x * (kExchangeThreads * kLoads) + threadIdx.x;
-  T v[kLoads];
-#pragma unroll
-  for (int k = 0; k < kLoads; ++k) {
-    const int64_t i = first + k * kExchangeThreads;
-    if (i < elems) v[k] = from[i];
-  }
-#pragma unroll
-  for (int k = 0; k < kLoads; ++k) {
-    const int64_t i = first + k * kExchangeThreads;
-    if (i < elems) to[i] = v[k];
-  }
+  copy_piece<T, false>(from, to, blockIdx.x, elems);
 }
 
 // Nothing: the floor of a launch of the same geometry, queued the same way.
@@ -93,7 +79,7 @@ int launch_exchange(const TrwExchangeLaunch& a, cudaStream_t stream) {
     bases.in[s] = const_cast<void*>(a.bases[a.num_shards + s]);
   }
   const int64_t elems = a.vec ? a.words / 4 : a.words;
-  const int64_t per_block = trw::kExchangeThreads * trw::kLoads;
+  const int64_t per_block = trw::kPieceElems;
   const dim3 grid((unsigned)((elems + per_block - 1) / per_block),
                   (unsigned)a.num_shards, (unsigned)a.num_shards);
   trw::all_to_all_chunks_kernel<MAX_SHARDS, T>

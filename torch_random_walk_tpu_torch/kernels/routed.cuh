@@ -71,6 +71,8 @@ struct TrwRoutedLaunch {
   int32_t walk_cols;    // row stride of the walk rows: L + 2, or 2L + 2 (K13)
   int32_t padding;      // K13-K15: the padding id
   int32_t restart;      // K14, K15: a dead end jumps back to the target
+  int32_t* flow;        // K14, K15 (else null): the pipeline's outbox
+                        // counts, (2, flow_words(D)) by pool parity
 };
 
 namespace trw {
@@ -108,9 +110,9 @@ __device__ __forceinline__ void shared_add(int64_t* addr, int64_t v) {
 // shard's histogram, zeros included (code: stream << 16 | dest, or -1).
 // Every thread of the block calls it.
 template <int S>
-__device__ void tile_histogram(const TrwRoutedLaunch& a,
-                               const RoutedShard& sh, int64_t tile,
-                               int32_t code) {
+__device__ __forceinline__ void tile_histogram(const TrwRoutedLaunch& a,
+                                               const RoutedShard& sh,
+                                               int64_t tile, int32_t code) {
   __shared__ int s_hist[S * kRoutedMaxShards];
   const int pairs = S * a.num_shards;
   for (int p = threadIdx.x; p < pairs; p += kTile) s_hist[p] = 0;
@@ -125,10 +127,24 @@ __device__ void tile_histogram(const TrwRoutedLaunch& a,
   for (int p = threadIdx.x; p < pairs; p += kTile) row[p] = s_hist[p];
 }
 
+// A word that this launch may have written from another block: with
+// COHERENT, read from L2 (ld.global.cg), since this SM's L1 may hold a stale
+// copy; else an ordinary load (the per-phase launches, whose inputs were
+// complete before they started).
+template <bool COHERENT, typename T>
+__device__ __forceinline__ T load(const T* p) {
+  if constexpr (COHERENT) {
+    return __ldcg(p);
+  } else {
+    return *p;
+  }
+}
+
 // Over rows [0, rows) of a (rows, width) histogram: add each column's sum of
 // the rows before `before` to base[col] and, if `total`, its sum of all rows
 // to total[col].  Threads take one column and every rows_step-th row, with
 // the loads in flight together and no division in the loop.
+template <bool COHERENT>
 __device__ __forceinline__ void sum_rows(const int32_t* hist, int64_t rows,
                                          int width, int64_t before,
                                          int64_t* base, int* total) {
@@ -142,13 +158,21 @@ __device__ __forceinline__ void sum_rows(const int32_t* hist, int64_t rows,
     const int32_t* src = hist + col;
 #pragma unroll 8
     for (int64_t r = row0; r < rows; r += rows_step) {
-      const int v = src[r * width];
+      const int v = load<COHERENT>(src + r * width);
       all += v;
       pre += r < before ? v : 0;
     }
     if (pre) shared_add(&base[col], pre);
     if (total != nullptr && all) atomicAdd(&total[col], all);
   }
+}
+
+// Words of one parity of a pipeline's flow counts (TrwRoutedLaunch.flow):
+// box[src][dest], the records shard src boxed for dest, at [src * D + dest];
+// each destination's records in, summed over sources, at [D * D + dest];
+// the largest box count at [D * D + D].
+__host__ __device__ constexpr int64_t flow_words(int nd) {
+  return (int64_t)nd * nd + nd + 1;
 }
 
 // The exchange order (parallel/partition_v2.py::build_outbox, the JAX
@@ -162,8 +186,10 @@ __device__ __forceinline__ void sum_rows(const int32_t* hist, int64_t rows,
 // the pool or of the stage over all S streams, so the grid spreads over the
 // card, and it needs no other block: a segment's rank base for destination
 // d, the count of d's candidates before it, is read from histograms that
-// were complete before the launch (the pool's tiles before it; or the whole
-// pool, the lower streams' totals and the same stream's earlier tiles).  Its
+// were complete before the launch, or before the grid barrier that precedes
+// the persistent kernel's compaction step (the pool's tiles before it; or
+// the whole pool, the lower streams' totals and the same stream's earlier
+// tiles).  Its
 // carry base, the count of leftovers before it, is sum_d max(0, base_d -
 // cap).  Within the segment a candidate's rank is its base plus the same
 // destination's candidates of the lower warps (a count per warp in shared
@@ -173,21 +199,36 @@ __device__ __forceinline__ void sum_rows(const int32_t* hist, int64_t rows,
 //
 // The pools are double-buffered: pool `cur` (the live one) is read and pool
 // 1 - cur written, with its counts by (tile, dest), by atomics into counts
-// that the body kernel zeroed.  Stage tile 0 of each shard writes its live
-// counts and adds its dropped records, from the same histograms' totals.
+// that the body zeroed.  Stage tile 0 of each shard (its keeper) writes its
+// live counts and adds its dropped records, from the same histograms'
+// totals.
 // Dynamic shared memory: routed_compact_smem(S, D) bytes.
 __host__ __device__ constexpr int64_t routed_compact_smem(int s, int nd) {
   return (int64_t)s * nd * (8 + 4 + 4 * kTileWarps);
 }
 
-template <int R, int S>
-__global__ void __launch_bounds__(kTile)
-    routed_compact_kernel(const TrwRoutedLaunch a, int64_t slots, int cur) {
+// One block's tile of shard `my`: stage tile `tile` (over `slots` stage
+// slots) or, if `from_pool`, tile `tile` of the live carry pool `cur`.  Every
+// thread of the block calls it; a block whose tile holds no candidate skips
+// the rest (all its threads together), unless it is the shard's keeper.
+// With a flow buffer the keeper also writes the shard's box counts by
+// destination, and adds them to the destinations' totals and the largest
+// count, into the parity that the next phase reads (1 - cur), which the
+// caller has zeroed.  COHERENT (the persistent kernel, whose caller knows
+// the live pool's length, `pool_len`): the candidate, the pool's totals and
+// the histogram rows are loaded together, before the block's first
+// barrier, and no block skips (its tiles hold records by construction).
+template <int R, int S, bool COHERENT>
+__device__ __forceinline__ void compact_tile(const TrwRoutedLaunch& a, int my,
+                                             bool from_pool, int64_t tile,
+                                             int64_t slots, int cur,
+                                             int64_t pool_len = -1) {
   extern __shared__ int64_t s_dyn[];
   __shared__ int64_t s_pool_len, s_boxed, s_left;
   __shared__ int64_t s_lbase[S];
   __shared__ int s_wleft[kTileWarps][S];
-  const int nd = a.num_shards, my = blockIdx.y;
+  __shared__ int s_ptot[kRoutedMaxShards];  // the live pool's records by dest
+  const int nd = a.num_shards;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const unsigned lower = (1u << lane) - 1u;
   const RoutedShard sh = a.shards[my];
@@ -198,8 +239,6 @@ __global__ void __launch_bounds__(kTile)
   int32_t* cnt_next = sh.pool_count + (1 - cur) * (nct + 1) * nd;
   const int32_t* pool_cur = sh.carry + (int64_t)cur * a.ccap * (R + 1);
   int32_t* pool_next = sh.carry + (int64_t)(1 - cur) * a.ccap * (R + 1);
-  const bool from_pool = blockIdx.x >= ntiles;
-  const int64_t tile = from_pool ? blockIdx.x - ntiles : blockIdx.x;
   const int nseg = from_pool ? 1 : S;  // streams of this block's candidates
   const int pairs = nseg * nd;
   const bool keeper = !from_pool && tile == 0;  // writes the live counts
@@ -207,6 +246,7 @@ __global__ void __launch_bounds__(kTile)
   int* s_total = reinterpret_cast<int*>(s_dyn + S * nd);  // [S * nd]
   int* s_wcnt = s_total + S * nd;                        // [warps][pairs]
 
+  __syncthreads();  // the block's previous tile is done with shared memory
   for (int p = tid; p < S * nd; p += kTile) {
     s_base[p] = 0;
     s_total[p] = 0;
@@ -214,49 +254,63 @@ __global__ void __launch_bounds__(kTile)
   for (int p = tid; p < kTileWarps * pairs; p += kTile) s_wcnt[p] = 0;
   if (tid < S) s_lbase[tid] = 0;
   if (tid == 0) s_pool_len = s_boxed = s_left = 0;
-  __syncthreads();
-  if (tid < nd) shared_add(&s_pool_len, cnt_cur[totals + tid]);
-  __syncthreads();
+  const int ptot = tid < nd ? load<COHERENT>(cnt_cur + totals + tid) : 0;
 
   // This thread's candidate.
   const int64_t i = tile * kTile + tid;
   bool valid = false;
   int seg = 0, dest = 0;
   int32_t rec[R];
-  if (from_pool) {
-    if (i < s_pool_len) {
-      const int32_t* src = pool_cur + i * (R + 1);
+  auto take = [&](int64_t plen) {
+    if (from_pool) {
+      if (i < plen) {
+        const int32_t* src = pool_cur + i * (R + 1);
 #pragma unroll
-      for (int k = 0; k < R; ++k) rec[k] = src[k];
-      dest = src[R];
-      valid = true;
-    }
-  } else if (i < slots) {
-    const int32_t c = sh.code[i];
-    if (c >= 0) {
+        for (int k = 0; k < R; ++k) rec[k] = load<COHERENT>(src + k);
+        dest = load<COHERENT>(src + R);
+        valid = true;
+      }
+    } else if (i < slots) {
+      const int32_t c = load<COHERENT>(sh.code + i);
       const int32_t* src = sh.stage + i * R;
+      // The persistent kernel's narrow records are loaded beside the code
+      // (K15's 15 words wait for it: their registers are what it lacks).
+      if ((COHERENT && R <= 4) || c >= 0) {
 #pragma unroll
-      for (int k = 0; k < R; ++k) rec[k] = src[k];
-      seg = c >> 16;
-      dest = c & 0xFFFF;
-      valid = true;
+        for (int k = 0; k < R; ++k) rec[k] = load<COHERENT>(src + k);
+      }
+      if (c >= 0) {
+        seg = c >> 16;
+        dest = c & 0xFFFF;
+        valid = true;
+      }
     }
+  };
+  if (tid < nd) s_ptot[tid] = ptot;
+  if constexpr (COHERENT) {
+    take(pool_len);
+    __syncthreads();
+  } else {
+    __syncthreads();
+    if (tid < nd) shared_add(&s_pool_len, ptot);
+    __syncthreads();
+    take(s_pool_len);
+    if (!__syncthreads_or(valid) && !keeper) return;
   }
-  if (!__syncthreads_or(valid) && !keeper) return;
 
   // Rank bases: the counts of each destination's candidates before this
   // block's segments, summed over histogram rows (a thread keeps one pair's
   // sums over every rows_step-th row, then adds them in shared memory).
   if (from_pool) {
-    sum_rows(cnt_cur, tile, nd, tile, s_base, nullptr);
+    sum_rows<COHERENT>(cnt_cur, tile, nd, tile, s_base, nullptr);
   } else {
-    sum_rows(sh.hist, ntiles, S * nd, tile, s_base, s_total);
+    sum_rows<COHERENT>(sh.hist, ntiles, S * nd, tile, s_base, s_total);
   }
   __syncthreads();
   if (!from_pool) {
     for (int p = tid; p < pairs; p += kTile) {
       const int d = p % nd;
-      int64_t b = cnt_cur[totals + d];
+      int64_t b = s_ptot[d];
       for (int s = 0; s < p / nd; ++s) b += s_total[s * nd + d];
       s_base[p] += b;
     }
@@ -267,10 +321,19 @@ __global__ void __launch_bounds__(kTile)
     if (over > 0) shared_add(&s_lbase[p / nd], over);
   }
   if (keeper && tid < nd) {
-    int64_t n = cnt_cur[totals + tid];
+    int64_t n = ptot;
     for (int s = 0; s < S; ++s) n += s_total[s * nd + tid];
-    shared_add(&s_boxed, min(n, (int64_t)a.cap));
+    const int boxed = (int)min(n, (int64_t)a.cap);
+    shared_add(&s_boxed, boxed);
     shared_add(&s_left, max(n - a.cap, (int64_t)0));
+    if (a.flow != nullptr) {
+      int32_t* f = a.flow + (1 - cur) * flow_words(nd);
+      f[(int64_t)my * nd + tid] = boxed;
+      if (boxed) {
+        atomicAdd(&f[(int64_t)nd * nd + tid], boxed);
+        atomicMax(&f[(int64_t)nd * nd + nd], boxed);
+      }
+    }
   }
 
   // Ranks within the segment.
@@ -319,9 +382,21 @@ __global__ void __launch_bounds__(kTile)
   if (keeper && tid == 0) {
     a.live[2 * my] = s_boxed;
     a.live[2 * my + 1] = min(s_left, (int64_t)a.ccap);
-    a.stats[(int64_t)a.stats_width * my + 2] +=
-        max(s_left - (int64_t)a.ccap, (int64_t)0);
+    shared_add(&a.stats[(int64_t)a.stats_width * my + 2],
+               max(s_left - (int64_t)a.ccap, (int64_t)0));
   }
+}
+
+// The per-phase compaction launch: a block per tile of every shard (grid:
+// stage tiles, then pool tiles, by D).
+template <int R, int S>
+__global__ void __launch_bounds__(kTile)
+    routed_compact_kernel(const TrwRoutedLaunch a, int64_t slots, int cur) {
+  const int64_t ntiles = (slots + kTile - 1) / kTile;
+  const bool from_pool = blockIdx.x >= ntiles;
+  compact_tile<R, S, false>(a, blockIdx.y, from_pool,
+                            from_pool ? blockIdx.x - ntiles : blockIdx.x,
+                            slots, cur);
 }
 
 // --- the body kernels' shared steps ------------------------------------------

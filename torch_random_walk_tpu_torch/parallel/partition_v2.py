@@ -51,12 +51,16 @@ and once nothing is in flight nothing ever is again, so a phase enqueued
 after the end changes nothing; the host never enqueues past the phase
 budget.  The phase body is a hand kernel on a CUDA device (K11
 ``routed_uniform_phase``, K12 ``routed_node2vec_phase``: ``kernels/routed.cu``;
-K13 ``routed_triples_phase``, K14 ``routed_edge_list_phase``, K15
-``routed_edge_list_node2vec_phase``: ``kernels/routed_families.cu``; one
-call a phase for all shards; there each pipeline has two carry pools, one
-read and one filled a phase) and plain PyTorch on the CPU (one pool); the
-choice is the device's and nothing else's.  **So far every
-shard lives on one card.**
+K13 ``routed_triples_phase``: ``kernels/routed_families.cu``; one call a
+phase for all shards; there each pipeline has two carry pools, one read and
+one filled a phase) and plain PyTorch on the CPU (one pool); the choice is
+the device's and nothing else's.  The uniform and biased edge-list engines
+run the loop itself on the card: K14 ``routed_edge_list_batch`` and K15
+``routed_edge_list_node2vec_batch`` (``kernels/routed_families.cu``) are
+one persistent cooperative launch a walk, whose steps (the exchange, the
+body, the compaction) are separated by grid barriers and touch only the
+records in flight, and the host reads the counter once after it.  **So far
+every shard lives on one card.**
 
 Draws use the same (seed, stream, walker id, step, round) Threefry counters
 as the single-device walks (``ops/``), and the carry and arrival
@@ -331,6 +335,7 @@ class _Pipe:
                                                list(self.inbox))
         self.launch = None  # the phase kernel's packed launch (on the card)
         self.pool_count = None  # the kernels' counts of both pools
+        self.flow = None  # the batch kernel's outbox counts (K14, K15)
 
     @property
     def pool(self):
@@ -413,8 +418,10 @@ class RoutedWalk:
                             self.live[p], 2 if body == "kernel" else 1)
                       for p in range(npipes)]
         self.enqueued = 0  # phases enqueued, no-ops after the end included
+        self._counted = 0  # the phase counter as last read
         self._stream = None
         self._graph = None  # (CUDA graph of a batch, the launches it makes)
+        self._batch = None  # the batch kernel's packed launch (K14, K15)
         if body == "kernel":
             shapes = bindings.routed_scratch_shapes(d, self.cap, self.ccap,
                                                     self.blk, self.width)
@@ -424,8 +431,15 @@ class RoutedWalk:
             for pipe in self.pipes:
                 pipe.pool_count = torch.zeros((d, *shapes["pool_count"]),
                                               dtype=torch.int32, device=dev)
+                if spec.batch:
+                    pipe.flow = torch.zeros(
+                        (2, bindings.routed_flow_words(d)), dtype=torch.int32,
+                        device=dev)
                 pipe.launch = self._pack_launch(pipe)
-            if npipes == 2:
+            if spec.batch:
+                self._batch = bindings.routed_batch_launch(
+                    [pipe.launch for pipe in self.pipes])
+            elif npipes == 2:
                 self._stream = torch.cuda.Stream(device=dev)
         else:
             self._meta = torch.stack(pgraph.node_meta)
@@ -471,6 +485,8 @@ class RoutedWalk:
                 pipe.outbox.zero_()
                 pipe.outbox[..., 0] = _SENTINEL
                 pipe.pool_count.zero_()
+                if pipe.flow is not None:
+                    pipe.flow.zero_()
                 bindings.routed_start(pipe.launch)  # pool 0 into pool 1
                 pipe.parity = 1
                 continue
@@ -490,7 +506,12 @@ class RoutedWalk:
         """One body of the schedule: serial, exchange the pipeline and
         process it; overlapped, exchange pipeline X while processing Y,
         then swap them.  The phase counter adds one if anything was in
-        flight before (the kernels' body does it on the card)."""
+        flight before (the kernels' body does it on the card).  K14 and K15
+        run it as a batch of one phase, which does nothing once nothing is
+        in flight."""
+        if self._batch is not None:
+            self._run_batch(1)
+            return
         if self.body == "plain":
             self._counter += (self.live.sum() > 0).to(torch.int64)
         if len(self.pipes) == 1:
@@ -522,10 +543,12 @@ class RoutedWalk:
         under its pipeline's boxed)."""
         return int(self.live.sum())
 
-    def process(self, pipe: _Pipe) -> None:
+    def process(self, pipe: _Pipe, slots=None) -> None:
         """The phase body of every shard for one pipeline: its inbox in, its
         outbox, carry pool and live counts out, walk shares and stats
-        updated."""
+        updated.  The plain body runs on the inbox ``slots`` (flat indices
+        in slot order; by default every slot whose wid is not the
+        sentinel)."""
         if self.body == "kernel":
             getattr(bindings, bindings.ROUTED_ENGINES[self.engine].kernel)(
                 pipe.launch, pipe.parity)
@@ -534,7 +557,8 @@ class RoutedWalk:
         # Only the arrived records can depart: the body runs on those, in
         # slot order, each with its shard.
         recs = pipe.inbox.view(-1, self.width)
-        slot = (recs[:, 0] != _SENTINEL).nonzero()[:, 0]
+        slot = ((recs[:, 0] != _SENTINEL).nonzero()[:, 0] if slots is None
+                else slots)
         recs = recs[slot]
         self._my = slot // (self.nshards * self.cap)
         streams = getattr(self, f"_{self.engine}_body")(recs)
@@ -999,7 +1023,32 @@ class RoutedWalk:
             shard_nodes=pg.shard_nodes,
             blk=self.blk, walk_length=self.walk_length, cap=self.cap,
             ccap=self.ccap, key=self.key, node2vec=n2v, engine=self.engine,
-            padding=self.padding, restart=self.restart)
+            padding=self.padding, restart=self.restart, flow=pipe.flow)
+
+    # -- K14 and K15: phases a launch -------------------------------------
+
+    def _launch_batch(self, n: int) -> None:
+        """One launch of the batch kernel: up to ``n`` phases from the
+        walk's state (each pipeline's live pool, and the pipeline the first
+        overlapped interval exchanges)."""
+        getattr(bindings, bindings.ROUTED_ENGINES[self.engine].kernel)(
+            self._batch, n, [pipe.parity for pipe in self.pipes],
+            self.enqueued % 2)
+
+    def _run_batch(self, n: int) -> tuple[int, int]:
+        """Up to ``n`` phases in one launch, then one read of the phase
+        counter and the in-flight count.  The phases that ran (the batch
+        stops once nothing is in flight) move the schedule on: each swaps
+        the processed pipeline's live pool, and under ``overlapped`` the
+        roles.  Returns (phases, records in flight)."""
+        before = self._counted
+        self._launch_batch(n)
+        phases, inflight = self._read()
+        ran = phases - before
+        for i in range(self.enqueued, self.enqueued + ran):
+            self.pipes[1 - i % 2 if len(self.pipes) == 2 else 0].parity ^= 1
+        self.enqueued += ran
+        return phases, inflight
 
     # -- the phase loop -------------------------------------------------
 
@@ -1019,13 +1068,18 @@ class RoutedWalk:
         """Phase 0, then bodies while anything is in flight and the budget
         lasts, enqueued PHASES_PER_READ at a time between two reads of the
         phase counter and the in-flight count; a batch never passes the
-        budget, and its phases after the end are no-ops.  (The JAX serial
+        budget, and its phases after the end are no-ops.  K14 and K15 run
+        the whole budget in one launch of their batch kernel, which stops
+        once nothing is in flight, and the host reads once.  (The JAX serial
         loop's first test counts the boxed records only: after phase 0
         nothing is carried unless something is boxed.)  Returns (walks (B,
         L+1) int32, info)."""
         self.start()
         phases, inflight = self._read()
         while inflight > 0 and phases < self.max_phases:
+            if self._batch is not None:
+                phases, inflight = self._run_batch(self.max_phases - phases)
+                continue
             n = min(PHASES_PER_READ, self.max_phases - phases)
             if (n == PHASES_PER_READ and n % 4 == 0 and self.body == "kernel"
                     and self.schedule in GRAPH_SCHEDULES):
@@ -1072,8 +1126,10 @@ class RoutedWalk:
 
     def _read(self) -> tuple[int, int]:
         """(phases, records in flight), in one read from the device."""
-        return tuple(torch.cat([self._counter, self.live.sum().view(1)])
-                     .tolist())
+        phases, inflight = torch.cat([self._counter,
+                                      self.live.sum().view(1)]).tolist()
+        self._counted = phases
+        return phases, inflight
 
     def result(self):
         """(walks (B, L+1) int32, or the triples engine's (B, 2L+1), and
