@@ -27,8 +27,8 @@ out-edges; and those families routed over the 8 shards with 32 768 walkers
 K14, ``walk_edge_list_node2vec_partitioned_routed`` at p=0.5 q=2 with the
 edge-list cuckoo tables and with Bloom filters and saturated ones through
 K15, ``walk_triples_partitioned_routed`` through K13; both schedules; both
-copies; K14 and K15 are one persistent cooperative launch a walk after
-phase 0, K13 a call a phase).  It checks the results and
+copies; K13, K14 and K15 are one persistent cooperative launch a walk
+after phase 0).  It checks the results and
 measures every kernel at the shape the main path gives it; the two loss
 kernels also with float32 tables, each with its tile plan and its device time
 by kernel.  The ``build`` line reports each loss kernel's registers and
@@ -64,10 +64,10 @@ this one and its kernels built from its own sources, timed in this one process, 
 (``phase_compare_kernels``); then a ``routed_comparison`` line, the routed
 uniform and node2vec serial legs of each checkout the same way, with the
 device time of their phase calls; then a ``routed_family_comparison``
-line, K14's and K15's bench legs (uniform with restart, p=0.5 q=2 with
-Bloom filters; both schedules) of each checkout the same way, and each
-leg's device time a phase and idle share by the profiler.  Without
-arguments it needs one card and nothing else.
+line, K13's, K14's and K15's bench legs (triples, uniform with restart,
+p=0.5 q=2 with Bloom filters; both schedules) of each checkout the same
+way, and each leg's device time a phase and idle share by the profiler.
+Without arguments it needs one card and nothing else.
 
 Every kernel is held against its plain version on all the rows the main path
 gives it.  The routed legs (``phase_routed``) hold K11 and K12 against the
@@ -85,14 +85,14 @@ take minutes at full depth.  The small checks hold K11 and K12 against the
 plain bodies phase by phase on a 3 000-node graph with dead ends (D = 1, 2,
 8, 16, L = 1 and 12, both schedules, a filling carry pool, one of many
 tiles and an overflowing one, both membership tests, saturated
-filters), and K13-K15 the same way on that graph's families (K14's and
-K15's batch kernel a launch of one phase each, and each leg also whole in
-one launch).  The routed family legs (``phase_routed_families``) hold
+filters), and K13-K15 the same way on that graph's families (their batch
+kernel a launch of one phase each, and each leg also whole in one
+launch).  The routed family legs (``phase_routed_families``) hold
 K13-K15 against the plain bodies state by state for the first 8 phases and
 whole, each leg against the single-device walks (K7, K8, K9) and every hop
 against the graph, then time them as the routed CSR legs; the
-``routed_families`` line adds, for K14's and K15's legs, the launches and
-phases a leg, the batch kernel's grid, blocks per SM, registers and
+``routed_families`` line adds, for K13's, K14's and K15's legs, the
+launches and phases a leg, the batch kernel's grid, blocks per SM, registers and
 barriers a phase, the warm leg ms, the device us a phase (profiler) and
 the idle share, and the serial legs with 1, 2 and every resident block an
 SM.
@@ -101,8 +101,8 @@ Every phase prints one JSON line.  The line before the last two is
 ``{"kernels": [...]}`` with, per kernel, its launches on the main path (the
 sampling run and the training run, each counted from zero, added up; for
 K7-K10 the families' run and for K13-K15 the routed families' run, each
-counted from zero; K14's and K15's are launches a walk, their phases beside
-them), its
+counted from zero; K13's, K14's and K15's are launches a walk, their
+phases beside them), its
 largest deviation from the plain version (0 for the integer kernels; for the
 two float kernels the limits are ``LOSS_REL_LIMIT`` and ``GRAD_REL_LIMIT``
 below), its time, the plain version's time,
@@ -263,7 +263,7 @@ KERNEL_FACTS = {
         "torch_random_walk_tpu/parallel/partition_v2.py:675 (process of "
         "_routed_n2v_jit with _build_outbox:176; XLA program, no Pallas "
         "counterpart)"),
-    "routed_triples_phase": (
+    "routed_triples_batch": (
         "torch_random_walk_tpu_torch/kernels/routed_families.cu",
         "torch_random_walk_tpu/parallel/partition_v2.py:1163 (process of "
         "_routed_triples_jit:1121 with _build_outbox:176; XLA program, no "
@@ -284,13 +284,11 @@ INTEGER_KERNELS = ("uniform_walk_csr", "node2vec_walk_csr_mixture",
                    "all_to_all_chunks", "routed_uniform_phase",
                    "routed_node2vec_phase")
 ROUTED_KERNELS = ("routed_uniform_phase", "routed_node2vec_phase")
-ROUTED_FAMILY_KERNELS = ("routed_triples_phase", "routed_edge_list_batch",
+# K13-K15, all three the persistent batch kernel: one cooperative launch a
+# walk after phase 0, its phases' steps separated by grid barriers (three a
+# serial phase, two an overlapped interval).
+ROUTED_FAMILY_KERNELS = ("routed_triples_batch", "routed_edge_list_batch",
                          "routed_edge_list_node2vec_batch")
-# K14 and K15: one persistent cooperative launch a walk after phase 0, its
-# phases' steps separated by grid barriers (three a serial phase, two an
-# overlapped interval).
-ROUTED_BATCH_KERNELS = ("routed_edge_list_batch",
-                        "routed_edge_list_node2vec_batch")
 BATCH_BARRIERS_PER_PHASE = {"serial": 3, "overlapped": 2}
 T0 = time.perf_counter()
 
@@ -672,9 +670,10 @@ FAMILY_FUNCTIONS = {
 }
 
 
-# K11-K15: the body kernels (K12's by membership flag), the tiled
-# compaction by record width and streams (one stream: phase 0), phase 0's
-# histogram, and K14's and K15's batch kernels by restart flag.
+# K11-K15: K11's and K12's body kernels (K12's by membership flag), the
+# tiled compaction by record width and streams (one stream: phase 0), phase
+# 0's histogram, and the batch kernels: K13's, and K14's and K15's by
+# restart flag.
 ROUTED_FUNCTIONS = {
     "routed_uniform_body_kernel": "K11 body",
     "routed_compact_kernelILi3ELi2EE": "K11 compaction",
@@ -684,10 +683,9 @@ ROUTED_FUNCTIONS = {
     "routed_compact_kernelILi14ELi4EE": "K12 compaction",
     "routed_compact_kernelILi14ELi1EE": "K12 phase 0 compaction",
     "routed_stage_hist_kernel": "phase 0 histogram",
-    "routed_triples_body_kernel": "K13 body",
-    "routed_compact_kernelILi4ELi2EE": "K13 compaction",
     "routed_compact_kernelILi4ELi1EE": "K13/K14 phase 0 compaction",
     "routed_compact_kernelILi15ELi1EE": "K15 phase 0 compaction",
+    "routed_triples_batch_kernel": "K13 batch",
     "routed_edge_list_batch_kernelILb1E": "K14 batch, restart",
     "routed_edge_list_batch_kernelILb0E": "K14 batch, absorbing",
     "routed_edge_list_node2vec_batch_kernelILb1E": "K15 batch, restart",
@@ -889,7 +887,7 @@ def phase_build() -> None:
             f"ptxas reported no registers for K11-K15: {routed_ptxas}")
     require(all(routed_ptxas[k]["spill_store_bytes"] == 0
                 for k in BATCH_FUNCTIONS),
-            f"a batch kernel (K14, K15) spills: {routed_ptxas}")
+            f"a batch kernel (K13-K15) spills: {routed_ptxas}")
     # K2's launch geometry, and how many blocks of 64, 128 and 256 threads
     # one SM holds at its register count.
     emit("walk_geometry", kernel="node2vec_walk_csr", geometry={
@@ -1357,12 +1355,20 @@ def state_err(kernel_run, plain_run) -> int:
     return worst
 
 
+def same_result(a, b) -> bool:
+    """Two runs' results ((walks, info), or the errors they raised) agree."""
+    if isinstance(a, str) or isinstance(b, str):
+        return a == b
+    return max_abs_err(a[0], b[0]) == 0 and a[1] == b[1]
+
+
 def routed_lockstep(make, phases=None) -> dict:
     """A kernel run and a plain run (``make(body)``) side by side on the
     card: the whole state compared after phase 0 and after each of the
     first ``phases`` phases (every phase when None).  Without a limit both
     run to the end, and their results are compared too (or the errors they
-    raised)."""
+    raised), and the plain run's is returned as ``plain`` (not for
+    printing: it holds the walks)."""
     runs = [make("kernel"), make("plain")]
     for r in runs:
         r.start()
@@ -1382,31 +1388,24 @@ def routed_lockstep(make, phases=None) -> dict:
             results.append(r.result())
         except RuntimeError as err:
             results.append(str(err))
-    if isinstance(results[0], str) or isinstance(results[1], str):
-        same = results[0] == results[1]
-    else:
-        same = (max_abs_err(results[0][0], results[1][0]) == 0
-                and results[0][1] == results[1][1])
-    return {"phases_compared": compared,
-            "max_abs_err": worst if same else max(worst, 1),
-            "result": results[0] if isinstance(results[0], str)
-            else results[0][1]}
+    out = {"phases_compared": compared,
+           "max_abs_err": worst if same_result(*results) else max(worst, 1),
+           "result": results[0] if isinstance(results[0], str)
+           else results[0][1]}
+    if phases is None:
+        out["plain"] = results[1]
+    return out
 
 
-def whole_leg_err(make) -> int:
-    """A kernel run and a plain run (``make(body)``) each to its end through
-    ``run`` (K14 and K15: one batch launch after phase 0): 0 if their walks
-    and info are equal, or both raised the same error; else 1."""
-    got = []
-    for body in ("kernel", "plain"):
-        try:
-            got.append(make(body).run())
-        except RuntimeError as err:
-            got.append(str(err))
-    if isinstance(got[0], str) or isinstance(got[1], str):
-        return int(got[0] != got[1])
-    return int(max_abs_err(got[0][0], got[1][0]) != 0
-               or got[0][1] != got[1][1])
+def whole_leg_err(make, want) -> int:
+    """A kernel run (``make("kernel")``) to its end through ``run`` (one
+    batch launch after phase 0) against ``want``, the plain run's result
+    or the error it raised: 0 if they agree, else 1."""
+    try:
+        got = make("kernel").run()
+    except RuntimeError as err:
+        got = str(err)
+    return int(not same_result(got, want))
 
 
 def small_routed_graph(device):
@@ -2444,7 +2443,7 @@ ROUTED_FAMILY_STREAMS = {"triples": prng.STREAM_TRIPLES,
                          "edge_list": prng.STREAM_EDGE_UNIFORM,
                          "edge_list_node2vec": prng.STREAM_EDGE_BIASED}
 # The leg each family kernel's row is measured on (serial schedule).
-ROUTED_FAMILY_ROW_LEGS = {"routed_triples_phase": "triples",
+ROUTED_FAMILY_ROW_LEGS = {"routed_triples_batch": "triples",
                           "routed_edge_list_batch": "edge_uniform_restart",
                           "routed_edge_list_node2vec_batch": "edge_n2v"}
 
@@ -2513,7 +2512,7 @@ def routed_family_walk(leg, parts, targets, schedule, body, config=None,
 
 
 def batch_leg_launches(leg, parts, targets, schedule) -> dict:
-    """One warm leg of a K14 or K15 engine through its entry point, with the
+    """One warm leg of a family engine through its entry point, with the
     launch counts set to 0 just before and read just after: its kernel's
     calls (phase 0 a pipeline and the batch launches) and K4's."""
     kernel = bindings.ROUTED_ENGINES[ROUTED_FAMILY_LEGS[leg][0]].kernel
@@ -2529,7 +2528,7 @@ def batch_leg_launches(leg, parts, targets, schedule) -> dict:
 
 
 def batch_leg_split_ms(leg, parts, targets, schedule) -> dict:
-    """Where a warm K14 or K15 leg's host time goes, as ``RoutedWalk.run``
+    """Where a warm family leg's host time goes, as ``RoutedWalk.run``
     spends it: the walk's set-up (configuration, buffers, packed launches,
     the occupancy query), phase 0 (``start``: tensor code, its launches and,
     overlapped, K4), the batch launch up to the read of the phase counter,
@@ -2575,12 +2574,11 @@ def routed_family_small_checks(device) -> dict:
     ones) against the plain bodies phase by phase on the small graph with
     dead ends: every leg at D = 8 under both schedules, and one leg of each
     kernel at L = 1, D = 1 and 16, with a pair capacity that fills the
-    carry pool and one of many tiles; K14 and K15 also at D = 32, where
-    the D * D box counts outnumber a block's threads; K14 with one whose
-    pool overflows (both runs must raise alike; no other case may
-    raise).  K14's and K15's
-    legs also run whole, one batch launch each, against the plain run.
-    Returns the largest difference of each kernel."""
+    carry pool and one of many tiles, and at D = 32, where the D * D box
+    counts outnumber a block's threads; K14 with one whose pool overflows
+    (both runs must raise alike; no other case may raise).  Every leg also
+    runs whole, one batch launch, against the plain run.  Returns the
+    largest difference of each kernel."""
     graph = small_routed_graph(device)
     el, tg = family_graphs(graph)
     walkers = 1024
@@ -2601,8 +2599,7 @@ def routed_family_small_checks(device) -> dict:
              (8, ("serial",), 12, overflow, ("edge_uniform_restart",)),
              (1, ("serial",), 12, None, one_each),
              (16, ("overlapped",), 12, None, one_each),
-             (32, ("serial",), 12, None, ("edge_uniform_restart",
-                                          "edge_n2v")),
+             (32, ("serial",), 12, None, one_each),
              (2, ("serial",), 12, tiles, one_each)]
     errs = dict.fromkeys(ROUTED_FAMILY_KERNELS, 0)
     for d, schedules, length, cfg, legs in cases:
@@ -2615,9 +2612,8 @@ def routed_family_small_checks(device) -> dict:
                     leg, parts[d], t, schedule, body, cfg, length,
                     graph.num_nodes))
                 got = routed_lockstep(make)
-                if kernel in ROUTED_BATCH_KERNELS:
-                    got["max_abs_err"] = max(got["max_abs_err"],
-                                             whole_leg_err(make))
+                got["max_abs_err"] = max(got["max_abs_err"],
+                                         whole_leg_err(make, got["plain"]))
                 raised = isinstance(got.get("result"), str)
                 if cfg is overflow:
                     require(raised and "incomplete" in got["result"],
@@ -2649,24 +2645,16 @@ def phase_routed_families_main_path(graph):
     emit("routed_family_main_path", launches={
         k: launches[k] for k in (*ROUTED_FAMILY_KERNELS, "all_to_all_chunks")},
         first_call_ms=first_ms)
-    # K13: a call an enqueued phase, and K4 beside each; K14, K15: one batch
-    # launch a leg, which exchanges itself; each leg one call for phase 0.
-    calls, exchanges = Counter(), 0
-    for leg, (engine, _, _) in ROUTED_FAMILY_LEGS.items():
-        name = bindings.ROUTED_ENGINES[engine].kernel
-        if name in ROUTED_BATCH_KERNELS:
-            calls[name] += 2
-        else:
-            calls[name] += routed_calls(out[leg][1]["phases"]) + 1
-            exchanges += routed_calls(out[leg][1]["phases"])
+    # K13-K15: one call for phase 0 and one batch launch a leg, which
+    # exchanges itself (no K4 launch on a serial leg).
+    calls = Counter(bindings.ROUTED_ENGINES[engine].kernel
+                    for engine, _, _ in ROUTED_FAMILY_LEGS.values())
     for name in ROUTED_FAMILY_KERNELS:
-        require(launches[name] == calls[name] > 0,
-                f"{name}: {calls[name]} calls expected (phase 0 and the "
-                f"phases: one a phase for K13, one batch a leg for K14 and "
-                f"K15), got {launches[name]}")
-    require(launches["all_to_all_chunks"] == exchanges,
-            "one exchange launch per enqueued K13 phase expected, and none "
-            "for K14 and K15")
+        require(launches[name] == 2 * calls[name] > 0,
+                f"{name}: {2 * calls[name]} calls expected (phase 0 and one "
+                f"batch a leg), got {launches[name]}")
+    require(launches["all_to_all_chunks"] == 0,
+            "no exchange launch expected on the family main path")
     return el, tg, parts, targets, out, launches
 
 
@@ -2735,12 +2723,11 @@ def phase_routed_families(graph) -> list[dict]:
     through the entry points, every leg checked (``check_routed_family_legs``)
     on the bench families and on the copy whose last quarter of nodes has no
     out-edges; each leg warm under both schedules (host clock, three after
-    one warm-up); device time by CUDA events around every call of one warm
-    serial leg (K13 a call a phase, K14 and K15 one batch launch a leg);
-    the card's launches, idle share and the compaction's, bodies', K4's and
-    batch kernel's device time a phase by torch.profiler over one warm leg
-    a schedule; K14's and K15's serial legs at one and at every resident
-    block an SM.  Returns K13-K15's rows."""
+    one warm-up); device time by CUDA events around the batch launch of one
+    warm serial leg; the card's launches, idle share and the batch kernel's
+    device time a phase by torch.profiler over one warm leg a schedule; the
+    serial legs at one and at every resident block an SM.  Returns K13-K15's
+    rows."""
     el, tg, parts, targets, out, launches = \
         phase_routed_families_main_path(graph)
     checked = check_routed_family_legs(el, tg, parts, targets, out, "bench")
@@ -2766,19 +2753,15 @@ def phase_routed_families(graph) -> list[dict]:
                     f"{leg} {schedule}: the warm legs differ")
     per_call, profiled = {}, {}
     for kernel, leg in ROUTED_FAMILY_ROW_LEGS.items():
-        batch = kernel in ROUTED_BATCH_KERNELS
-        with routed_loop(partition_v2.PHASES_PER_READ, False):
-            (_, info), ms = phase_call_ms(
-                bindings, kernel, lambda: routed_family_call(leg, parts,
-                                                             targets))
+        (_, info), ms = phase_call_ms(
+            bindings, kernel, lambda: routed_family_call(leg, parts, targets))
         phases = info["phases"]
-        # K13: a call an enqueued phase; K14, K15: one batch launch of the
-        # whole walk (phase 0 is routed_start's, timed by neither).
-        require(len(ms) == (1 if batch else routed_calls(phases)),
-                f"{kernel}: {len(ms)} calls for {phases} phases")
-        per_call[kernel] = {
-            "calls": len(ms), "noop_calls": len(ms) - (1 if batch else phases),
-            "device_ms_per_phase": sum(ms[:phases]) / phases}
+        # One batch launch of the whole walk (phase 0 is routed_start's,
+        # not timed here).
+        require(len(ms) == 1, f"{kernel}: {len(ms)} calls for {phases} "
+                f"phases")
+        per_call[kernel] = {"calls": len(ms),
+                            "device_ms_per_phase": ms[0] / phases}
         for schedule in partition_v2.SCHEDULES:
             (_, info), leg_ms, kernels = profile_device(
                 lambda: routed_family_call(leg, parts, targets, schedule))
@@ -2786,8 +2769,9 @@ def phase_routed_families(graph) -> list[dict]:
             n = sum(c for c, _ in kernels.values())
             phases = info["phases"]
 
-            def per_phase(part):
-                hits = [v for k, v in kernels.items() if part in k]
+            def per_phase(*parts):
+                hits = [v for k, v in kernels.items()
+                        if any(part in k for part in parts)]
                 return {"launches": sum(c for c, _ in hits),
                         "device_ms_per_phase": sum(m for _, m in hits)
                         / phases}
@@ -2800,17 +2784,14 @@ def phase_routed_families(graph) -> list[dict]:
                 "device_busy_ms": busy,
                 "device_idle_share": 1 - busy / leg_ms,
                 "batch": per_phase("batch_kernel"),
-                "compaction": per_phase("routed_compact_kernel"),
-                "body": per_phase("body_kernel"),
                 "exchange": per_phase("all_to_all_chunks"),
-                "phase0": per_phase("routed_stage_hist_kernel")}
+                "phase0": per_phase("routed_stage_hist_kernel",
+                                    "routed_compact_kernel")}
     # The batch kernels' serial legs warm with one block an SM and with every
     # resident block: the grid barriers' cost against the blocks' share of
     # the work.
     sweep = {}
-    for kernel, leg in ROUTED_FAMILY_ROW_LEGS.items():
-        if kernel not in ROUTED_BATCH_KERNELS:
-            continue
+    for leg in ROUTED_FAMILY_ROW_LEGS.values():
         for per_sm in (1, None):
             def leg_run():
                 run = routed_family_walk(leg, parts, targets, "serial",
@@ -2833,11 +2814,9 @@ def phase_routed_families(graph) -> list[dict]:
     # by part, median of three warm legs.
     batch_legs = {}
     for kernel, leg in ROUTED_FAMILY_ROW_LEGS.items():
-        if kernel not in ROUTED_BATCH_KERNELS:
-            continue
         run = routed_family_walk(leg, parts, targets, "serial", "kernel")
         geometry = dict(run._batch.geometry, grid=run._batch.grid)
-        del run
+        del run, geometry["function"]
         for schedule in partition_v2.SCHEDULES:
             prof = profiled[f"{kernel}_{schedule}"]
             counted = batch_leg_launches(leg, parts, targets, schedule)
@@ -2873,7 +2852,7 @@ def phase_routed_families(graph) -> list[dict]:
          batch_blocks_per_sm_warm_leg_ms=sweep,
          timing="warm legs on the host clock, three after one warm-up; "
          "per_call: CUDA events around every call of one warm serial leg "
-         "(K13 a phase, K14 and K15 one batch a leg); profiled: "
+         "(one batch a leg); profiled: "
          "torch.profiler, device activity only, one warm leg a schedule; "
          "batch_legs: launches counted over one warm leg, split_ms on the "
          "host clock with the device synchronized between the parts, "
@@ -2919,10 +2898,7 @@ def phase_routed_families(graph) -> list[dict]:
             "name": kernel, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[kernel],
             "max_abs_err": max(errs),
-            "ms": (prof["batch"]["device_ms_per_phase"]
-                   if kernel in ROUTED_BATCH_KERNELS else
-                   prof["body"]["device_ms_per_phase"]
-                   + prof["compaction"]["device_ms_per_phase"]),
+            "ms": prof["batch"]["device_ms_per_phase"],
             "call_ms_events": per_call[kernel]["device_ms_per_phase"],
             "plain_ms": checked["plain"][leg]["ms"]
             / checked["plain"][leg]["phases"],
@@ -3117,30 +3093,40 @@ def compare_routed(graph, targets, pkgs: dict) -> None:
 
 
 def compare_routed_families(graph, targets, pkgs: dict) -> None:
-    """K14's and K15's bench legs (the uniform edge list with restart, and
-    p=P q=Q with Bloom filters; D = NUM_SHARDS, padding N, seed 7; both
-    schedules) of each package of ``pkgs`` (this tree's first) through its
-    own public entry points, on its own edge-list graph, partition and
-    tables built from the bench graph: warm legs on the host clock, three a
-    turn, the packages in turns A B ... B A; then one warm leg of each by
-    the profiler (all device time over the phases, and the idle share).
-    Walks and info must equal this tree's.  The
-    ``routed_family_comparison`` line."""
+    """K13's, K14's and K15's bench legs (the triples, the uniform edge
+    list with restart, and p=P q=Q with Bloom filters; D = NUM_SHARDS,
+    padding N, seed 7; both schedules) of each package of ``pkgs`` (this
+    tree's first) through its own public entry points, on its own triples
+    and edge-list graphs, partitions and tables built from the bench graph:
+    warm legs on the host clock, three a turn, the packages in turns A B
+    ... B A; then one warm leg of each by the profiler (all device time
+    over the phases, and the idle share).  Walks and info must equal this
+    tree's.  The ``routed_family_comparison`` line."""
     n = graph.num_nodes
     heads = torch.repeat_interleave(
         torch.arange(n, device=graph.device),
         (graph.row_ptr[1:] - graph.row_ptr[:-1]).to(torch.int64))
-    edge_list = torch.stack([heads, graph.col_idx.to(torch.int64)], dim=1)
-    del heads
+    tails = graph.col_idx.to(torch.int64)
+    edge_list = torch.stack([heads, tails], dim=1)
+    triples = torch.stack([heads, heads * RELATION_MULT % NUM_RELATIONS,
+                           tails], dim=1)
+    del heads, tails
     legs = {}
     for name, pkg in pkgs.items():
+        tg = pkg.TriplesGraph.from_arrays(triples, num_entities=n)
+        pt = pkg.PartitionedTriples.from_triples(tg, NUM_SHARDS)
         el = pkg.EdgeListGraph.from_arrays(edge_list, num_nodes=n)
         pe = pkg.PartitionedEdgeList.from_edge_list(el, NUM_SHARDS)
         hashes = pkg.build_edge_list_partition_hashes(pe, el)
         blooms = pkg.build_edge_list_partition_blooms(pe, el)
-        del el
+        del el, tg
         legs[name] = {}
         for schedule in partition_v2.SCHEDULES:
+            legs[name][f"triples_{schedule}"] = (
+                lambda pkg=pkg, pt=pt, schedule=schedule:
+                pkg.walk_triples_partitioned_routed(
+                    pt, targets, WALK_LENGTH, n, seed=FAMILY_SEED,
+                    schedule=schedule))
             legs[name][f"edge_uniform_restart_{schedule}"] = (
                 lambda pkg=pkg, pe=pe, schedule=schedule:
                 pkg.walk_edge_list_partitioned_routed(
@@ -3152,7 +3138,7 @@ def compare_routed_families(graph, targets, pkgs: dict) -> None:
                     pe, h, targets, P, Q, WALK_LENGTH, n, restart=True,
                     seed=FAMILY_SEED, spec_rounds=SPEC_ROUNDS, blooms=b,
                     schedule=schedule))
-    del edge_list
+    del edge_list, triples
     want = {leg: fn() for leg, fn in legs["this_tree"].items()}
     errs, times = {}, {name: {} for name in legs}
     order = list(legs) + list(reversed(legs))
@@ -3189,7 +3175,7 @@ def parse_args(argv):
         "--compare", metavar="NAME=DIR", action="append", default=[],
         help="another checkout of the repo (e.g. the parent commit's "
              "git archive under build/): time its K7-K10 entry points, "
-             "routed CSR legs and K14/K15 legs beside this tree's in one "
+             "routed CSR legs and K13-K15 legs beside this tree's in one "
              "process (kernel_comparison, routed_comparison and "
              "routed_family_comparison lines)")
     args = parser.parse_args(argv)

@@ -461,10 +461,19 @@ def mirror_batch(run, n):
 
 
 def family_run(world, engine, nshards, length, pad, restart, schedule,
-               config, targets, p=None, q=None, blooms=True):
-    """A plain-body RoutedWalk of an edge-list engine on ``world``'s edge
-    list at ``nshards`` shards, configured as the entry point resolves
-    ``config``."""
+               config, targets, p=None, q=None, blooms=True, graph="kg3"):
+    """A plain-body RoutedWalk of a family engine at ``nshards`` shards,
+    configured as the entry point resolves ``config``: the edge-list
+    engines on ``world``'s edge list, the triples engine on its KG
+    ``graph``."""
+    targets = torch.as_tensor(targets, dtype=torch.int32)
+    cfg = tt.RoutedConfig.resolve(config, targets.shape[0], nshards, length)
+    if engine == "triples":
+        tpt = (world[graph][1] if nshards == D else
+               tt.PartitionedTriples.from_triples(world[graph][3], nshards))
+        return tv2.RoutedWalk(tpt, targets, length,
+                              prng.derive_key(SEED, prng.STREAM_TRIPLES), cfg,
+                              schedule, "plain", engine=engine, padding=pad)
     tel = world["el"][3]
     if nshards == D:
         tpe, (hashes, blm) = world["el"][1], world["el_tables"][1]
@@ -472,8 +481,6 @@ def family_run(world, engine, nshards, length, pad, restart, schedule,
         tpe = tt.PartitionedEdgeList.from_edge_list(tel, nshards)
         hashes = tt.build_edge_list_partition_hashes(tpe, tel)
         blm = tt.build_edge_list_partition_blooms(tpe, tel)
-    targets = torch.as_tensor(targets, dtype=torch.int32)
-    cfg = tt.RoutedConfig.resolve(config, targets.shape[0], nshards, length)
     routing, stream = None, prng.STREAM_EDGE_UNIFORM
     if engine == "edge_list_node2vec":
         if config is None or config.max_phases <= 0:
@@ -522,6 +529,10 @@ def _same_result(got, want):
 
 # (run of RUNS, saturated filters, phases a launch at most)
 MIRROR_JAX_CASES = [
+    ("triples_dead0_serial", False, None),
+    ("triples_dead0.3_overlapped", False, 3),
+    ("triples_hub_carry_pool", False, 5),
+    ("triples_all_absorbed", False, None),
     ("el_restart_serial_target_at_pad", False, None),
     ("el_absorbing_real_pad_overlapped_carry_pool", False, 3),
     ("n2v_pq0.5-2_restart_serial_target_at_pad", False, 5),
@@ -537,15 +548,16 @@ def test_batch_schedule_mirror_equals_jax(world, jax_runs, name, saturated,
                                           cap):
     """At D = 8 the batch kernel's schedule, mirrored on the plain pieces
     and driven by the walk's own batch loop, gives the JAX routed engine's
-    walks and every ``info`` count (restart and absorbing, biased with
-    Bloom filters and saturated, both schedules, a filling carry pool):
+    walks and every ``info`` count (triples without and with dead heads, a
+    hub whose carry pool fills, every walk absorbed; edge lists with restart
+    and absorbing, biased with Bloom filters and saturated; both schedules):
     in one launch for the whole budget, which stops early once nothing is
     in flight, and in launches of 3 and 5 phases, the roles swapping inside
     and across launches."""
     engine, graph, length, pad, restart, schedule, cfg, _, p, q = RUNS[name]
     run = family_run(world, engine, D, length, pad, restart, schedule,
                      _config(cfg, tt.RoutedConfig), _targets(RUNS[name]),
-                     p, q, not saturated)
+                     p, q, not saturated, graph)
     got, launches = mirrored(run, cap)
     jw, jinfo = jax_runs(name, not saturated)
     _same_result(got, (jw, jinfo))
@@ -565,12 +577,16 @@ MIRROR_CASES = [
     ("edge_list_node2vec", 1, "serial", True, True, 3, None),
     ("edge_list", 2, "serial", True, False, None, (128, 5)),
     ("edge_list_node2vec", 1, "overlapped", False, False, 2, (128, 9)),
+    ("triples", 1, "serial", False, False, None, None),
+    ("triples", 2, "overlapped", False, False, 3, None),
+    ("triples", 2, "serial", False, False, 2, (128, 5)),
 ]
 
 
 @pytest.mark.parametrize(
     "engine,nshards,schedule,restart,saturated,cap,cfg", MIRROR_CASES,
-    ids=[f"{e}_D{d}_{s}_{'restart' if r else 'absorbing'}"
+    ids=[f"{e}_D{d}_{s}"
+         f"{'' if e == 'triples' else '_restart' if r else '_absorbing'}"
          f"{'_saturated' if f else ''}_n{c or 'all'}"
          f"{'_budget' if g and g[1] else ''}"
          for e, d, s, r, f, c, g in MIRROR_CASES])
@@ -578,9 +594,10 @@ def test_batch_schedule_mirror_equals_the_plain_run(world, engine, nshards,
                                                     schedule, restart,
                                                     saturated, cap, cfg):
     """At D = 1 and 2 the mirrored batch schedule gives the plain run's
-    walks and every ``info`` count, its state at the end too; a budget cut
-    short (5 and 9 phases, in launches of 2 and of the whole budget) raises
-    as the plain run does."""
+    walks and every ``info`` count, its state at the end too (the triples
+    engine on the KG with dead heads); a budget cut short (5 and 9 phases,
+    in launches of 2 and of the whole budget) raises as the plain run
+    does."""
     t = targets_for("with_pad")
     config = None if cfg is None else tt.RoutedConfig(
         pair_capacity=cfg[0], max_phases=cfg[1])
@@ -717,7 +734,8 @@ def test_batch_grid_stride_visits_each_item_once(grid, width, vec, serial):
     assert set(visits) == want
 
 
-@pytest.mark.parametrize("engine", ["edge_list", "edge_list_node2vec"])
+@pytest.mark.parametrize("engine", ["triples", "edge_list",
+                                    "edge_list_node2vec"])
 def test_live_prefix_body_stages_as_every_slot(world, engine):
     """Mid-walk (a carry pool filling, D = 8), a body that reads only each
     inbox chunk's live prefix, staging its departures at the records'
@@ -729,7 +747,7 @@ def test_live_prefix_body_stages_as_every_slot(world, engine):
         compaction_mirror, pool_histogram, stage_histogram)
     run = family_run(world, engine, D, 10, N, True, "serial",
                      tt.RoutedConfig(pair_capacity=6, carry_capacity=B),
-                     targets_for("with_pad"), 0.5, 2.0)
+                     targets_for("with_pad"), 0.5, 2.0, graph="kg0")
     run.start()
     for _ in range(3):
         run.phase()
@@ -875,13 +893,9 @@ def _same_state(a, b):
 
 
 def _launches(run, info):
-    """Calls of the walk's kernel by ``run``: phase 0 a pipeline, then K13
-    a call an enqueued phase, K14 and K15 one batch launch."""
-    pipes = len(run.pipes)  # phase 0: one a pipeline
-    if bindings.ROUTED_ENGINES[run.engine].batch:
-        return pipes + (1 if info["phases"] else 0)
-    k = tv2.PHASES_PER_READ
-    return -(-info["phases"] // k) * k + pipes
+    """Calls of the walk's kernel by ``run``: phase 0 a pipeline, then one
+    batch launch (K13-K15)."""
+    return len(run.pipes) + (1 if info["phases"] else 0)
 
 
 @pytest.mark.cuda
@@ -895,12 +909,12 @@ def test_family_kernels_equal_plain_body_phase_by_phase(kind, case,
     """K13, K14 (restart and absorbing) and K15 (restart, p=0.5 q=2 with
     Bloom filters; absorbing, p=4 q=0.25 with saturated filters) against
     the plain bodies on the card, the whole state after phase 0 and after
-    every phase (K14, K15: a batch launch of one phase each): D = 1, 2, 8,
+    every phase (a batch launch of one phase each): D = 1, 2, 8,
     16, 32, L = 1, a filling carry pool, the padding a node of the graph,
     targets on the padding, all on a graph whose last quarter has no
     out-edge; an overflowing pool and a phase budget of 7, which no phase
     count divides (both runs raise alike); then the whole walk through
-    ``run`` (K14, K15: one batch launch), its walks, info and launches."""
+    ``run`` (one batch launch), its walks, info and launches."""
     need_cuda()
     runs = [card_walk(kind, case, schedule, body)
             for body in ("kernel", "plain")]
@@ -945,9 +959,9 @@ def test_family_batched_loop_equals_one_phase_a_read(monkeypatch, kind,
                                                      schedule):
     """The family legs' final state, info and phase calls with k = 3 and 8
     phases a read, eager, and with k = 4 and 8 replayed as CUDA graphs,
-    equal those of the loop that reads after every phase.  K14 and K15 run
-    a walk as one batch launch whatever k: the same state, info and
-    calls each time, and the phases enqueued are the phases run."""
+    equal those of the loop that reads after every phase.  K13-K15 run a
+    walk as one batch launch whatever k: the same state, info and calls
+    each time, and the phases enqueued are the phases run."""
     need_cuda()
     out = {}
     for k, graph in ((1, False), (3, False), (8, False), (4, True), (8, True)):
@@ -973,11 +987,11 @@ def test_family_batched_loop_equals_one_phase_a_read(monkeypatch, kind,
 @pytest.mark.cuda
 @pytest.mark.parametrize("schedule", ["serial", "overlapped"])
 @pytest.mark.parametrize("case", ["D8", "D32", "carry_pool", "L1"])
-@pytest.mark.parametrize("kind", ["K14_restart", "K14_absorbing",
+@pytest.mark.parametrize("kind", ["K13", "K14_restart", "K14_absorbing",
                                   "K15_restart", "K15_absorbing_saturated"])
 def test_batch_kernel_in_batches_of_n_equals_the_plain_walk(kind, case,
                                                              schedule):
-    """K14's and K15's batch kernel run in launches of n = 1, 3 and 7
+    """K13's, K14's and K15's batch kernel run in launches of n = 1, 3 and 7
     phases (no divisor of the phase count: roles and pools carried from
     one launch to the next; the last launch stops early) and of the whole
     budget: each the plain walk's final state, walks and info; at D = 8
@@ -1003,23 +1017,29 @@ def test_batch_kernel_in_batches_of_n_equals_the_plain_walk(kind, case,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("engine", ["edge_list", "edge_list_node2vec"])
+@pytest.mark.parametrize("engine", ["triples", "edge_list",
+                                    "edge_list_node2vec"])
 def test_batch_engines_at_walk_length_zero_launch_nothing(engine):
     """L = 0 on the card returns the target column and the JAX ``info``
     without a launch, as on the CPU."""
     need_cuda()
-    pg, pad, (hashes, blooms) = card_graphs(8, engine)
-    cpu_pg = tv2.PartitionedEdgeList(
+    pg, pad, tables = card_graphs(8, engine)
+    cpu_pg = type(pg)(
         tuple(m.cpu() for m in pg.node_meta), tuple(c.cpu() for c in pg.col),
         pg.num_nodes, pg.num_shards, pg.shard_nodes)
-    cpu_hashes = (hashes[0].cpu(), hashes[1].cpu(), hashes[2])
     t = torch.arange(64, dtype=torch.int32, device="cuda")
     before = dict(bindings.launch_counts)
-    if engine == "edge_list":
+    if engine == "triples":
+        got = tt.walk_triples_partitioned_routed(pg, t, 0, pad)
+        want = tt.walk_triples_partitioned_routed(cpu_pg, t.cpu(), 0, pad,
+                                                  device="cpu")
+    elif engine == "edge_list":
         got = tt.walk_edge_list_partitioned_routed(pg, t, 0, pad)
         want = tt.walk_edge_list_partitioned_routed(cpu_pg, t.cpu(), 0, pad,
                                                     device="cpu")
     else:
+        hashes, blooms = tables
+        cpu_hashes = (hashes[0].cpu(), hashes[1].cpu(), hashes[2])
         got = tt.walk_edge_list_node2vec_partitioned_routed(
             pg, hashes, t, 0.5, 2.0, 0, pad, blooms=blooms)
         want = tt.walk_edge_list_node2vec_partitioned_routed(
@@ -1034,14 +1054,17 @@ def test_batch_engines_at_walk_length_zero_launch_nothing(engine):
 def test_family_phase_kernels_refuse_bad_launches(monkeypatch):
     """Launches packed for another engine, bad scalars (a pool of 2, no
     phase, a first pipeline of 2), a grid of no block or of more blocks
-    than the card holds resident, and a card that holds no block of the
-    batch kernel are refused; so are buffers that do not fit."""
+    than the card holds resident, a triples batch whose walk rows are too
+    narrow for 2L + 1 positions, and a card that holds no block of the
+    batch kernel are refused; so are buffers that do not fit.  The
+    geometry query answers for the engine's own kernel: K13's, not K14's,
+    whose records are as wide."""
     need_cuda()
     run = card_walk("K14_restart", "D2", "serial", "kernel")
     launch = run.pipes[0].launch
     batch = run._batch
     with pytest.raises(ValueError, match="packed for K14, not K13"):
-        bindings.routed_triples_phase(launch, 0)
+        bindings.routed_triples_batch(batch, 1, [1])
     with pytest.raises(ValueError, match="packed for K14, not K11"):
         bindings.routed_uniform_phase(launch, 0)
     with pytest.raises(ValueError, match="packed for K14, not K15"):
@@ -1056,13 +1079,27 @@ def test_family_phase_kernels_refuse_bad_launches(monkeypatch):
             bindings.routed_edge_list_batch(batch._replace(grid=grid), phases,
                                             pools, first)
     assert int(run._counter) == 0  # nothing ran
+    triples = card_walk("K13", "D2", "serial", "kernel")
+    tb = triples._batch
+    tb.batch.pipe[0].walk_cols = triples.walk_length + 2
+    with pytest.raises(RuntimeError, match="launch failed"):
+        bindings.routed_triples_batch(tb, 1, [1])
+    assert int(triples._counter) == 0
+    functions = {engine: {bindings.routed_batch_geometry(engine, r, 2)[
+        "function"] for r in (False, True)} for engine in (
+            "triples", "edge_list", "edge_list_node2vec")}
+    assert len(functions["triples"]) == 1
+    assert tb.geometry["function"] in functions["triples"]
+    assert not functions["triples"] & (functions["edge_list"]
+                                       | functions["edge_list_node2vec"])
+    assert batch.geometry["function"] in functions["edge_list"]
     monkeypatch.setattr(bindings, "routed_batch_geometry",
                         lambda *a, **k: dict(batch.geometry,
                                              blocks_per_sm=0))
     with pytest.raises(RuntimeError, match="no resident block"):
         bindings.routed_batch_launch([launch])
     monkeypatch.undo()
-    with pytest.raises(ValueError, match="runs K14 or K15 launches"):
+    with pytest.raises(ValueError, match="runs K13, K14 or K15 launches"):
         bindings.routed_batch_launch([launch, run.pipes[0].launch._replace(
             engine="edge_list_node2vec")])
     pipe = run.pipes[0]

@@ -24,7 +24,7 @@ KERNEL_NAMES = ("uniform_walk_csr", "node2vec_walk_csr_mixture",
                 "biased_walk_edge_list", "uniform_walk_triples",
                 "to_windows_triples", "to_windows_triples_cbow",
                 "routed_uniform_phase", "routed_node2vec_phase",
-                "routed_triples_phase", "routed_edge_list_batch",
+                "routed_triples_batch", "routed_edge_list_batch",
                 "routed_edge_list_node2vec_batch")
 launch_counts = dict.fromkeys(KERNEL_NAMES, 0)
 
@@ -88,12 +88,12 @@ def library(verbose: bool = False) -> ctypes.CDLL:
         lib.trw_routed_uniform_phase.argtypes = [_PTR, _I32, _PTR]
         lib.trw_routed_node2vec_phase.argtypes = [_PTR, _I32, _PTR]
         lib.trw_routed_start.argtypes = [_PTR, _I32, _PTR]
-        lib.trw_routed_triples_phase.argtypes = [_PTR, _I32, _PTR]
+        lib.trw_routed_triples_batch.argtypes = [_PTR, _I32, _PTR]
         lib.trw_routed_edge_list_batch.argtypes = [_PTR, _I32, _PTR]
         lib.trw_routed_edge_list_node2vec_batch.argtypes = [_PTR, _I32, _PTR]
         lib.trw_routed_batch_geometry.argtypes = [_I32, _I32, _I32, _PTR]
         for fn in (lib.trw_routed_uniform_phase, lib.trw_routed_node2vec_phase,
-                   lib.trw_routed_start, lib.trw_routed_triples_phase,
+                   lib.trw_routed_start, lib.trw_routed_triples_batch,
                    lib.trw_routed_edge_list_batch,
                    lib.trw_routed_edge_list_node2vec_batch,
                    lib.trw_routed_batch_geometry,
@@ -704,8 +704,8 @@ def walk_sgns_plan(in_emb, walks, neg_ids, window_size: int) -> dict:
 
 
 # The routed phase kernels (K11-K15) take up to 256 shards (routed.cuh
-# kRoutedMaxShards).  K11-K13: a phase is two launches, the body kernel and
-# the compaction kernel, counted as one call.  K14, K15: one cooperative
+# kRoutedMaxShards).  K11, K12: a phase is two launches, the body kernel and
+# the compaction kernel, counted as one call.  K13-K15: one cooperative
 # launch runs up to a walk's phases, counted as one call.  Phase 0 is a
 # histogram launch and the compaction kernel, counted as one call of the
 # engine's kernel.  The compaction ranks tiles of ROUTED_TILE slots.
@@ -719,7 +719,7 @@ class RoutedEngine(NamedTuple):
     its wrapper and launch count, and its C entry point), whether it is a
     family engine (K13-K15: a fourth stats column, terminated walkers; walk
     rows filled with the padding id) and whether its kernel is the
-    persistent batch kernel (K14, K15: phases a launch, ``routed_batch``)
+    persistent batch kernel (K13-K15: phases a launch, ``routed_batch``)
     or a phase a call."""
 
     width: int
@@ -735,8 +735,8 @@ ROUTED_ENGINES = {
                             "trw_routed_uniform_phase", False),
     "node2vec": RoutedEngine(14, "K12", "routed_node2vec_phase",
                              "trw_routed_node2vec_phase", False),
-    "triples": RoutedEngine(4, "K13", "routed_triples_phase",
-                            "trw_routed_triples_phase", True),
+    "triples": RoutedEngine(4, "K13", "routed_triples_batch",
+                            "trw_routed_triples_batch", True, True),
     "edge_list": RoutedEngine(4, "K14", "routed_edge_list_batch",
                               "trw_routed_edge_list_batch", True, True),
     "edge_list_node2vec": RoutedEngine(
@@ -851,7 +851,7 @@ def routed_phase_launch(shards, stats, live, live_all, phases, *,
     counter.  The walk rows are (blk+1, L+2), K13's (blk+1, 2L+2);
     ``padding`` and ``restart`` are the family engines' (K13-K15).  ``flow``
     is the pipeline's (2, ``routed_flow_words(D)``) int32 outbox counts,
-    which the batch engines (K14, K15) need and the others take not."""
+    which the batch engines (K13-K15) need and the others take not."""
     if engine is None:
         engine = "uniform" if node2vec is None else "node2vec"
     if engine not in ROUTED_ENGINES:
@@ -992,12 +992,6 @@ def routed_node2vec_phase(launch: RoutedLaunch, pool: int) -> None:
     _routed_phase("node2vec", launch, pool)
 
 
-def routed_triples_phase(launch: RoutedLaunch, pool: int) -> None:
-    """K13.  One phase of the routed KG-triples engine for every shard, as
-    K11's; the stats' fourth column counts the walkers that end."""
-    _routed_phase("triples", launch, pool)
-
-
 def routed_start(launch: RoutedLaunch) -> None:
     """Phase 0 of any routed engine, counted as one call of its kernel:
     compact the first ``blk`` stage slots of every shard (each local
@@ -1010,11 +1004,15 @@ def routed_start(launch: RoutedLaunch) -> None:
             launch.address, spec.width)
 
 
-# K14 and K15: the persistent batch kernel, launched with as many blocks on
-# each SM as the occupancy query allows (every block must be resident, for
-# the kernel's grid barriers).
+# K13-K15: the persistent batch kernel, launched with as many blocks on each
+# SM as the occupancy query allows (every block must be resident, for the
+# kernel's grid barriers).  The C side numbers its kernels by label
+# (routed_families.cu BatchKernel), not by record width, which K13 and K14
+# share.
+BATCH_KERNELS = ("K13", "K14", "K15")
 _GEOMETRY_FIELDS = ("blocks_per_sm", "sms", "registers", "local_bytes",
                     "static_smem_bytes", "dynamic_smem_bytes")
+_GEOMETRY_WORDS = len(_GEOMETRY_FIELDS) + 2  # and the kernel's address
 
 
 class _RoutedBatch(ctypes.Structure):
@@ -1043,31 +1041,34 @@ class RoutedBatch(NamedTuple):
 
 def routed_batch_geometry(engine: str, restart: bool, num_shards: int,
                           device_index: int | None = None) -> dict:
-    """The batch kernel of ``engine`` (K14 or K15) by restart flag at D
-    shards on the card: its resident blocks per SM under a cooperative
+    """The batch kernel of ``engine`` (K13, or K14 or K15 by restart flag)
+    at D shards on the card: its resident blocks per SM under a cooperative
     launch (0 where the card cannot launch one), the SMs, its registers,
-    local (spill) bytes and static and dynamic shared bytes a block."""
+    local (spill) bytes and static and dynamic shared bytes a block, and
+    ``function``, the address of the kernel that answered."""
     spec = ROUTED_ENGINES[engine]
     if not spec.batch:
         raise ValueError(f"the {engine} engine has no batch kernel")
-    out = (ctypes.c_int32 * len(_GEOMETRY_FIELDS))()
+    out = (ctypes.c_uint32 * _GEOMETRY_WORDS)()
     if device_index is None:
         device_index = torch.cuda.current_device()
     with torch.cuda.device(device_index):
         rc = library().trw_routed_batch_geometry(
-            spec.width, int(bool(restart)), int(num_shards),
-            ctypes.addressof(out))
+            BATCH_KERNELS.index(spec.label), int(bool(restart)),
+            int(num_shards), ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"routed_batch_geometry: CUDA error code {rc}")
-    return dict(zip(_GEOMETRY_FIELDS, out))
+    words = list(out)
+    return {**dict(zip(_GEOMETRY_FIELDS, words)),
+            "function": words[-2] | words[-1] << 32}
 
 
 def routed_batch_launch(launches) -> RoutedBatch:
     """Pack the batch launch of a walk's pipelines (``launches``: one
     ``RoutedLaunch`` under the serial schedule, two under the overlapped
-    one, packed for K14 or K15 with their flow buffers).  Raises where the
-    card cannot hold a block of the kernel resident (no cooperative launch
-    is possible)."""
+    one, packed for K13, K14 or K15 with their flow buffers).  Raises where
+    the card cannot hold a block of the kernel resident (no cooperative
+    launch is possible)."""
     launches = tuple(launches)
     if not 1 <= len(launches) <= 2:
         raise ValueError(f"a walk has one or two pipelines, got "
@@ -1075,13 +1076,14 @@ def routed_batch_launch(launches) -> RoutedBatch:
     engine = launches[0].engine
     spec = ROUTED_ENGINES[engine]
     if not spec.batch or any(x.engine != engine for x in launches):
-        raise ValueError(f"the batch kernel runs K14 or K15 launches, got "
-                         f"{[x.engine for x in launches]}")
+        raise ValueError(f"the batch kernel runs K13, K14 or K15 launches, "
+                         f"got {[x.engine for x in launches]}")
     dev_index = launches[0].device_index
     if any(x.device_index != dev_index for x in launches):
         raise ValueError("the pipelines' launches are on different cards")
     if spec.width == 4 and not all(x.aligned for x in launches):
-        raise ValueError("K14's inboxes and stages must start on 16 bytes")
+        raise ValueError(f"{spec.label}'s inboxes and stages must start on 16 "
+                         f"bytes (K13's and K14's records are 16-byte words)")
     a = launches[0].launch
     geometry = routed_batch_geometry(engine, bool(a.restart), a.num_shards,
                                      dev_index)
@@ -1113,6 +1115,14 @@ def _routed_batch(engine: str, batch: RoutedBatch, phases: int, pools,
     b.first = int(first)
     _launch(spec.kernel, getattr(library(), spec.entry), batch.device_index,
             batch.address, int(batch.grid))
+
+
+def routed_triples_batch(batch: RoutedBatch, phases: int, pools,
+                         first: int = 0) -> None:
+    """K13.  Up to ``phases`` phases of the routed KG-triples engine for
+    every shard, in one cooperative launch, as K14's; the stats' fourth
+    column counts the walkers that end."""
+    _routed_batch("triples", batch, phases, pools, first)
 
 
 def routed_edge_list_batch(batch: RoutedBatch, phases: int, pools,

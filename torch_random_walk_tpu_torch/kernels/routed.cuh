@@ -71,7 +71,7 @@ struct TrwRoutedLaunch {
   int32_t walk_cols;    // row stride of the walk rows: L + 2, or 2L + 2 (K13)
   int32_t padding;      // K13-K15: the padding id
   int32_t restart;      // K14, K15: a dead end jumps back to the target
-  int32_t* flow;        // K14, K15 (else null): the pipeline's outbox
+  int32_t* flow;        // K13-K15 (else null): the pipeline's outbox
                         // counts, (2, flow_words(D)) by pool parity
 };
 

@@ -10,19 +10,17 @@
 // plain PyTorch versions are parallel/partition_v2.py::RoutedWalk's
 // _triples_body, _edge_list_body and _edge_list_node2vec_body (body="plain").
 //
-// K13 is a call a phase, two launches on PyTorch's stream, as K11's and
-// K12's (kernels/routed.cu): the body kernel here, a thread per inbox slot
-// of every shard, and the tiled compaction of routed.cuh at this engine's
-// record width and streams.  K14 and K15 are one persistent cooperative
-// launch that runs up to a whole walk's phases on the card (routed_batch
-// below): the exchange (K4's copy, kernels/exchange.cuh), the body and the
-// compaction of each phase are steps of one kernel, separated by grid
-// barriers, and each step's work is the records in flight, not the slots.
-// Phase 0 is trw_routed_start's for all three.  Beside K11's bookkeeping the
-// bodies count the walkers that end at them (stats column 3): a LOG arrival
-// past the last step, a walker absorbed by padding.  The walk rows were
-// filled with the padding id before phase 0, so an absorbed walker's
-// remaining positions need no record.
+// All three are one persistent cooperative launch that runs up to a whole
+// walk's phases on the card (routed_batch below): the exchange (K4's copy,
+// kernels/exchange.cuh), the body and the compaction of each phase are
+// steps of one kernel, separated by grid barriers, and each step's work is
+// the records in flight, not the slots.  The bodies differ only in what an
+// arrival does (TriplesBody, EdgeListBody, EdgeNode2VecBody).  Phase 0 is
+// trw_routed_start's for all three.  Beside K11's bookkeeping the bodies
+// count the walkers that end at them (stats column 3): a LOG arrival past
+// the last step, a walker absorbed by padding.  The walk rows were filled
+// with the padding id before phase 0, so an absorbed walker's remaining
+// positions need no record.
 //
 // - K13 (records of 4 words: wid, step | LOG, relation, entity): a STEP
 //   arrival at owner(entity) reads its meta row and one (relation, tail) row
@@ -46,15 +44,15 @@
 // record once, writes it once to the stage and once to the outbox or the
 // pool, and gathers one graph row a draw (two meta words and one payload
 // row).  At the routed legs' sizes that is about a microsecond a phase, so
-// the per-phase path's time was its launches, their tails and the
-// histograms' reads over every slot; the persistent kernel keeps the phase
-// loop on the card (the host reads the phase counter and the live counts
-// once a walk) and sizes every step by the records: the compaction keeps
-// each chunk's record count (TrwRoutedLaunch.flow), so the exchange copies,
-// the body reads and the outbox reset rewrites only those records, and the
-// compaction's tiles are the records' and the live pool's.  What is left is
-// the grid barriers (three a serial phase, two an overlapped interval) and
-// the dependent reads of each step.
+// a call a phase (K11's and K12's path) spends its time on launches, their
+// tails and the histograms' reads over every slot; the persistent kernel
+// keeps the phase loop on the card (the host reads the phase counter and
+// the live counts once a walk) and sizes every step by the records: the
+// compaction keeps each chunk's record count (TrwRoutedLaunch.flow), so the
+// exchange copies, the body reads and the outbox reset rewrites only those
+// records, and the compaction's tiles are the records' and the live pool's.
+// What is left is the grid barriers (three a serial phase, two an
+// overlapped interval) and the dependent reads of each step.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -78,70 +76,58 @@ __device__ __forceinline__ int2 triple_at(const RoutedShard& sh, int64_t idx,
   return make_int2(sh.col[2 * k], sh.col[2 * k + 1]);
 }
 
-// K13's body: streams 0 = forwarded LOG records (to owner(tail)), 1 = drawn
+// K13's arrival: the departure of one record, into out (code -1: none).
+// Streams 0 = forwarded LOG records (to owner(entity)), 1 = drawn
 // transitions (to the wid-owner).
-__global__ void __launch_bounds__(kBodyThreads)
-    routed_triples_body_kernel(const TrwRoutedLaunch a, int cur) {
-  constexpr int R = kFamilyWidth;
-  const int my = blockIdx.y;
-  const RoutedShard sh = a.shards[my];
-  const int64_t slots = (int64_t)a.num_shards * a.cap;
-  const int64_t first = (int64_t)blockIdx.x * kBodyThreads;
-  count_phase(a);
-  clear_outbox<R>(sh, first, slots);
-  clear_pool_count(a, sh, 1 - cur);
-  const int64_t i = first + threadIdx.x;
-  bool logged = false, done = false;
-  int32_t code = -1;
-  if (i < slots) {
-    const int32_t* rec = sh.inbox + i * R;
-    const uint32_t wid = (uint32_t)rec[0];
-    if (wid != kEmptyWid) {
-      const uint32_t w1 = (uint32_t)rec[1];
-      const uint32_t step = w1 & ~kLogBit;
-      const int32_t v = rec[3];
-      int32_t out1 = 0, out2 = 0, out3 = v;
-      if (w1 & kLogBit) {  // at the wid-owner: log (relation, tail)
-        log_position(sh, my, wid, 2 * step - 1, rec[2], a);
-        log_position(sh, my, wid, 2 * step, v, a);
-        logged = true;
-        if (step < (uint32_t)a.walk_length && v != a.padding) {
-          out1 = (int32_t)step;
-          code = owner_of(v, a);
-        } else {
-          done = true;
-        }
-      } else if (step < (uint32_t)a.walk_length) {  // at owner(v): draw
-        const int64_t local = local_row(v, my, a);
-        const int64_t start = sh.meta[2 * local];
-        const uint32_t cnt = (uint32_t)sh.meta[2 * local + 1];
-        if ((int32_t)cnt > 0 && v != a.padding) {
-          const uint32_t bits =
-              threefry2x32(a.key0, a.key1, wid,
-                           step_round_counter(step + 1, 0)).x0;
-          const int2 rt = triple_at(sh, start + randint(bits, cnt), a);
-          out1 = (int32_t)((step + 1) | kLogBit);
-          out2 = rt.x;
-          out3 = rt.y;
-          code = (1 << 16) | wid_owner(wid, a);
-        } else {
-          done = true;  // absorbed: its padding is in the walk rows already
-        }
+struct TriplesBody {
+  static constexpr int R = kFamilyWidth;
+  static constexpr int S = kFamilyStreams;
+
+  __device__ __forceinline__ static int32_t arrival(const TrwRoutedLaunch& a,
+                                    const RoutedShard& sh, int my,
+                                    const uint32_t (&r)[R], uint32_t (&out)[R],
+                                    bool& logged, bool& done) {
+    const uint32_t wid = r[0];
+    if (wid == kEmptyWid) return -1;
+    const uint32_t w1 = r[1];
+    const uint32_t step = w1 & ~kLogBit;
+    const int32_t v = (int32_t)r[3];
+    uint32_t out1 = 0, out2 = 0, out3 = (uint32_t)v;
+    int32_t code = -1;
+    if (w1 & kLogBit) {  // at the wid-owner: log (relation, tail)
+      log_position(sh, my, wid, 2 * step - 1, (int32_t)r[2], a);
+      log_position(sh, my, wid, 2 * step, v, a);
+      logged = true;
+      if (step < (uint32_t)a.walk_length && v != a.padding) {
+        out1 = step;
+        code = owner_of(v, a);
+      } else {
+        done = true;
       }
-      if (code >= 0) {
-        int32_t* dst = sh.stage + i * R;
-        dst[0] = (int32_t)wid;
-        dst[1] = out1;
-        dst[2] = out2;
-        dst[3] = out3;
+    } else if (step < (uint32_t)a.walk_length) {  // at owner(v): draw
+      const int64_t local = local_row(v, my, a);
+      const int64_t start = sh.meta[2 * local];
+      const uint32_t cnt = (uint32_t)sh.meta[2 * local + 1];
+      if ((int32_t)cnt > 0 && v != a.padding) {
+        const uint32_t bits =
+            threefry2x32(a.key0, a.key1, wid,
+                         step_round_counter(step + 1, 0)).x0;
+        const int2 rt = triple_at(sh, start + randint(bits, cnt), a);
+        out1 = (step + 1) | kLogBit;
+        out2 = (uint32_t)rt.x;
+        out3 = (uint32_t)rt.y;
+        code = (1 << 16) | wid_owner(wid, a);
+      } else {
+        done = true;  // absorbed: its padding is in the walk rows already
       }
     }
-    sh.code[i] = code;
+    out[0] = wid;
+    out[1] = out1;
+    out[2] = out2;
+    out[3] = out3;
+    return code;
   }
-  tile_histogram<kFamilyStreams>(a, sh, blockIdx.x, code);
-  count_block(a, my, logged, code >= 0);
-  count_terminated(a, my, done);
-}
+};
 
 // K14's arrival: the departure of one record, into out (code -1: none).
 // Streams 0 = forwarded LOG records (to owner(node)), 1 = drawn records (to
@@ -406,7 +392,7 @@ struct EdgeNode2VecBody {
 
 }  // namespace trw
 
-// --- K14 and K15: the persistent batch kernel -------------------------------
+// --- K13-K15: the persistent batch kernel -----------------------------------
 
 // One launch of the batch kernel (bindings.py _RoutedBatch): the walk's
 // pipelines (one under `serial`, two under `overlapped`), the phases it may
@@ -546,7 +532,7 @@ __device__ __forceinline__ int exchange_items(int nd, int maxbox, bool vec) {
 }
 
 // The body of the persistent kernel: up to b.max_phases phases of the walk,
-// each as the per-phase path ran it (exchange, body, compaction), with grid
+// each as a call a phase runs it (exchange, body, compaction), with grid
 // barriers between the steps.  Serial: (a) exchange of the pipeline |
 // (b) its body over the records that arrived, the reset of its outbox's
 // slots that were live, and the zeroing of the counts its compaction fills
@@ -717,6 +703,16 @@ __device__ __forceinline__ void routed_batch(const TrwRoutedBatch& b) {
 // and spilled.
 constexpr int kBatchMinBlocks = 2;
 
+// The batch kernels by engine (bindings.py BATCH_KERNELS): the C entries and
+// the geometry query are keyed by kernel, never by record width (K13 and K14
+// share width 4).
+enum BatchKernel : int32_t { kBatchK13 = 0, kBatchK14 = 1, kBatchK15 = 2 };
+
+__global__ void __launch_bounds__(kTile, kBatchMinBlocks)
+    routed_triples_batch_kernel(const __grid_constant__ TrwRoutedBatch b) {
+  routed_batch<TriplesBody>(b);
+}
+
 template <bool RESTART>
 __global__ void __launch_bounds__(kTile, kBatchMinBlocks)
     routed_edge_list_batch_kernel(const __grid_constant__ TrwRoutedBatch b) {
@@ -757,6 +753,10 @@ int batch_geometry(const void* kernel, int nd, int32_t* out) {
   out[3] = (int32_t)attr.localSizeBytes;
   out[4] = (int32_t)attr.sharedSizeBytes;
   out[5] = (int32_t)smem;
+  // Which kernel answered: its entry's address, low and high words.
+  const uint64_t fn = (uint64_t)(uintptr_t)kernel;
+  out[6] = (int32_t)(uint32_t)fn;
+  out[7] = (int32_t)(uint32_t)(fn >> 32);
   return 0;
 }
 
@@ -777,9 +777,7 @@ int batch_launch(const void* kernel, const TrwRoutedBatch& b, int32_t grid,
 
 }  // namespace trw
 
-using trw::compact;
 using trw::launch_ok;
-using trw::tile_grid;
 
 namespace {
 
@@ -793,8 +791,9 @@ bool n2v_launch_ok(const TrwRoutedLaunch& a) {
 }
 
 // The batch's pipelines are the walk's: one or two, on the same shards and
-// counters, each with its flow counts.
-bool batch_ok(const TrwRoutedBatch& b, bool node2vec) {
+// counters, each with its flow counts; K13's walk rows hold 2L + 1
+// positions.
+bool batch_ok(const TrwRoutedBatch& b, int kernel) {
   if (b.num_pipes < 1 || b.num_pipes > 2 || (b.first != 0 && b.first != 1) ||
       b.max_phases < 1 || b.max_phases >= (int64_t)1 << 31 ||
       (b.vec != 0 && b.vec != 1) || b.resident < 1) {
@@ -805,7 +804,9 @@ bool batch_ok(const TrwRoutedBatch& b, bool node2vec) {
     if (!family_launch_ok(a, b.cur[p]) || a.flow == nullptr ||
         a.num_shards != b.pipe[0].num_shards ||
         a.num_live != 2 * b.num_pipes * a.num_shards ||
-        (node2vec && !n2v_launch_ok(a))) {
+        (kernel == trw::kBatchK13 &&
+         a.walk_cols < 2 * (int64_t)a.walk_length + 2) ||
+        (kernel == trw::kBatchK15 && !n2v_launch_ok(a))) {
       return false;
     }
   }
@@ -814,29 +815,23 @@ bool batch_ok(const TrwRoutedBatch& b, bool node2vec) {
 
 }  // namespace
 
-// K13: one phase of the triples engine for every shard; carry pool `cur` is
-// the live one, and the other is filled.
-extern "C" int trw_routed_triples_phase(const TrwRoutedLaunch* launch,
-                                        int cur, void* stream) {
-  const TrwRoutedLaunch& a = *launch;
-  if (!family_launch_ok(a, cur) || a.walk_cols < 2 * a.walk_length + 2) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t st = (cudaStream_t)stream;
-  const int64_t slots = (int64_t)a.num_shards * a.cap;
-  trw::routed_triples_body_kernel<<<tile_grid(a, slots), trw::kTile, 0, st>>>(
-      a, cur);
-  compact<trw::kFamilyWidth, trw::kFamilyStreams>(a, slots, cur, st);
-  return (int)cudaGetLastError();
+// K13: up to batch->max_phases phases of the triples engine, every shard, in
+// one cooperative launch of `grid` blocks (at most the resident blocks of
+// the card).
+extern "C" int trw_routed_triples_batch(const TrwRoutedBatch* batch,
+                                        int32_t grid, void* stream) {
+  const TrwRoutedBatch& b = *batch;
+  if (!batch_ok(b, trw::kBatchK13)) return (int)cudaErrorInvalidValue;
+  using namespace trw;
+  return batch_launch<TriplesBody>((const void*)routed_triples_batch_kernel,
+                                   b, grid, (cudaStream_t)stream);
 }
 
-// K14: up to batch->max_phases phases of the uniform edge-list engine, every
-// shard, in one cooperative launch of `grid` blocks (at most the resident
-// blocks of the card).
+// K14: the same for the uniform edge-list engine.
 extern "C" int trw_routed_edge_list_batch(const TrwRoutedBatch* batch,
                                           int32_t grid, void* stream) {
   const TrwRoutedBatch& b = *batch;
-  if (!batch_ok(b, false)) return (int)cudaErrorInvalidValue;
+  if (!batch_ok(b, trw::kBatchK14)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   using namespace trw;
   return b.pipe[0].restart
@@ -852,7 +847,7 @@ extern "C" int trw_routed_edge_list_batch(const TrwRoutedBatch* batch,
 extern "C" int trw_routed_edge_list_node2vec_batch(
     const TrwRoutedBatch* batch, int32_t grid, void* stream) {
   const TrwRoutedBatch& b = *batch;
-  if (!batch_ok(b, true)) return (int)cudaErrorInvalidValue;
+  if (!batch_ok(b, trw::kBatchK15)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   using namespace trw;
   return b.pipe[0].restart
@@ -864,32 +859,39 @@ extern "C" int trw_routed_edge_list_node2vec_batch(
                    b, grid, st);
 }
 
-// The batch kernel's geometry for engine width 4 (K14) or 15 (K15), by
-// restart flag, at D shards: out = blocks per SM (0 where the card cannot
-// launch cooperatively), SMs, registers, local (spill) bytes, static and
-// dynamic shared bytes a block.
-extern "C" int trw_routed_batch_geometry(int32_t width, int32_t restart,
+// The geometry of batch kernel `kernel` (a BatchKernel; K14's and K15's by
+// restart flag, K13 has one) at D shards: out = blocks per SM (0 where the
+// card cannot launch cooperatively), SMs, registers, local (spill) bytes,
+// static and dynamic shared bytes a block, and the kernel's address (two
+// words).
+extern "C" int trw_routed_batch_geometry(int32_t kernel, int32_t restart,
                                          int32_t num_shards, int32_t* out) {
   using namespace trw;
   if (num_shards < 1 || num_shards > kRoutedMaxShards) {
     return (int)cudaErrorInvalidValue;
   }
-  if (width == kFamilyWidth) {
-    return restart ? batch_geometry<EdgeListBody<true>>(
-                         (const void*)routed_edge_list_batch_kernel<true>,
-                         num_shards, out)
-                   : batch_geometry<EdgeListBody<false>>(
-                         (const void*)routed_edge_list_batch_kernel<false>,
-                         num_shards, out);
+  switch (kernel) {
+    case kBatchK13:
+      return batch_geometry<TriplesBody>(
+          (const void*)routed_triples_batch_kernel, num_shards, out);
+    case kBatchK14:
+      return restart ? batch_geometry<EdgeListBody<true>>(
+                           (const void*)routed_edge_list_batch_kernel<true>,
+                           num_shards, out)
+                     : batch_geometry<EdgeListBody<false>>(
+                           (const void*)routed_edge_list_batch_kernel<false>,
+                           num_shards, out);
+    case kBatchK15:
+      return restart
+                 ? batch_geometry<EdgeNode2VecBody<true>>(
+                       (const void*)routed_edge_list_node2vec_batch_kernel<
+                           true>,
+                       num_shards, out)
+                 : batch_geometry<EdgeNode2VecBody<false>>(
+                       (const void*)routed_edge_list_node2vec_batch_kernel<
+                           false>,
+                       num_shards, out);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  if (width == kEdgeN2VWidth) {
-    return restart
-               ? batch_geometry<EdgeNode2VecBody<true>>(
-                     (const void*)routed_edge_list_node2vec_batch_kernel<true>,
-                     num_shards, out)
-               : batch_geometry<EdgeNode2VecBody<false>>(
-                     (const void*)routed_edge_list_node2vec_batch_kernel<false>,
-                     num_shards, out);
-  }
-  return (int)cudaErrorInvalidValue;
 }

@@ -51,16 +51,15 @@ and once nothing is in flight nothing ever is again, so a phase enqueued
 after the end changes nothing; the host never enqueues past the phase
 budget.  The phase body is a hand kernel on a CUDA device (K11
 ``routed_uniform_phase``, K12 ``routed_node2vec_phase``: ``kernels/routed.cu``;
-K13 ``routed_triples_phase``: ``kernels/routed_families.cu``; one call a
-phase for all shards; there each pipeline has two carry pools, one read and
-one filled a phase) and plain PyTorch on the CPU (one pool); the choice is
-the device's and nothing else's.  The uniform and biased edge-list engines
-run the loop itself on the card: K14 ``routed_edge_list_batch`` and K15
-``routed_edge_list_node2vec_batch`` (``kernels/routed_families.cu``) are
-one persistent cooperative launch a walk, whose steps (the exchange, the
-body, the compaction) are separated by grid barriers and touch only the
-records in flight, and the host reads the counter once after it.  **So far
-every shard lives on one card.**
+one call a phase for all shards; there each pipeline has two carry pools,
+one read and one filled a phase) and plain PyTorch on the CPU (one pool);
+the choice is the device's and nothing else's.  The three family engines
+run the loop itself on the card: K13 ``routed_triples_batch``, K14
+``routed_edge_list_batch`` and K15 ``routed_edge_list_node2vec_batch``
+(``kernels/routed_families.cu``) are one persistent cooperative launch a
+walk, whose steps (the exchange, the body, the compaction) are separated
+by grid barriers and touch only the records in flight, and the host reads
+the counter once after it.  **So far every shard lives on one card.**
 
 Draws use the same (seed, stream, walker id, step, round) Threefry counters
 as the single-device walks (``ops/``), and the carry and arrival
@@ -335,7 +334,7 @@ class _Pipe:
                                                list(self.inbox))
         self.launch = None  # the phase kernel's packed launch (on the card)
         self.pool_count = None  # the kernels' counts of both pools
-        self.flow = None  # the batch kernel's outbox counts (K14, K15)
+        self.flow = None  # the batch kernel's outbox counts (K13-K15)
 
     @property
     def pool(self):
@@ -421,7 +420,7 @@ class RoutedWalk:
         self._counted = 0  # the phase counter as last read
         self._stream = None
         self._graph = None  # (CUDA graph of a batch, the launches it makes)
-        self._batch = None  # the batch kernel's packed launch (K14, K15)
+        self._batch = None  # the batch kernel's packed launch (K13-K15)
         if body == "kernel":
             shapes = bindings.routed_scratch_shapes(d, self.cap, self.ccap,
                                                     self.blk, self.width)
@@ -506,7 +505,7 @@ class RoutedWalk:
         """One body of the schedule: serial, exchange the pipeline and
         process it; overlapped, exchange pipeline X while processing Y,
         then swap them.  The phase counter adds one if anything was in
-        flight before (the kernels' body does it on the card).  K14 and K15
+        flight before (the kernels' body does it on the card).  K13-K15
         run it as a batch of one phase, which does nothing once nothing is
         in flight."""
         if self._batch is not None:
@@ -1025,7 +1024,7 @@ class RoutedWalk:
             ccap=self.ccap, key=self.key, node2vec=n2v, engine=self.engine,
             padding=self.padding, restart=self.restart, flow=pipe.flow)
 
-    # -- K14 and K15: phases a launch -------------------------------------
+    # -- K13-K15: phases a launch -----------------------------------------
 
     def _launch_batch(self, n: int) -> None:
         """One launch of the batch kernel: up to ``n`` phases from the
@@ -1068,8 +1067,8 @@ class RoutedWalk:
         """Phase 0, then bodies while anything is in flight and the budget
         lasts, enqueued PHASES_PER_READ at a time between two reads of the
         phase counter and the in-flight count; a batch never passes the
-        budget, and its phases after the end are no-ops.  K14 and K15 run
-        the whole budget in one launch of their batch kernel, which stops
+        budget, and its phases after the end are no-ops.  K13-K15 run the
+        whole budget in one launch of their batch kernel, which stops
         once nothing is in flight, and the host reads once.  (The JAX serial
         loop's first test counts the boxed records only: after phase 0
         nothing is carried unless something is boxed.)  Returns (walks (B,
