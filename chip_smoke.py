@@ -14,7 +14,17 @@ phases run by K11 and K12), then the training
 half of the main path on the same graph: ``Node2Vec`` at the bench
 configuration (dim 128, walk length 16, window 5, bfloat16 tables, 256 shared
 negatives, 65 536 start nodes a step), one warm step and three chained steps
-through ``epoch_step`` and one step with p=0.5, q=2; last, the edge-list and
+through ``epoch_step`` and one step with p=0.5, q=2 (K1/K2, K5/K6 and
+K18's dense Adam); then the trainer's other modes at the same
+configuration (``train_modes``: ``train_mode="windows"`` through K3,
+K16/K17 and K18, also one step at p=0.5 q=2; ``update_mode="sparse"``
+through the dedup and gathers, K5/K6 on the gathered rows and K18's rows
+entry; ``negative_distribution="degree75"``, dense and sparse, with the
+alias tables built on the host; ``CBOWModel.train_step`` on
+``to_windows_cbow`` of the step's walks through K16/K17's CBOW form and
+K18), each case's steps, parts, losses, launches and peak memory, and
+K16/K17 (both forms), K18 dense and K18 rows against their plain versions
+on the rows the main path gave them; last, the edge-list and
 KG-triples families derived from the same graph as the JAX package's
 ``bench.py --families all`` derives them (the edge list (heads, col_idx) and
 the triples with 16 pseudo relations; padding N, restart, seed 7):
@@ -52,7 +62,8 @@ table their entries read, padding -1 and N, restart both ways, targets
 outside [0, N), round budgets of 1 and 2, L = 1, 7, 8, 9, 80 and B = 1,
 33, 4 097, W = 1, 2, 5, 11, searches cut short,
 tables of one and two triples, walks of padding alone, CBOW's launch in
-groups).
+groups), and K16-K18 at D = 1, 7, 128, 512, one window, ids of -1, a tail of
+pad slots and no flagged slot (``train_mode_small_checks``).
 
 With ``--compare NAME=DIR`` (another checkout of the repo, e.g. the parent
 commit's ``git archive`` unpacked under the ignored ``build/``; repeatable),
@@ -189,6 +200,10 @@ LOSS_REL_LIMIT, GRAD_REL_LIMIT = 1e-5, 1e-4
 # tables as TF32).
 HBM_BYTES_PER_S = 3.35e12
 TENSOR_FLOPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 495e12}
+FP32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores (K18)
+# K18 against its plain version: every stored element within one unit in the
+# last place of its type.
+ADAM_ULP_LIMIT = 1
 # The walk and window kernels' arithmetic is 32-bit integer work (Threefry's
 # adds, xors and rotates, index arithmetic).  A Hopper SM retires 64 INT32
 # results a clock (half its 128 FP32 lanes), so the card's integer rate is
@@ -231,6 +246,26 @@ KERNEL_FACTS = {
         "torch_random_walk_tpu_torch/kernels/sgns_loss.cu",
         "torch_random_walk_tpu/models/skipgram.py:241 (value_and_grad of "
         "walk_loss_fn, XLA program, no Pallas counterpart)"),
+    "sgns_windows_loss_fwd": (
+        "torch_random_walk_tpu_torch/kernels/sgns_windows.cu",
+        "torch_random_walk_tpu/models/skipgram.py:154 (SkipGramModel.loss_fn;"
+        " and models/cbow.py:37, CBOWModel.loss_fn; XLA program, no Pallas "
+        "counterpart)"),
+    "sgns_windows_loss_bwd": (
+        "torch_random_walk_tpu_torch/kernels/sgns_windows.cu",
+        "torch_random_walk_tpu/models/skipgram.py:173 (value_and_grad of "
+        "loss_fn in train_step; and models/cbow.py:47; XLA program, no "
+        "Pallas counterpart)"),
+    "adam_dense": (
+        "torch_random_walk_tpu_torch/kernels/adam.cu",
+        "torch_random_walk_tpu/models/skipgram.py:238 (optax.adam and "
+        "apply_updates in walk_train_step:238-245 and train_step:173; XLA "
+        "program, no Pallas counterpart)"),
+    "adam_rows": (
+        "torch_random_walk_tpu_torch/kernels/adam.cu",
+        "torch_random_walk_tpu/models/skipgram.py:257 (the lazy Adam and "
+        "scatter_rows of walk_train_step_sparse; XLA program, no Pallas "
+        "counterpart)"),
     "uniform_walk_edge_list": (
         "torch_random_walk_tpu_torch/kernels/edge_list_walk.cu",
         "torch_random_walk_tpu/ops/fatwalk.py:1092 (uniform_walk_edge_list_fat"
@@ -694,6 +729,22 @@ ROUTED_FUNCTIONS = {
 BATCH_FUNCTIONS = tuple(k for k in ROUTED_FUNCTIONS if "batch_kernel" in k)
 
 
+# K16/K17 (by table type, load width and form) and K18 (dense by table
+# type, rows by type and width): every instantiation, by its mangled name.
+TRAIN_MODE_FUNCTIONS = {
+    "windows_loss_fwd_kernel": "K16", "windows_loss_bwd_kernel": "K17",
+    "adam_dense_kernel": "K18 dense", "adam_rows_kernel": "K18 rows"}
+
+
+def ptxas_instantiations(log: str, families: dict) -> dict:
+    """``ptxas_report`` for every entry function whose name holds a key of
+    ``families``, keyed by its full (mangled) name."""
+    names = [b.split("'", 1)[0]
+             for b in log.split("Compiling entry function '")[1:]]
+    names = [n for n in names if function_key(n, families)]
+    return ptxas_report(log, dict.fromkeys(names, ""))
+
+
 def function_key(name: str, functions: dict) -> str | None:
     for key in functions:
         if key in name:
@@ -853,6 +904,7 @@ def phase_build() -> None:
     k3_k4_ptxas = ptxas_report(log, EXCHANGE_WINDOW_FUNCTIONS)
     family_ptxas = ptxas_report(log, FAMILY_FUNCTIONS)
     routed_ptxas = ptxas_report(log, ROUTED_FUNCTIONS)
+    train_mode_ptxas = ptxas_instantiations(log, TRAIN_MODE_FUNCTIONS)
     threefry = threefry_sass_ops()
     THREEFRY_OPS = threefry["int32_only_ops"]
     emit("build", seconds=round(seconds, 2), sources=list(build.SOURCES),
@@ -864,6 +916,7 @@ def phase_build() -> None:
                          for k, v in family_ptxas.items()},
          routed_kernels={ROUTED_FUNCTIONS[k]: v
                          for k, v in routed_ptxas.items()},
+         train_mode_kernels=train_mode_ptxas,
          threefry_int32_only_ops=THREEFRY_OPS,
          threefry_int32_pipe_ops=threefry["int32_pipe_ops"],
          threefry_fma_pipe_ops=threefry["fma_pipe_ops"],
@@ -888,6 +941,10 @@ def phase_build() -> None:
     require(all(routed_ptxas[k]["spill_store_bytes"] == 0
                 for k in BATCH_FUNCTIONS),
             f"a batch kernel (K13-K15) spills: {routed_ptxas}")
+    require(all(any(key in name and v.get("registers")
+                    for name, v in train_mode_ptxas.items())
+                for key in TRAIN_MODE_FUNCTIONS),
+            f"ptxas reported no registers for K16-K18: {train_mode_ptxas}")
     # K2's launch geometry, and how many blocks of 64, 128 and 256 threads
     # one SM holds at its register count.
     emit("walk_geometry", kernel="node2vec_walk_csr", geometry={
@@ -993,16 +1050,24 @@ def phase_small_checks() -> None:
             err = loss_errors(in_emb, out_emb, walks, neg_ids, window)
             for key in ("loss_rel_err", "grad_rel_err"):
                 float_errs[key] = max(float_errs.get(key, 0.0), err[key])
+    train_mode_errs = train_mode_small_checks(graph.device)
     torch.cuda.synchronize()
     emit("kernels_small", max_abs_err=errs, tolerance=0,
          walk_sgns_loss=float_errs,
-         walk_sgns_loss_limits=[LOSS_REL_LIMIT, GRAD_REL_LIMIT])
+         walk_sgns_loss_limits=[LOSS_REL_LIMIT, GRAD_REL_LIMIT],
+         train_mode_kernels=train_mode_errs,
+         train_mode_limits=[LOSS_REL_LIMIT, GRAD_REL_LIMIT, ADAM_ULP_LIMIT])
     require(set(errs) == set(INTEGER_KERNELS) | set(ROUTED_FAMILY_KERNELS),
             "a kernel was not held against its plain version")
     require(all(e == 0 for e in errs.values()), f"kernel != plain: {errs}")
     require(float_errs["loss_rel_err"] <= LOSS_REL_LIMIT
             and float_errs["grad_rel_err"] <= GRAD_REL_LIMIT,
             f"loss kernels != plain: {float_errs}")
+    require(train_mode_errs["windows_loss_rel_err"] <= LOSS_REL_LIMIT
+            and train_mode_errs["windows_grad_rel_err"] <= GRAD_REL_LIMIT
+            and train_mode_errs["adam_dense_max_ulps"] <= ADAM_ULP_LIMIT
+            and train_mode_errs["adam_rows_max_ulps"] <= ADAM_ULP_LIMIT,
+            f"K16-K18 != plain: {train_mode_errs}")
 
 
 def phase_graph():
@@ -1780,13 +1845,16 @@ def phase_train(graph):
                  (launches["uniform_walk_csr"]
                   + launches["node2vec_walk_csr_mixture"]) / (steps + 1),
              "walk_sgns_loss_fwd": launches["walk_sgns_loss_fwd"] / (steps + 1),
-             "walk_sgns_loss_bwd": launches["walk_sgns_loss_bwd"] / (steps + 1)},
+             "walk_sgns_loss_bwd": launches["walk_sgns_loss_bwd"] / (steps + 1),
+             "adam_dense": launches["adam_dense"] / (steps + 1)},
          peak_device_gib=step_peak_gib)
     require(launches["uniform_walk_csr"] == steps
             and launches["node2vec_walk_csr_mixture"] == 1
             and launches["walk_sgns_loss_fwd"] == steps + 1
-            and launches["walk_sgns_loss_bwd"] == steps + 1,
-            f"the train steps did not go through K1/K2, K5 and K6: {launches}")
+            and launches["walk_sgns_loss_bwd"] == steps + 1
+            and launches["adam_dense"] == 2 * (steps + 1),
+            f"the train steps did not go through K1/K2, K5, K6 and K18: "
+            f"{launches}")
     require(all(np.isfinite(losses)) and np.isfinite(float(biased_loss)),
             "a loss is not finite")
     require(losses[-1] < losses[0], f"the loss did not fall: {losses}")
@@ -1904,6 +1972,8 @@ def phase_sgns_kernels(graph, counts):
         return tt.walk(graph, target_nodes=targets,
                        walk_length=cfg.walk_length, seed=WALK_SEED)
 
+    spent = zero_grads()  # K18 reads the gradients and leaves them as they are
+
     emit("train_step_parts", timing="CUDA events, 1 warm-up, median of 5",
          walk_ms=time_ms(train_walk),
          walk_device_ms=queued_ms(train_walk, WALK_REPS),
@@ -1913,6 +1983,7 @@ def phase_sgns_kernels(graph, counts):
          loss_bwd_ms=found["torch.bfloat16"]["bwd_ms"],
          zero_fill_ms=time_ms(zero_grads),
          adam_and_zero_fill_ms=time_ms(lambda: model.adam_update(zero_grads())),
+         adam_ms=time_ms(lambda: model.adam_update(spent)),
          walk_train_step_ms=time_ms(lambda: model.walk_train_step(
              walks, neg_ids, window, window - 1)))
 
@@ -1931,6 +2002,508 @@ def phase_sgns_kernels(graph, counts):
             "ms": ms, "plain_ms": main["plain_ms"], "bound_ms": bound_pair[0],
             "bound_by": bound_pair[1], "library_ms": None})
     return rows
+
+
+# --- the trainer modes (K16-K18) ---------------------------------------------
+
+def ulp_distance(got, want) -> torch.Tensor:
+    """Per element, units in the last place of the tensors' type between
+    ``got`` and ``want`` (bit patterns in sign-magnitude order: -0 is +0)."""
+    bits, mag = {torch.float32: (torch.int32, 0x7FFFFFFF),
+                 torch.bfloat16: (torch.int16, 0x7FFF)}[got.dtype]
+
+    def ordered(t):
+        i = t.contiguous().view(bits).long()
+        return torch.where(i < 0, -(i & mag), i)
+
+    return (ordered(got) - ordered(want)).abs()
+
+
+def plain_windows_loss_and_grads(in_emb, out_emb, in_ids, pos, neg):
+    """The plain version of K16 and K17: the tables read as float32 (exact
+    for bfloat16), the gradients by autograd, float32."""
+    tables = [t.detach().to(torch.float32, copy=True).requires_grad_(True)
+              for t in (in_emb, out_emb)]
+    loss = skipgram.windows_loss_plain(*tables, in_ids, pos, neg)
+    return loss.detach(), torch.autograd.grad(loss, tables)
+
+
+def windows_errors(in_emb, out_emb, in_ids, pos, neg, cbow: bool) -> dict:
+    """K16 and K17 against the plain version on the same inputs; K16 run
+    twice must give the same bits."""
+    loss = bindings.sgns_windows_loss_fwd(in_emb, out_emb, in_ids, pos, neg,
+                                          cbow)
+    again = bindings.sgns_windows_loss_fwd(in_emb, out_emb, in_ids, pos, neg,
+                                           cbow)
+    grads = bindings.sgns_windows_loss_bwd(in_emb, out_emb, in_ids, pos, neg,
+                                           torch.ones_like(loss), cbow)
+    (want, want_grads), plain_ms = wall_ms(lambda: plain_windows_loss_and_grads(
+        in_emb, out_emb, in_ids, pos, neg))
+    require(bool(torch.isfinite(loss)) and bool(torch.isfinite(want)),
+            "window loss is not finite")
+    require(torch.equal(loss, again), "K16 is not repeatable")
+    loss_abs = abs(float(loss) - float(want))
+    grad_abs = [float((g - w).abs().max()) for g, w in zip(grads, want_grads)]
+    grad_rel = [a / max(float(w.abs().max()), 1e-30)
+                for a, w in zip(grad_abs, want_grads)]
+    return {"loss": float(loss), "plain_loss": float(want),
+            "loss_abs_err": loss_abs,
+            "loss_rel_err": loss_abs / max(abs(float(want)), 1e-30),
+            "grad_abs_err": max(grad_abs), "grad_rel_err": max(grad_rel),
+            "plain_ms": plain_ms}
+
+
+def adam_hyper(model, sparse: bool) -> tuple:
+    """(lr, b1, b2, eps, bc1, bc2) of the model's next step: the bias
+    corrections cast to the moments' type (dense) or float32 (rows)."""
+    count = model.count + 1
+    bc = [skipgram.sparse_bias_correction(b, count) for b in (model.b1,
+                                                              model.b2)]
+    if not sparse:
+        bc = [float(torch.tensor(x).to(model.dtype)) for x in bc]
+    return (model.learning_rate, model.b1, model.b2, model.eps, *bc)
+
+
+def adam_errors(kernel, plain, state, args, hyper) -> dict:
+    """A K18 entry (``bindings.adam_dense`` or ``adam_rows``) against its
+    plain version, each on its own copy of ``state`` (param, mu, nu) with
+    the same ``args`` (gradient; for rows also ids and flag): how many
+    stored elements differ and by how many ulps, over whole tables (so the
+    rows entry's untouched rows must stay bitwise)."""
+    got = [t.clone() for t in state]
+    want = [t.clone() for t in state]
+    kernel(*got, *args, *hyper)
+    _, plain_ms = wall_ms(lambda: plain(
+        *want, *[a.clone() if i == 0 else a for i, a in enumerate(args)],
+        *hyper))
+    out = {"plain_ms": plain_ms}
+    for name, g, w in zip(("param", "mu", "nu"), got, want):
+        ulps = ulp_distance(g, w)
+        out[name] = {"max_ulps": int(ulps.max()),
+                     "elements_differing": int((ulps > 0).sum()),
+                     "max_abs_err": float((g.float() - w.float()).abs().max())}
+    del got, want
+    return out
+
+
+def adam_dense_errors(param, mu, nu, grad, hyper) -> dict:
+    return adam_errors(bindings.adam_dense, skipgram.adam_dense_plain,
+                       (param, mu, nu), (grad,), hyper)
+
+
+def adam_rows_errors(param, mu, nu, grad, ids, flag, hyper) -> dict:
+    return adam_errors(bindings.adam_rows, skipgram.adam_rows_plain,
+                       (param, mu, nu), (grad, ids, flag), hyper)
+
+
+def worst_adam(errs: dict) -> tuple[int, float]:
+    """(max ulps, max abs error) over param, mu and nu."""
+    parts = [errs[k] for k in ("param", "mu", "nu")]
+    return (max(p["max_ulps"] for p in parts),
+            max(p["max_abs_err"] for p in parts))
+
+
+def train_mode_small_checks(device) -> dict:
+    """K16/K17 in both forms and both table types, and both K18 entries, at
+    the edges: D = 1, 7, 128, 512; one window; ids of -1 in every kind of
+    row; a slot tail of pads; no flagged slot."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(11)
+    worst = {"windows_loss_rel_err": 0.0, "windows_grad_rel_err": 0.0,
+             "adam_dense_max_ulps": 0, "adam_rows_max_ulps": 0}
+    n = 700
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (1, 7, 128, 512):
+            in_emb, out_emb = random_tables(n, d, dtype, device, seed=d)
+            for b, c in ((1, 4), (1000, 4), (333, 1)):
+                for cbow in (False, True):
+                    def ids(*shape):
+                        return torch.randint(-1, n, shape, device=device,
+                                             generator=gen, dtype=torch.int32)
+                    args = ((ids(b, c), ids(b, 1), ids(b, 1)) if cbow
+                            else (ids(b, 1), ids(b, c), ids(b, c)))
+                    err = windows_errors(in_emb, out_emb, *args, cbow)
+                    worst["windows_loss_rel_err"] = max(
+                        worst["windows_loss_rel_err"], err["loss_rel_err"])
+                    worst["windows_grad_rel_err"] = max(
+                        worst["windows_grad_rel_err"], err["grad_rel_err"])
+            grad = torch.randn((n, d), device=device, generator=gen)
+            mu = (0.01 * torch.randn((n, d), device=device,
+                                     generator=gen)).to(dtype)
+            nu = (1e-4 * torch.rand((n, d), device=device,
+                                    generator=gen)).to(dtype)
+            # the bias corrections of step 3, cast to the moments' type as
+            # the model casts them
+            bc = [float(torch.tensor(1 - b ** 3).to(dtype))
+                  for b in (0.9, 0.999)]
+            for numel in (n * d, n * d - 3, 1):
+                e = adam_dense_errors(in_emb.reshape(-1)[:numel].clone(),
+                                      mu.reshape(-1)[:numel].clone(),
+                                      nu.reshape(-1)[:numel].clone(),
+                                      grad.reshape(-1)[:numel].clone(),
+                                      (1e-2, 0.9, 0.999, 1e-8, *bc))
+                worst["adam_dense_max_ulps"] = max(
+                    worst["adam_dense_max_ulps"], worst_adam(e)[0])
+            m = 96
+            slot_ids = torch.sort(torch.randperm(
+                n - 1, device=device, generator=gen)[:m]).values
+            slot_ids = slot_ids.to(torch.int32)
+            slot_ids[0] = -1
+            slot_grad = torch.randn((m, d), device=device, generator=gen)
+            mu32, nu32 = mu.float(), nu.float()
+            for case in ("flag", "none", "pad_tail", "no_flagged_slot"):
+                use = slot_ids.clone()
+                flag = None
+                if case == "pad_tail":
+                    use[m // 2:] = n
+                if case in ("flag", "no_flagged_slot"):
+                    flag = (torch.arange(m, device=device) % 3 != 0).to(
+                        torch.uint8) * int(case == "flag")
+                e = adam_rows_errors(in_emb, mu32, nu32, slot_grad, use, flag,
+                                     (1e-2, 0.9, 0.999, 1e-8, 0.271, 0.00299))
+                worst["adam_rows_max_ulps"] = max(
+                    worst["adam_rows_max_ulps"], worst_adam(e)[0])
+    return worst
+
+
+def sgns_windows_bound(dtype, backward: bool, in_ids, pos, neg, num_nodes):
+    """K16/K17 on these windows.  Bytes, each row counted once however many
+    windows share it: the distinct in rows and out rows at the table width,
+    the ids, and for K17 the float32 gradient of each of those rows (the
+    rows of the dense gradient tables that stay zero are not counted).
+    Operations: 2 D (CI + 2 CO) a window forward, twice that more backward,
+    against the tensor-core peak of the table type."""
+    b = in_ids.shape[0]
+    wrap = lambda t: torch.where(t < 0, t + num_nodes, t)
+    in_rows = torch.unique(wrap(in_ids)).numel()
+    out_rows = torch.unique(torch.cat([wrap(pos).reshape(-1),
+                                       wrap(neg).reshape(-1)])).numel()
+    d = TRAIN_CONFIG["dim"]
+    elem = torch.empty((), dtype=dtype).element_size()
+    rows_per_window = in_ids.shape[1] + 2 * pos.shape[1]
+    moved = (in_rows + out_rows) * d * elem + 4 * b * rows_per_window + 4
+    flops = 2 * b * d * rows_per_window
+    if backward:
+        moved += (in_rows + out_rows) * d * 4
+        flops *= 3
+    return bound(moved, flops, TENSOR_FLOPS_PER_S[dtype])
+
+
+def adam_dense_bound(numel: int, elem: int):
+    """K18 dense: the float32 gradient, the parameter and both moments read
+    once, parameter and moments written once; about 12 float32 operations an
+    element against the CUDA cores' float32 rate."""
+    return bound(numel * (4 + 6 * elem), 12 * numel, FP32_FLOPS_PER_S)
+
+
+def adam_rows_bound(writes: int, dim: int, elem: int, slots: int):
+    """K18 rows on this step's slots: ids (and flags) of every slot read;
+    for each slot that writes, its float32 gradient row, the parameter row
+    and the float32 moment rows read and written once."""
+    return bound(5 * slots + writes * dim * (4 + 2 * elem + 16),
+                 12 * writes * dim, FP32_FLOPS_PER_S)
+
+
+def fused_adam_ms(params, grads, mus, nus, lr) -> tuple[float | None, str]:
+    """The library yardstick of K18 dense: ``torch._fused_adam_`` (the call
+    behind ``torch.optim.Adam(fused=True)``) over the same tables, on
+    copies, with gradients of the tables' type.  Timed here only; the port
+    never calls it."""
+    try:
+        params = [p.clone() for p in params]
+        grads = [g.to(p.dtype) for g, p in zip(grads, params)]
+        mus = [m.clone() for m in mus]
+        nus = [v.clone() for v in nus]
+        steps = [torch.ones((), dtype=torch.float32, device=p.device)
+                 for p in params]
+
+        def call():
+            torch._fused_adam_(params, grads, mus, nus, [], steps, lr=lr,
+                               beta1=0.9, beta2=0.999, weight_decay=0.0,
+                               eps=1e-8, amsgrad=False, maximize=False)
+        return time_ms(call, iters=5), "torch._fused_adam_"
+    except Exception as exc:  # the yardstick only: its absence is recorded
+        return None, f"torch._fused_adam_ unavailable: {exc!r}"[:300]
+
+
+def step_events(fn, steps: int):
+    """``fn(i)`` for i < steps, CUDA events around each: (results, ms)."""
+    out, events = [], []
+    for i in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out.append(fn(i))
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return [float(x) for x in out], [a.elapsed_time(b) for a, b in events]
+
+
+TRAIN_MODE_CASES = {
+    "windows": dict(train_mode="windows"),
+    "sparse": dict(update_mode="sparse"),
+    "degree75": dict(negative_distribution="degree75"),
+    "degree75_sparse": dict(negative_distribution="degree75",
+                            update_mode="sparse"),
+    "cbow": None,
+}
+# Launches a step each case must show (the rest of TRAIN_MODE_KERNELS: 0).
+TRAIN_MODE_LAUNCHES = {
+    "windows": {"uniform_walk_csr": 1, "to_windows": 1,
+                "sgns_windows_loss_fwd": 1, "sgns_windows_loss_bwd": 1,
+                "adam_dense": 2},
+    "sparse": {"uniform_walk_csr": 1, "walk_sgns_loss_fwd": 1,
+               "walk_sgns_loss_bwd": 1, "adam_rows": 2},
+    "degree75": {"uniform_walk_csr": 1, "walk_sgns_loss_fwd": 1,
+                 "walk_sgns_loss_bwd": 1, "adam_dense": 2},
+    "degree75_sparse": {"uniform_walk_csr": 1, "walk_sgns_loss_fwd": 1,
+                        "walk_sgns_loss_bwd": 1, "adam_rows": 2},
+    "cbow": {"uniform_walk_csr": 1, "sgns_windows_loss_fwd": 1,
+             "sgns_windows_loss_bwd": 1, "adam_dense": 2},
+}
+TRAIN_MODE_KERNELS = ("uniform_walk_csr", "node2vec_walk_csr_mixture",
+                      "to_windows", "walk_sgns_loss_fwd",
+                      "walk_sgns_loss_bwd", "sgns_windows_loss_fwd",
+                      "sgns_windows_loss_bwd", "adam_dense", "adam_rows")
+
+
+def phase_train_modes(graph) -> tuple[list[dict], dict]:
+    """Node2Vec's window, touched-rows and degree^0.75 modes and the CBOW
+    trainer at TRAIN_CONFIG on the bench graph, through ``epoch_step`` (CBOW:
+    ``CBOWModel.train_step`` on ``to_windows_cbow`` of the step's walks):
+    per case one warm step and TRAIN_STEPS chained steps with CUDA events
+    around each (windows mode also one step at p=0.5 q=2 on the same
+    tables), the launch counts set to 0 just before each case and read just
+    after, the losses (finite and falling), peak memory, and the step's
+    parts timed alone on the step's own inputs.  Then K16/K17 (both forms),
+    K18 dense and K18 rows against their plain versions on the full rows
+    the main path gave them, and the kernels' rows."""
+    dev = graph.device
+    targets = torch.arange(TRAIN_WALKERS, dtype=torch.int32, device=dev)
+    window = TRAIN_CONFIG["window_size"]
+    steps = 1 + TRAIN_STEPS
+    totals = dict.fromkeys(("sgns_windows_loss_fwd", "sgns_windows_loss_bwd",
+                            "adam_dense", "adam_rows"), 0)
+    cases, checks, times = {}, {}, {}
+    for case, kw in TRAIN_MODE_CASES.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        peak_gib()
+        if kw is None:
+            n2v = tt.Node2Vec(graph, tt.Node2VecConfig(**TRAIN_CONFIG))
+            model = tt.CBOWModel(NUM_NODES, TRAIN_CONFIG["dim"])
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+            model.reset_parameters(gen)
+
+            def step(i):
+                walks = n2v.walks(targets, i)
+                return model.train_step(*tt.to_windows_cbow(
+                    walks, window, NUM_NODES, n2v.step_seed(i)))
+            alias_ms = None
+        else:
+            n2v, alias_ms = wall_ms(lambda: tt.Node2Vec(
+                graph, tt.Node2VecConfig(**TRAIN_CONFIG, **kw)))
+            if n2v.neg_tabs is None:
+                alias_ms = None
+            model = n2v.init()
+
+            def step(i):
+                return n2v.epoch_step(targets, i)
+        torch.cuda.synchronize()
+        bindings.reset_launch_counts()
+        losses, step_ms = step_events(step, steps)
+        launches = {k: bindings.launch_counts[k] for k in TRAIN_MODE_KERNELS}
+        extra, taken = {}, steps
+        if case == "windows":  # one more step at p, q on the same tables
+            biased = tt.Node2Vec(graph, tt.Node2VecConfig(
+                **{**TRAIN_CONFIG, **kw, "p": P, "q": Q}))
+            biased.model = model
+            loss, ms = step_events(lambda i: biased.epoch_step(targets, steps),
+                                   1)
+            extra = {"biased_step_loss": loss[0], "biased_step_ms": ms[0]}
+            launches = {k: bindings.launch_counts[k]
+                        for k in TRAIN_MODE_KERNELS}
+            taken += 1
+            del biased
+        torch.cuda.synchronize()
+        case_peak = torch.cuda.max_memory_allocated() / 2**30
+        want = {k: v * taken for k, v in TRAIN_MODE_LAUNCHES[case].items()}
+        if case == "windows":  # the biased step walks through K2, not K1
+            want["uniform_walk_csr"] -= 1
+            want["node2vec_walk_csr_mixture"] = 1
+        require(launches == {k: want.get(k, 0) for k in TRAIN_MODE_KERNELS},
+                f"{case}: the steps did not go through their kernels: "
+                f"{launches}, wanted {want}")
+        for k in totals:
+            totals[k] += launches[k]
+        require(all(np.isfinite(losses)) and all(
+            np.isfinite(v) for k, v in extra.items() if k.endswith("loss")),
+            f"{case}: a loss is not finite: {losses}")
+        require(losses[-1] < losses[0], f"{case}: the loss did not fall: "
+                f"{losses}")
+        for name, param in model.named_parameters():
+            require(bool(torch.isfinite(param).all()),
+                    f"{case}: {name} is not finite")
+
+        # The parts of one step, each alone on the step's own inputs.
+        i = steps + 1
+        walks = n2v.walks(targets, i)
+        parts = {"walk_ms": time_ms(lambda: n2v.walks(targets, i), iters=3)}
+        if case in ("windows", "cbow"):
+            cbow = case == "cbow"
+            make = ((lambda: tt.to_windows_cbow(walks, window, NUM_NODES,
+                                                n2v.step_seed(i)))
+                    if cbow else (lambda: n2v.windows(walks, i)))
+            parts["windows_ms"] = time_ms(make, iters=3)
+            win = make()
+            ids = model._window_ids(*win)
+            loss = bindings.sgns_windows_loss_fwd(model.in_emb, model.out_emb,
+                                                  *ids, cbow)
+            parts["loss_fwd_ms"] = time_ms(
+                lambda: bindings.sgns_windows_loss_fwd(
+                    model.in_emb, model.out_emb, *ids, cbow), iters=3)
+            one = torch.ones_like(loss)
+            parts["loss_bwd_ms"] = time_ms(
+                lambda: bindings.sgns_windows_loss_bwd(
+                    model.in_emb, model.out_emb, *ids, one, cbow), iters=3)
+            grads = bindings.sgns_windows_loss_bwd(model.in_emb, model.out_emb,
+                                                   *ids, one, cbow)
+            checks[case] = windows_errors(model.in_emb, model.out_emb, *ids,
+                                          cbow)
+            times[case] = {"fwd": (parts["loss_fwd_ms"], sgns_windows_bound(
+                model.dtype, False, *ids, NUM_NODES)),
+                "bwd": (parts["loss_bwd_ms"], sgns_windows_bound(
+                    model.dtype, True, *ids, NUM_NODES))}
+            del win, loss
+        else:
+            neg_ids = n2v.negatives(i)
+            parts["negatives_ms"] = time_ms(lambda: n2v.negatives(i), iters=3)
+            if "sparse" in case:
+                parts["dedup_and_gathers_ms"] = time_ms(
+                    lambda: model.gather_touched_rows(walks, neg_ids),
+                    iters=3)
+                ids, out_loc, neg_loc, in_sub, out_sub = (
+                    model.gather_touched_rows(walks, neg_ids))
+                tabs, loss_walks, loss_neg = (in_sub, out_sub), out_loc, neg_loc
+            else:
+                tabs = (model.in_emb.detach(), model.out_emb.detach())
+                loss_walks, loss_neg = walks, neg_ids
+            parts["loss_fwd_ms"] = time_ms(
+                lambda: bindings.walk_sgns_loss_fwd(
+                    *tabs, loss_walks, loss_neg, window, window - 1), iters=3)
+            one = torch.ones((), dtype=torch.float32, device=dev)
+            parts["loss_bwd_ms"] = time_ms(
+                lambda: bindings.walk_sgns_loss_bwd(
+                    *tabs, loss_walks, loss_neg, window, window - 1, one),
+                iters=3)
+            grads = bindings.walk_sgns_loss_bwd(*tabs, loss_walks, loss_neg,
+                                                window, window - 1, one)
+        if "sparse" in case:
+            hyper = adam_hyper(model, sparse=True)
+            (rows_in, center), (rows_out, _) = model.touched_row_writes(
+                ids, out_loc, window)
+            upd = [(model.in_emb.data, model.mu["in_emb"], model.nu["in_emb"],
+                    grads[0], rows_in, center),
+                   (model.out_emb.data, model.mu["out_emb"],
+                    model.nu["out_emb"], grads[1], rows_out, None)]
+            parts["adam_ms"] = time_ms(lambda: [
+                bindings.adam_rows(*u, *hyper) for u in upd], iters=3)
+            if case == "sparse":
+                writes = (int(((rows_in < NUM_NODES) & (center > 0)).sum())
+                          + int((rows_out < NUM_NODES).sum()))
+                checks["adam_rows"] = {
+                    name: adam_rows_errors(*u, hyper)
+                    for name, u in zip(("in_emb", "out_emb"), upd)}
+                times["adam_rows"] = (parts["adam_ms"], adam_rows_bound(
+                    writes, TRAIN_CONFIG["dim"], model.in_emb.element_size(),
+                    2 * ids.numel()))
+                checks["adam_rows"]["writing_slots"] = writes
+        else:
+            hyper = adam_hyper(model, sparse=False)
+            upd = [(p.data, model.mu[n], model.nu[n], g) for (n, p), g in
+                   zip(model.named_parameters(), grads)]
+            parts["adam_ms"] = time_ms(lambda: [
+                bindings.adam_dense(*u, *hyper) for u in upd], iters=3)
+            if case == "windows":
+                checks["adam_dense"] = {
+                    name: adam_dense_errors(*u, hyper)
+                    for name, u in zip(("in_emb", "out_emb"), upd)}
+                numel = sum(u[0].numel() for u in upd)
+                lib_ms, lib_what = fused_adam_ms(
+                    [u[0] for u in upd], [u[3] for u in upd],
+                    [u[1] for u in upd], [u[2] for u in upd],
+                    model.learning_rate)
+                times["adam_dense"] = (parts["adam_ms"], adam_dense_bound(
+                    numel, model.in_emb.element_size()), lib_ms, lib_what)
+        cases[case] = {
+            "losses": losses, "step_ms": step_ms, "warm_step_ms": step_ms[0],
+            "chained_step_ms_median": statistics.median(step_ms[1:]),
+            "parts_ms": parts, "alias_build_ms": alias_ms,
+            "launches": launches, "peak_device_gib": case_peak, **extra}
+        del n2v, model, grads, upd, walks
+    torch.cuda.synchronize()
+    emit("train_modes", config=TRAIN_CONFIG, num_nodes=NUM_NODES,
+         walkers=TRAIN_WALKERS, cases=cases,
+         timing="CUDA events around each step; parts: CUDA events, 1 "
+                "warm-up, median of 3",
+         alias_build_is="wall ms of Node2Vec.__init__ (the host Vose loop "
+                        "over 2 M degree^0.75 weights, and the tables' copy "
+                        "to the card)")
+    limits = {"loss_rel_err": LOSS_REL_LIMIT, "grad_rel_err": GRAD_REL_LIMIT,
+              "adam_max_ulps": ADAM_ULP_LIMIT}
+    emit("train_mode_kernels", limits=limits, checks=checks)
+    for case in ("windows", "cbow"):
+        e = checks[case]
+        require(e["loss_rel_err"] <= LOSS_REL_LIMIT
+                and e["grad_rel_err"] <= GRAD_REL_LIMIT,
+                f"K16/K17 != plain at the main path's shape ({case}): {e}")
+    for key in ("adam_dense", "adam_rows"):
+        for name in ("in_emb", "out_emb"):
+            require(worst_adam(checks[key][name])[0] <= ADAM_ULP_LIMIT,
+                    f"{key} != plain at the main path's shape ({name}): "
+                    f"{checks[key][name]}")
+
+    rows = []
+    for name, case, part in (("sgns_windows_loss_fwd", "windows", "fwd"),
+                             ("sgns_windows_loss_bwd", "windows", "bwd")):
+        ms, bound_pair = times[case][part]
+        err_key = "loss_abs_err" if part == "fwd" else "grad_abs_err"
+        source, replaces = KERNEL_FACTS[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": totals[name],
+            "max_abs_err": max(checks[c][err_key] for c in ("windows",
+                                                           "cbow")),
+            "ms": ms, "plain_ms": checks[case]["plain_ms"],
+            "bound_ms": bound_pair[0], "bound_by": bound_pair[1],
+            "library_ms": None,
+            "cbow_ms": times["cbow"][part][0],
+            "cbow_bound_ms": times["cbow"][part][1][0]})
+    ms, bound_pair, lib_ms, lib_what = times["adam_dense"]
+    source, replaces = KERNEL_FACTS["adam_dense"]
+    rows.append({
+        "name": "adam_dense", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": totals["adam_dense"],
+        "max_abs_err": max(worst_adam(checks["adam_dense"][n])[1]
+                           for n in ("in_emb", "out_emb")),
+        "ms": ms, "plain_ms": sum(checks["adam_dense"][n]["plain_ms"]
+                                  for n in ("in_emb", "out_emb")),
+        "bound_ms": bound_pair[0], "bound_by": bound_pair[1],
+        "library_ms": lib_ms, "library_call": lib_what})
+    ms, bound_pair = times["adam_rows"]
+    source, replaces = KERNEL_FACTS["adam_rows"]
+    rows.append({
+        "name": "adam_rows", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": totals["adam_rows"],
+        "max_abs_err": max(worst_adam(checks["adam_rows"][n])[1]
+                           for n in ("in_emb", "out_emb")),
+        "ms": ms, "plain_ms": sum(checks["adam_rows"][n]["plain_ms"]
+                                  for n in ("in_emb", "out_emb")),
+        "bound_ms": bound_pair[0], "bound_by": bound_pair[1],
+        "library_ms": None})
+    return rows, totals
 
 
 # --- the edge-list and KG-triples families (K7-K10) ---------------------------
@@ -3212,15 +3785,23 @@ def main(argv=None) -> int:
                 "the main path's shape")
     del pgraph, tables, out
     rows += phase_sgns_kernels(graph, launches)
+    for r in rows:
+        r["launches_by_run"] = by_run[r["name"]]
+    mode_rows, mode_launches = phase_train_modes(graph)
+    for r in mode_rows:
+        r["launches_by_run"] = {"train": train_launches[r["name"]],
+                                "train_modes": mode_launches[r["name"]]}
+        r["launches"] = sum(r["launches_by_run"].values())
+    rows += mode_rows
     require([r["name"] for r in rows] == [
         "uniform_walk_csr", "node2vec_walk_csr_mixture",
         "node2vec_walk_csr_rejection", "to_windows", "all_to_all_chunks",
         "routed_uniform_phase", "routed_node2vec_phase",
-        "walk_sgns_loss_fwd", "walk_sgns_loss_bwd"], "a kernel row is missing")
+        "walk_sgns_loss_fwd", "walk_sgns_loss_bwd", "sgns_windows_loss_fwd",
+        "sgns_windows_loss_bwd", "adam_dense", "adam_rows"],
+        "a kernel row is missing")
     require(all(r["launches"] > 0 for r in rows),
             "a kernel was never launched on the main path")
-    for r in rows:
-        r["launches_by_run"] = by_run[r["name"]]
     require(by_run["uniform_walk_csr"] == {"sampling": 1,
                                            "train": 1 + TRAIN_STEPS},
             "K1: one launch in sampling and one a train step expected")

@@ -18,6 +18,8 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 import chip_smoke
 assert "torch_random_walk_tpu_torch.models.skipgram" in sys.modules
 assert "torch_random_walk_tpu_torch.models.node2vec" in sys.modules
+assert "torch_random_walk_tpu_torch.models.cbow" in sys.modules
+assert "torch_random_walk_tpu_torch.utils.alias" in sys.modules
 assert "torch_random_walk_tpu_torch.graph.bloom" in sys.modules
 assert "torch_random_walk_tpu_torch.graph.hashset" in sys.modules
 assert "torch_random_walk_tpu_torch.parallel.partition_v2" in sys.modules

@@ -173,16 +173,6 @@ def test_walks_per_node_tiles_the_batch():
     assert seen[0].tolist() == [1, 2, 1, 2, 1, 2]
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(train_mode="windows"), "train_mode"),
-    (dict(update_mode="sparse"), "sparse"),
-    (dict(negative_distribution="degree75"), "degree75"),
-])
-def test_unported_modes_raise_and_name_the_roadmap(kwargs, item):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 5"):
-        tt.Node2Vec(barbell(), tt.Node2VecConfig(**kwargs), device="cpu")
-
-
 @pytest.mark.parametrize("kwargs,message", [
     (dict(update_mode="lazy"), "unknown update_mode 'lazy'"),
     (dict(update_mode="sparse", train_mode="windows"),

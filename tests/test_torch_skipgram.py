@@ -230,22 +230,7 @@ def test_skipgram_from_numpy_rejects_mismatched_tables():
                                     device="cpu")
 
 
-# --- what is not in this slice ------------------------------------------------------
-
-@pytest.mark.parametrize("call", [
-    lambda m: m.loss_fn(None, None, None),
-    lambda m: m.train_step(None, None, None),
-    lambda m: m.walk_train_step_sparse(None, None, 5, 4),
-    lambda m: tsg.sorted_unique_with_locations(None, 0),
-    lambda m: tsg.scatter_rows(None, None, None),
-    lambda m: tsg.SkipGramModel(4, 2, optimizer=object(), device="cpu"),
-], ids=["loss_fn", "train_step", "sparse", "sorted_unique", "scatter_rows",
-        "custom-optimizer"])
-def test_unported_parts_raise_and_name_the_roadmap(call):
-    model = tsg.SkipGramModel(4, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 5"):
-        call(model)
-
+# --- construction -----------------------------------------------------------------
 
 def test_model_rejects_an_unknown_dtype_and_needs_a_card_by_default():
     with pytest.raises(ValueError, match="dtype"):

@@ -1,17 +1,21 @@
 """torch_random_walk_tpu_torch: the PyTorch/CUDA port of
 ``torch_random_walk_tpu``, with hand-written CUDA kernels for an NVIDIA H100.
 
-Ported so far: the counter-based PRNG, the CSR graph and the power-law
-generator, uniform and node2vec (rejection and mixture) CSR walks behind
-``walk``, the indexed edge-list and KG-triples graphs with their walks
-(``walk_edge_list``, ``walk_triples``) and the grid-world KG generator,
-skip-gram and CBOW node and triple windows, the node-range partition, the
-walker-record all-to-all and the owner-routed uniform and node2vec walk
-engines (serial and overlapped schedules, with per-shard cuckoo edge sets and
-Bloom filters), and the fused walk -> SGNS train step (``SkipGramModel`` with dense
-Adam, ``Node2Vec``).  Sub-packages mirror the JAX package's (``utils``,
-``graph``, ``ops``, ``models``, ``parallel``); ``kernels`` holds the CUDA sources, their build and
-their bindings; ``convert`` carries graphs over from the JAX package.
+Ported so far: the counter-based PRNG and the alias tables of the degree^0.75
+negatives, the CSR graph and the power-law generator, uniform and node2vec
+(rejection and mixture) CSR walks behind ``walk``, the indexed edge-list and
+KG-triples graphs with their walks (``walk_edge_list``, ``walk_triples``) and
+the grid-world KG generator, skip-gram and CBOW node and triple windows, the
+node-range partition, the walker-record all-to-all and all five owner-routed
+engines (uniform and node2vec CSR, uniform and node2vec edge list, KG
+triples; serial and overlapped schedules, with per-shard cuckoo edge sets and
+Bloom filters), and the trainers ``SkipGramModel`` (blockwise and per-window
+losses; dense Adam, the touched-rows step, or a custom optimizer),
+``CBOWModel`` and ``Node2Vec`` in all its modes (block or windows, dense or
+sparse update, uniform or degree^0.75 negatives).  Sub-packages mirror the
+JAX package's (``utils``, ``graph``, ``ops``, ``models``, ``parallel``);
+``kernels`` holds the CUDA sources, their build and their bindings;
+``convert`` carries graphs and trainer state over from the JAX package.
 
 Every entry point takes ``device=None``, which means the card and raises
 when there is none; the CPU runs the kernels' plain PyTorch versions and only
@@ -43,6 +47,7 @@ from torch_random_walk_tpu_torch.graph.triples import (
     TriplesGraph,
     build_relation_tail_index,
 )
+from torch_random_walk_tpu_torch.models.cbow import CBOWModel
 from torch_random_walk_tpu_torch.models.node2vec import Node2Vec, Node2VecConfig
 from torch_random_walk_tpu_torch.models.skipgram import SkipGramModel
 from torch_random_walk_tpu_torch.ops.walk import walk, walk_edge_list, walk_triples
@@ -73,6 +78,7 @@ from torch_random_walk_tpu_torch.parallel.partition_v2 import (
 __version__ = "0.1.0"
 
 __all__ = [
+    "CBOWModel",
     "CSRGraph",
     "EdgeListGraph",
     "Node2Vec",

@@ -6,10 +6,11 @@ tables and Bloom filters, handed over as
 numpy arrays (``numpy.asarray(graph.row_ptr)`` and so on; this module imports
 neither JAX nor the JAX package), become the port's objects with the same
 ``max_degree``, ``search_iters`` and ``deg_bits``, so that walks over a
-converted graph equal walks over the original.  The SGNS tables and optax's
-Adam state cross as float32 numpy arrays (``np.asarray(x.astype(jnp.float32))``
-is exact for bfloat16 tables); the port casts them to its tables' type, which
-is exact on the way back too.
+converted graph equal walks over the original.  The SGNS and CBOW tables, optax's
+Adam state and the touched-rows step's state cross as float32 numpy arrays
+(``np.asarray(x.astype(jnp.float32))`` is exact for bfloat16 tables); the port
+casts them to its tables' or moments' type, which is exact on the way back
+too.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 from torch_random_walk_tpu_torch.graph.csr import CSRGraph
 from torch_random_walk_tpu_torch.graph.edge_list import EdgeListGraph
 from torch_random_walk_tpu_torch.graph.triples import TriplesGraph
+from torch_random_walk_tpu_torch.models.cbow import CBOWModel
 from torch_random_walk_tpu_torch.models.skipgram import SkipGramModel
 from torch_random_walk_tpu_torch.parallel.partition import PartitionedCSR
 from torch_random_walk_tpu_torch.utils.device import resolve_device
@@ -114,19 +116,42 @@ def _table(x, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(x, device=like.device).to(like.dtype)
 
 
-def skipgram_from_numpy(in_emb, out_emb, dtype="float32", learning_rate=None,
-                        device=None) -> SkipGramModel:
-    """(N, D) float32 tables -> a ``SkipGramModel`` in ``dtype`` holding them,
-    with zero optimizer state."""
-    in_emb = np.asarray(in_emb)
-    if in_emb.ndim != 2:
-        raise ValueError(f"in_emb must be (N, D), got {in_emb.shape}")
-    model = SkipGramModel(in_emb.shape[0], in_emb.shape[1], dtype=dtype,
-                          learning_rate=learning_rate, device=device)
+def _load_tables(model, in_emb, out_emb):
     with torch.no_grad():
         model.in_emb.copy_(_table(in_emb, model.in_emb))
         model.out_emb.copy_(_table(out_emb, model.out_emb))
     return model
+
+
+def _shape(in_emb) -> tuple[int, int]:
+    in_emb = np.asarray(in_emb)
+    if in_emb.ndim != 2:
+        raise ValueError(f"in_emb must be (N, D), got {in_emb.shape}")
+    return in_emb.shape
+
+
+def skipgram_from_numpy(in_emb, out_emb, dtype="float32", learning_rate=None,
+                        optimizer=None, device=None) -> SkipGramModel:
+    """(N, D) float32 tables -> a ``SkipGramModel`` in ``dtype`` holding them,
+    with zero optimizer state (``optimizer``: a custom factory, as
+    ``SkipGramModel`` takes it)."""
+    model = SkipGramModel(*_shape(in_emb), optimizer=optimizer, dtype=dtype,
+                          learning_rate=learning_rate, device=device)
+    return _load_tables(model, in_emb, out_emb)
+
+
+def cbow_from_numpy(in_emb, out_emb, optimizer=None,
+                    device=None) -> CBOWModel:
+    """(N, D) float32 tables of a JAX ``CBOWModel`` -> a ``CBOWModel``
+    holding them, with zero optimizer state."""
+    model = CBOWModel(*_shape(in_emb), optimizer=optimizer, device=device)
+    return _load_tables(model, in_emb, out_emb)
+
+
+def cbow_to_numpy(model: CBOWModel) -> dict:
+    """The CBOW tables as float32 numpy arrays, keyed as the JAX params
+    are."""
+    return skipgram_to_numpy(model)
 
 
 def adam_state_from_numpy(model: SkipGramModel, mu: dict, nu: dict,
@@ -150,3 +175,29 @@ def adam_state_to_numpy(model: SkipGramModel):
     mu = {k: v.float().cpu().numpy() for k, v in model.mu.items()}
     nu = {k: v.float().cpu().numpy() for k, v in model.nu.items()}
     return mu, nu, model.count
+
+
+def sparse_state_from_numpy(model: SkipGramModel, state: dict) -> None:
+    """The JAX ``init_sparse_opt_state`` / ``walk_train_step_sparse`` state
+    (``{"mu": {...}, "nu": {...}, "count": c}``, moments as float32 arrays
+    keyed "in_emb"/"out_emb") into ``model``: float32 moments whatever the
+    tables' type."""
+    shape = tuple(model.in_emb.shape)
+    for key in ("mu", "nu"):
+        moments = {}
+        for name in ("in_emb", "out_emb"):
+            x = np.asarray(state[key][name], dtype=np.float32)
+            if x.shape != shape:
+                raise ValueError(f"expected shape {shape}, got {x.shape}")
+            moments[name] = torch.tensor(x, device=model.in_emb.device)
+        setattr(model, key, moments)
+    model.count = int(state["count"])
+    model.sparse_state = True
+
+
+def sparse_state_to_numpy(model: SkipGramModel) -> dict:
+    """``model``'s touched-rows state in the JAX layout: {"mu": {...}, "nu":
+    {...}, "count": c}, the moments as float32 numpy arrays."""
+    return {"mu": {k: v.float().cpu().numpy() for k, v in model.mu.items()},
+            "nu": {k: v.float().cpu().numpy() for k, v in model.nu.items()},
+            "count": model.count}

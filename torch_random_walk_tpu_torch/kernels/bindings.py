@@ -25,7 +25,8 @@ KERNEL_NAMES = ("uniform_walk_csr", "node2vec_walk_csr_mixture",
                 "to_windows_triples", "to_windows_triples_cbow",
                 "routed_uniform_phase", "routed_node2vec_phase",
                 "routed_triples_batch", "routed_edge_list_batch",
-                "routed_edge_list_node2vec_batch")
+                "routed_edge_list_node2vec_batch", "sgns_windows_loss_fwd",
+                "sgns_windows_loss_bwd", "adam_dense", "adam_rows")
 launch_counts = dict.fromkeys(KERNEL_NAMES, 0)
 
 _lib = None
@@ -92,6 +93,16 @@ def library(verbose: bool = False) -> ctypes.CDLL:
         lib.trw_routed_edge_list_batch.argtypes = [_PTR, _I32, _PTR]
         lib.trw_routed_edge_list_node2vec_batch.argtypes = [_PTR, _I32, _PTR]
         lib.trw_routed_batch_geometry.argtypes = [_I32, _I32, _I32, _PTR]
+        lib.trw_sgns_windows_grid.argtypes = [_I64]
+        lib.trw_sgns_windows_loss_fwd.argtypes = [
+            _PTR, _PTR, _PTR, _I64, _I32, _I32, _PTR, _PTR, _I32, _I32, _I32,
+            _I32, _I32, _PTR, _PTR, _PTR]
+        lib.trw_sgns_windows_loss_bwd.argtypes = [
+            _PTR, _PTR, _PTR, _I64, _I32, _I32, _PTR, _PTR, _I32, _I32, _I32,
+            _I32, _I32, _PTR, _PTR, _PTR, _PTR]
+        lib.trw_adam_dense.argtypes = [_I64, _I32] + [_F32] * 8 + [_PTR] * 5
+        lib.trw_adam_rows.argtypes = ([_I64, _I32, _I32, _I32, _I32]
+                                      + [_F32] * 8 + [_PTR] * 7)
         for fn in (lib.trw_routed_uniform_phase, lib.trw_routed_node2vec_phase,
                    lib.trw_routed_start, lib.trw_routed_triples_batch,
                    lib.trw_routed_edge_list_batch,
@@ -105,7 +116,10 @@ def library(verbose: bool = False) -> ctypes.CDLL:
                    lib.trw_node2vec_walk_geometry, lib.trw_to_windows,
                    lib.trw_all_to_all_chunks, lib.trw_empty_kernel,
                    lib.trw_walk_sgns_chunk, lib.trw_walk_sgns_describe,
-                   lib.trw_walk_sgns_loss_fwd, lib.trw_walk_sgns_loss_bwd):
+                   lib.trw_walk_sgns_loss_fwd, lib.trw_walk_sgns_loss_bwd,
+                   lib.trw_sgns_windows_grid, lib.trw_sgns_windows_loss_fwd,
+                   lib.trw_sgns_windows_loss_bwd, lib.trw_adam_dense,
+                   lib.trw_adam_rows):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -701,6 +715,150 @@ def walk_sgns_plan(in_emb, walks, neg_ids, window_size: int) -> dict:
     names = ("fwd", "bwd_rows", "bwd_negatives")
     return {n: dict(zip(SGNS_PLAN_FIELDS, r)) for n, r in zip(names, rows)
             if any(r)}
+
+
+# K16/K17 take a window's rows as one warp: D up to 512, read four elements a
+# lane (8- or 16-byte loads) where D is a multiple of 4 and the tables are
+# 16-byte aligned, else one.
+SGNS_WINDOWS_MAX_DIM = 512
+
+
+def _check_windows(in_emb, out_emb, in_ids, pos, neg, cbow: bool) -> tuple:
+    """The checks K16 and K17 share.  ``in_ids`` (B, CI), ``pos`` and
+    ``neg`` (B, CO) int32: skip-gram CI = 1, CBOW CO = 1.  Returns the C
+    functions' common leading arguments."""
+    if not isinstance(in_emb, torch.Tensor) or in_emb.dtype not in _TABLE_DTYPES:
+        raise ValueError("the tables must be float32 or bfloat16 tensors")
+    dev = in_emb.device
+    _check("in_emb", in_emb, in_emb.dtype, 2)
+    _check("out_emb", out_emb, in_emb.dtype, 2, dev)
+    _check("in_ids", in_ids, torch.int32, 2, dev)
+    _check("pos", pos, torch.int32, 2, dev)
+    _check("neg", neg, torch.int32, 2, dev)
+    if in_emb.shape != out_emb.shape:
+        raise ValueError(f"in_emb {tuple(in_emb.shape)} and out_emb "
+                         f"{tuple(out_emb.shape)} must have one shape")
+    num_nodes, dim = in_emb.shape
+    num_windows, in_cols = in_ids.shape
+    if pos.shape != neg.shape or pos.shape[0] != num_windows:
+        raise ValueError(f"pos {tuple(pos.shape)} and neg {tuple(neg.shape)} "
+                         f"must be ({num_windows}, C)")
+    out_cols = pos.shape[1]
+    if (out_cols if cbow else in_cols) != 1 or min(in_cols, out_cols) < 1:
+        raise ValueError(f"{'CBOW' if cbow else 'skip-gram'} windows take "
+                         f"{'one positive and one negative' if cbow else 'one target'}"
+                         f" a window, got in_ids {tuple(in_ids.shape)} and "
+                         f"pos {tuple(pos.shape)}")
+    if num_windows < 1:
+        raise ValueError("at least one window is required")
+    if not 0 < num_nodes < 2 ** 31 or not 1 <= dim <= SGNS_WINDOWS_MAX_DIM:
+        raise ValueError(f"tables of shape {tuple(in_emb.shape)} are not "
+                         f"supported (dim <= {SGNS_WINDOWS_MAX_DIM})")
+    aligned = all(t.data_ptr() % 16 == 0 for t in (in_emb, out_emb))
+    vec = 4 if dim % 4 == 0 and aligned else 1
+    return (in_ids.data_ptr(), pos.data_ptr(), neg.data_ptr(), num_windows,
+            in_cols, out_cols, in_emb.data_ptr(), out_emb.data_ptr(),
+            num_nodes, dim, in_emb.element_size(), vec, int(cbow))
+
+
+def sgns_windows_loss_fwd(in_emb, out_emb, in_ids, pos, neg,
+                          cbow: bool = False) -> torch.Tensor:
+    """K16.  The per-window SGNS loss (skip-gram, or CBOW with ``cbow``), a
+    float32 scalar on the device; equal inputs give equal bits."""
+    args = _check_windows(in_emb, out_emb, in_ids, pos, neg, cbow)
+    with torch.cuda.device(in_ids.device):
+        grid = library().trw_sgns_windows_grid(args[3])
+    partial = torch.empty((grid,), dtype=torch.float32, device=in_ids.device)
+    loss = torch.empty((), dtype=torch.float32, device=in_ids.device)
+    _launch("sgns_windows_loss_fwd", library().trw_sgns_windows_loss_fwd,
+            _device_index(in_ids.device), *args, partial.data_ptr(),
+            loss.data_ptr())
+    return loss
+
+
+def sgns_windows_loss_bwd(in_emb, out_emb, in_ids, pos, neg,
+                          grad_loss: torch.Tensor, cbow: bool = False):
+    """K17.  The gradient of K16's loss, times the float32 device scalar
+    ``grad_loss``, as two dense (N, D) float32 tables (in_emb's, out_emb's),
+    summed with atomics."""
+    args = _check_windows(in_emb, out_emb, in_ids, pos, neg, cbow)
+    _check("grad_loss", grad_loss, torch.float32, 0, in_ids.device)
+    grad_in = torch.zeros(in_emb.shape, dtype=torch.float32,
+                          device=in_ids.device)
+    grad_out = torch.zeros(in_emb.shape, dtype=torch.float32,
+                           device=in_ids.device)
+    _launch("sgns_windows_loss_bwd", library().trw_sgns_windows_loss_bwd,
+            _device_index(in_ids.device), *args, grad_loss.data_ptr(),
+            grad_in.data_ptr(), grad_out.data_ptr())
+    return grad_in, grad_out
+
+
+def _adam_hyper(lr, b1, b2, eps, bc1, bc2) -> tuple:
+    """The float32 hyperparameters of K18, 1 - b computed in double first as
+    PyTorch and JAX compute a Python scalar."""
+    return (float(lr), float(b1), 1.0 - float(b1), float(b2),
+            1.0 - float(b2), float(eps), float(bc1), float(bc2))
+
+
+def adam_dense(param, mu, nu, grad, lr, b1, b2, eps, bc1, bc2) -> None:
+    """K18, dense entry: one Adam step over every element of ``param``, in
+    place, from the float32 gradient ``grad``; ``mu`` and ``nu`` in the
+    parameter's type, ``bc1``/``bc2`` the bias corrections already cast to
+    it."""
+    if not isinstance(param, torch.Tensor) or param.dtype not in _TABLE_DTYPES:
+        raise ValueError("param must be a float32 or bfloat16 tensor")
+    dev = param.device
+    _check("param", param, param.dtype, param.dim())
+    for name, t in (("mu", mu), ("nu", nu)):
+        _check(name, t, param.dtype, param.dim(), dev)
+    _check("grad", grad, torch.float32, param.dim(), dev)
+    if not mu.shape == nu.shape == grad.shape == param.shape:
+        raise ValueError("param, mu, nu and grad must have one shape")
+    if any(t.data_ptr() % 16 for t in (param, mu, nu, grad)):
+        raise ValueError("adam_dense takes 16-byte aligned tensors")
+    if param.numel() == 0:
+        return
+    _launch("adam_dense", library().trw_adam_dense, _device_index(dev),
+            param.numel(), param.element_size(),
+            *_adam_hyper(lr, b1, b2, eps, bc1, bc2), grad.data_ptr(),
+            param.data_ptr(), mu.data_ptr(), nu.data_ptr())
+
+
+def adam_rows(param, mu, nu, grad, ids, flag, lr, b1, b2, eps, bc1,
+              bc2) -> None:
+    """K18, rows entry: JAX's lazy Adam over M slots, in place.  ``param``
+    (N, D) float32 or bfloat16, ``mu``/``nu`` (N, D) float32, ``grad`` (M, D)
+    float32 slot rows, ``ids`` (M,) int32 (-1 is row N - 1; ids outside
+    [-1, N) write nothing), ``flag`` (M,) uint8 or None (a zero writes
+    nothing); at most one writing slot a row."""
+    if not isinstance(param, torch.Tensor) or param.dtype not in _TABLE_DTYPES:
+        raise ValueError("param must be a float32 or bfloat16 tensor")
+    dev = param.device
+    _check("param", param, param.dtype, 2)
+    _check("mu", mu, torch.float32, 2, dev)
+    _check("nu", nu, torch.float32, 2, dev)
+    _check("grad", grad, torch.float32, 2, dev)
+    _check("ids", ids, torch.int32, 1, dev)
+    if flag is not None:
+        _check("flag", flag, torch.uint8, 1, dev)
+        if flag.shape != ids.shape:
+            raise ValueError("flag and ids must have one shape")
+    num_nodes, dim = param.shape
+    if not mu.shape == nu.shape == param.shape:
+        raise ValueError("param, mu and nu must have one shape")
+    if grad.shape != (ids.shape[0], dim):
+        raise ValueError(f"grad must be ({ids.shape[0]}, {dim}), got "
+                         f"{tuple(grad.shape)}")
+    if ids.shape[0] == 0:
+        return
+    wide = 16 // param.element_size()
+    aligned = all(t.data_ptr() % 16 == 0 for t in (param, mu, nu, grad))
+    vec = wide if dim % wide == 0 and aligned else 1
+    _launch("adam_rows", library().trw_adam_rows, _device_index(dev),
+            ids.shape[0], num_nodes, dim, param.element_size(), vec,
+            *_adam_hyper(lr, b1, b2, eps, bc1, bc2), ids.data_ptr(),
+            None if flag is None else flag.data_ptr(), grad.data_ptr(),
+            param.data_ptr(), mu.data_ptr(), nu.data_ptr())
 
 
 # The routed phase kernels (K11-K15) take up to 256 shards (routed.cuh

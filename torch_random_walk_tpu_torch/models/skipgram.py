@@ -1,22 +1,31 @@
-"""Skip-gram with negative sampling over whole walks (twin of the block path
-of ``torch_random_walk_tpu/models/skipgram.py``).
+"""Skip-gram with negative sampling (twin of
+``torch_random_walk_tpu/models/skipgram.py``).
 
-The loss is the JAX package's ``SkipGramModel.walk_loss_fn``: centers at walk
-positions hw .. L-hw (hw = window_size // 2), contexts at offsets +-1..+-hw,
-and ``num_neg`` negatives per center estimated with S batch-shared uniform
-negatives scaled by num_neg / S.  Logits and the loss are float32 whatever
-the tables' type.  A node id of -1 (the graph entry's mark of a walk that ran
-out of rounds) addresses the last row, as ``table[walks]`` does in JAX.
+Two losses over the same (target, positive-context) pairs:
 
-On a CUDA tensor the loss is the hand-written kernel K5 and its gradient K6
-(``kernels/sgns_loss.cu``); ``walk_loss_plain`` (differentiated by autograd)
-is their plain PyTorch version, used on the CPU and to check the kernels.
+- the blockwise loss over whole walks (``walk_loss``, the JAX
+  ``walk_loss_fn``): centers at walk positions hw .. L-hw (hw =
+  window_size // 2), contexts at offsets +-1..+-hw, and ``num_neg``
+  negatives per center estimated with S batch-shared negatives scaled by
+  num_neg / S.  On a CUDA tensor it is the hand-written kernel K5 and its
+  gradient K6 (``kernels/sgns_loss.cu``); ``walk_loss_plain``
+  (differentiated by autograd) is their plain version.
+- the per-window loss (``loss_fn``, the JAX ``loss_fn``) on the (targets,
+  pos, neg) windows of ``to_windows``.  On a CUDA tensor it is K16 and its
+  gradient K17 (``kernels/sgns_windows.cu``); ``windows_loss_plain`` is their
+  plain version.
+
+Logits and losses are float32 whatever the tables' type.  A node id of -1
+(the graph entry's mark of a walk that ran out of rounds) addresses the last
+row, as ``table[ids]`` does in JAX.
 
 The optimizer is dense Adam with optax's arithmetic (``optax.adam``:
 ``scale_by_adam`` with ``eps_root = 0``, then ``scale(-lr)``): every row gets
-the update every step, also rows with a zero gradient.  The moments ``mu`` and
-``nu`` are kept in the tables' type, as optax keeps them.  Where the port
-rounds, for tables narrower than float32: the gradient is rounded to the
+the update every step, also rows with a zero gradient.  The moments ``mu``
+and ``nu`` are kept in the tables' type, as optax keeps them.  On a CUDA
+tensor the update is the hand-written kernel K18's dense entry
+(``kernels/adam.cu``); ``adam_dense_plain`` is its plain version.  Where the
+port rounds, for tables narrower than float32: the gradient is rounded to the
 tables' type once (JAX's gradient of a bfloat16 table is bfloat16; the
 kernels accumulate it in float32 first), each moment is updated in float32
 from its stored value and rounded once when stored, the step is computed in
@@ -25,11 +34,22 @@ step is added.  optax rounds after every elementwise operation instead, so
 bfloat16 runs agree loosely and float32 runs tightly.  All updates are in
 place.
 
-Not in this slice (``ROADMAP.md`` queue 1 item 5, each raises
-``NotImplementedError``): the window-mode ``loss_fn``/``train_step``, the
-touched-rows step ``walk_train_step_sparse`` with
-``sorted_unique_with_locations`` and ``scatter_rows``, and a custom
-optimizer.
+``optimizer=`` takes a factory, ``params -> torch.optim.Optimizer`` (PyTorch
+has no optax): the dense steps hand it gradients in the tables' type through
+``.grad`` and call ``step()``.
+
+The touched-rows step ``walk_train_step_sparse`` (after
+``init_sparse_opt_state``: float32 moments whatever the tables' type, and a
+global step count) is JAX's lazy Adam: the rows of ``walks ++ neg_ids`` are
+deduplicated once (``sorted_unique_with_locations``), both tables are
+gathered at those rows, the blockwise loss runs on the two sub-tables (K5/K6
+on the card, so its float32 gradient is (M, D), not (N, D)), and only the
+in-table rows that occur as centers and the out-table rows that occur at all
+are updated, with moments and parameters written back through K18's rows
+entry (``adam_rows_plain`` on the CPU).  Every center is a walk position, so
+the in-table's rows are a subset of the out-table's and one dedup serves
+both.  The grouped narrow-row form of ``scatter_rows`` is not ported
+(``ROADMAP.md`` queue 1 item 8): it is a plain row scatter.
 """
 
 from __future__ import annotations
@@ -46,11 +66,10 @@ from torch_random_walk_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-
-def not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md queue 1 item 5 (remaining "
-        "trainers)")
+SPARSE_CUSTOM_OPTIMIZER_ERROR = (
+    "walk_train_step_sparse uses the model's Adam hyperparameters, which "
+    "cannot be read out of a custom optax optimizer; pass learning_rate= "
+    "(and b1/b2/eps if non-default) explicitly to SkipGramModel alongside it")
 
 
 def shared_negative_ids(seed, num: int, num_nodes: int, device=None):
@@ -62,6 +81,49 @@ def shared_negative_ids(seed, num: int, num_nodes: int, device=None):
     ids = torch.arange(num, dtype=torch.int64, device=dev)
     bits, _ = prng.counter_bits(key, ids, torch.zeros_like(ids))
     return prng.randint_from_bits(bits, int(num_nodes)).to(torch.int32)
+
+
+def sorted_unique_with_locations(x_flat, oob: int):
+    """One sort -> (sorted unique ids padded with ``oob`` at the tail, the
+    location of every element in them), equal to the JAX function value for
+    value.  The size stays k = ``x_flat.numel()`` (no count is read back to
+    the host, as ``torch.unique`` would): ``uids`` (k,) of ``x_flat``'s type,
+    ``loc`` (k,) int32, with ``uids[loc] == x_flat``."""
+    x = x_flat.reshape(-1)
+    k = x.shape[0]
+    sx, order = torch.sort(x, stable=True)
+    first = torch.ones(k, dtype=torch.bool, device=x.device)
+    first[1:] = sx[1:] != sx[:-1]
+    upos = torch.cumsum(first, 0, dtype=torch.int64) - 1
+    loc = torch.empty(k, dtype=torch.int32, device=x.device)
+    loc[order] = upos.to(torch.int32)
+    # Duplicate writes land the same value.
+    uids = torch.full((k,), oob, dtype=x.dtype, device=x.device)
+    uids[upos] = sx
+    return uids, loc
+
+
+def scatter_rows(table, ids, rows, group: bool = True):
+    """``table.at[ids].set(rows, mode="drop")`` of the JAX package, in place
+    (returns ``table``): a negative id wraps once, ids outside the table
+    after that are dropped, and of two slots that land on one row the later
+    wins, as JAX's scatter on the CPU gives it.  ``group`` is accepted for
+    the JAX signature; the grouped narrow-row form is not ported (a plain row
+    scatter gives the same table either way)."""
+    n = table.shape[0]
+    ids = ids.reshape(-1).to(torch.int64)
+    wrapped = torch.where(ids < 0, ids + n, ids)
+    valid = (wrapped >= 0) & (wrapped < n)
+    key = torch.where(valid, wrapped, n)
+    order = torch.argsort(key, stable=True)
+    sk = key[order]
+    last = torch.ones_like(valid)
+    last[:-1] = sk[:-1] != sk[1:]
+    keep = torch.zeros_like(valid)
+    keep[order] = last
+    keep &= valid
+    table.index_copy_(0, wrapped[keep], rows[keep].to(table.dtype))
+    return table
 
 
 def blockwise_loss_plain(u, out_rows, v_neg, hw: int, num_neg: int):
@@ -94,14 +156,96 @@ def walk_loss_plain(in_emb, out_emb, walks, neg_ids, window_size: int,
     return blockwise_loss_plain(u, out_rows, v_neg, hw, num_neg)
 
 
+def windows_loss_plain(in_emb, out_emb, in_ids, pos, neg):
+    """Plain version of K16 (and, through autograd, of K17): ``in_ids`` (B,
+    CI), ``pos``/``neg`` (B, CO); h is the mean of a window's CI in rows (the
+    target for skip-gram, CI = 1; the context for CBOW, CO = 1), and the loss
+    the mean over windows of -(sum logsig(h . pos) + sum logsig(-h . neg))."""
+    h = in_emb[in_ids.long()].float().mean(1)                # (B, D)
+    pos_logit = (h[:, None] * out_emb[pos.long()].float()).sum(-1)
+    neg_logit = (h[:, None] * out_emb[neg.long()].float()).sum(-1)
+    loss = -(F.logsigmoid(pos_logit).sum(-1)
+             + F.logsigmoid(-neg_logit).sum(-1))
+    return loss.mean()
+
+
+@torch.no_grad()
+def adam_dense_plain(param, mu, nu, grad, lr, b1, b2, eps, bc1, bc2) -> None:
+    """Plain version of K18's dense entry: one Adam step over every element,
+    in place; ``grad`` float32 (consumed: it serves as scratch), ``mu`` and
+    ``nu`` in the parameter's type, ``bc1``/``bc2`` the bias corrections
+    already cast to it.  See the module docstring for where it rounds."""
+    narrow = param.dtype != torch.float32
+    if narrow:
+        grad.copy_(grad.to(param.dtype))
+    for moment, decay, squared in ((mu, b1, False), (nu, b2, True)):
+        new = moment.float() if narrow else moment
+        new.mul_(decay)
+        if squared:
+            new.addcmul_(grad, grad, value=1.0 - decay)
+        else:
+            new.add_(grad, alpha=1.0 - decay)
+        if narrow:
+            moment.copy_(new)
+    # The gradient is spent; its buffer holds sqrt(nu_hat) + eps.
+    denom = grad.copy_(nu).div_(bc2)
+    denom.sqrt_().add_(eps)
+    step = mu.float() if narrow else mu.clone()
+    step.div_(bc1).div_(denom)
+    param.copy_(step.mul_(-lr).add_(param))
+
+
+@torch.no_grad()
+def adam_rows_plain(param, mu, nu, grad, ids, flag, lr, b1, b2, eps, bc1,
+                    bc2) -> None:
+    """Plain version of K18's rows entry (JAX's lazy Adam), in place: slot m
+    of ``ids`` (M,) writes row ids[m] (-1 is row N - 1, ids outside [-1, N)
+    write nothing) where ``flag`` (M,) is None or nonzero, from its float32
+    gradient row ``grad[m]`` rounded to the tables' type; ``mu``/``nu``
+    float32, ``bc1``/``bc2`` float32.  Each operation rounds on its own."""
+    n = param.shape[0]
+    ids = ids.to(torch.int64)
+    write = (ids >= -1) & (ids < n)
+    if flag is not None:
+        write &= flag.bool()
+    rows = torch.where(ids < 0, ids + n, ids)[write]
+    g = grad[write].to(param.dtype).float()
+    bc1 = torch.tensor(bc1, dtype=torch.float32, device=param.device)
+    bc2 = torch.tensor(bc2, dtype=torch.float32, device=param.device)
+    m = b1 * mu[rows] + (1.0 - b1) * g
+    v = b2 * nu[rows] + (1.0 - b2) * (g * g)
+    upd = lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
+    param[rows] = (param[rows].float() - upd).to(param.dtype)
+    mu[rows] = m
+    nu[rows] = v
+
+
+def sparse_bias_correction(decay: float, count: int) -> float:
+    """``1 - decay ** count`` in float32, as the JAX touched-rows step
+    computes it (equal to JAX's value at every count checked, 1 to 3000)."""
+    return float(np.float32(1) - np.float32(decay) ** np.float32(count))
+
+
+def touched_row_ids(ids, flag, n: int):
+    """The ids the touched-rows update writes through: ``ids`` with a slot
+    of -1 turned into the pad ``n`` where a writing slot (``flag`` None or
+    nonzero) of id n - 1 exists, since both address row N - 1 and the later
+    slot (n - 1 sorts last) wins in JAX's scatter.  No host
+    synchronisation."""
+    last = ids == n - 1
+    if flag is not None:
+        last = last & flag.bool()
+    return torch.where((ids == -1) & last.any(), n, ids)
+
+
 class WalkSGNSLoss(torch.autograd.Function):
-    """The loss of CUDA tables through K5, its gradient through K6 (which
-    recomputes the logits from the saved inputs).
+    """The blockwise loss of CUDA tables through K5, its gradient through K6
+    (which recomputes the logits from the saved inputs).
 
     It serves callers who differentiate ``walk_loss`` themselves, and so it
-    hands autograd gradients of the tables' own type.  The train step does
-    not come this way: ``walk_loss_and_grads`` launches the same two kernels
-    and keeps K6's float32 tables, without a second (N, D) copy of each."""
+    hands autograd gradients of the tables' own type.  The train steps do
+    not come this way: they launch the same two kernels and keep K6's
+    float32 tables, without a second (N, D) copy of each."""
 
     @staticmethod
     def forward(ctx, in_emb, out_emb, walks, neg_ids, window_size, num_neg):
@@ -120,20 +264,82 @@ class WalkSGNSLoss(torch.autograd.Function):
                 None, None, None)
 
 
-class SkipGramModel(nn.Module):
-    """SGNS embedding tables with their dense-Adam state.
+class WindowsSGNSLoss(torch.autograd.Function):
+    """The per-window loss of CUDA tables through K16, its gradient through
+    K17, in the tables' own type (see ``WalkSGNSLoss``)."""
 
-    ``in_emb`` and ``out_emb`` are (num_nodes, dim) parameters in ``dtype``
-    ("float32" or "bfloat16").  ``device=None`` means the card.
-    """
+    @staticmethod
+    def forward(ctx, in_emb, out_emb, in_ids, pos, neg, cbow):
+        ctx.save_for_backward(in_emb, out_emb, in_ids, pos, neg)
+        ctx.cbow = cbow
+        return bindings.sgns_windows_loss_fwd(in_emb, out_emb, in_ids, pos,
+                                              neg, cbow)
+
+    @staticmethod
+    def backward(ctx, grad_loss):
+        in_emb, out_emb, in_ids, pos, neg = ctx.saved_tensors
+        grad_in, grad_out = bindings.sgns_windows_loss_bwd(
+            in_emb, out_emb, in_ids, pos, neg,
+            grad_loss.to(torch.float32).contiguous(), ctx.cbow)
+        return (grad_in.to(in_emb.dtype), grad_out.to(out_emb.dtype), None,
+                None, None, None)
+
+
+def _leaves(*tables):
+    """The tables as leaves of autograd in their own type: the plain versions
+    sum a bfloat16 table's gradient in bfloat16, as JAX's gather transpose
+    does (the kernels sum it in float32 and round it once in K18)."""
+    return [t.detach().requires_grad_(True) for t in tables]
+
+
+def walk_loss_and_grads(in_emb, out_emb, walks, neg_ids, window_size: int,
+                        num_neg: int):
+    """(loss, [float32 gradient of in_emb, of out_emb]) of the blockwise
+    loss, without autograd's graph on the tables: K5 and K6 on CUDA tables
+    (nothing of size (N, D) allocated but K6's two float32 gradients), the
+    plain version through autograd on CPU tables."""
+    if in_emb.is_cuda:
+        with torch.no_grad():
+            loss = bindings.walk_sgns_loss_fwd(in_emb, out_emb, walks,
+                                               neg_ids, window_size, num_neg)
+            grads = bindings.walk_sgns_loss_bwd(
+                in_emb, out_emb, walks, neg_ids, window_size, num_neg,
+                torch.ones_like(loss))
+        return loss, list(grads)
+    tables = _leaves(in_emb, out_emb)
+    loss = walk_loss_plain(*tables, walks, neg_ids, window_size, num_neg)
+    grads = torch.autograd.grad(loss, tables)
+    return loss.detach(), [g.float() for g in grads]
+
+
+def windows_loss_and_grads(in_emb, out_emb, in_ids, pos, neg, cbow: bool):
+    """(loss, [float32 gradients]) of the per-window loss: K16 and K17 on
+    CUDA tables, the plain version through autograd on CPU tables."""
+    if in_emb.is_cuda:
+        with torch.no_grad():
+            loss = bindings.sgns_windows_loss_fwd(in_emb, out_emb, in_ids,
+                                                  pos, neg, cbow)
+            grads = bindings.sgns_windows_loss_bwd(
+                in_emb, out_emb, in_ids, pos, neg, torch.ones_like(loss),
+                cbow)
+        return loss, list(grads)
+    tables = _leaves(in_emb, out_emb)
+    loss = windows_loss_plain(*tables, in_ids, pos, neg)
+    grads = torch.autograd.grad(loss, tables)
+    return loss.detach(), [g.float() for g in grads]
+
+
+class EmbeddingTables(nn.Module):
+    """Two (num_nodes, dim) tables, ``in_emb`` and ``out_emb``, in ``dtype``
+    ("float32" or "bfloat16"), with their optimizer: dense Adam (K18 on the
+    card) or a custom ``optimizer`` factory.  ``device=None`` means the
+    card.  The base of ``SkipGramModel`` and ``CBOWModel``."""
 
     def __init__(self, num_nodes: int, dim: int = 128, optimizer=None,
                  dtype="float32", learning_rate: float | None = None,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  device=None):
         super().__init__()
-        if optimizer is not None:
-            raise not_ported("a custom optimizer")
         if isinstance(dtype, str):
             if dtype not in _DTYPES:
                 raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, "
@@ -141,8 +347,15 @@ class SkipGramModel(nn.Module):
             dtype = _DTYPES[dtype]
         if dtype not in _DTYPES.values():
             raise ValueError(f"dtype {dtype} is not supported")
+        if optimizer is not None and not callable(optimizer):
+            raise TypeError("optimizer must be a factory, params -> "
+                            "torch.optim.Optimizer")
         dev = resolve_device(device)
         self.num_nodes, self.dim, self.dtype = int(num_nodes), int(dim), dtype
+        # A custom optimizer is opaque: the touched-rows step runs only if
+        # learning_rate= came with it (the JAX rule).
+        self._sparse_hparams_ok = optimizer is None or learning_rate is not None
+        self._optimizer_factory = optimizer
         self.learning_rate = 1e-3 if learning_rate is None else learning_rate
         self.b1, self.b2, self.eps = b1, b2, eps
         shape = (self.num_nodes, self.dim)
@@ -152,9 +365,19 @@ class SkipGramModel(nn.Module):
         self.reset_optimizer()
 
     def reset_optimizer(self) -> None:
-        """Zero moments and step count (optax's ``init``)."""
-        self.mu = {n: torch.zeros_like(p) for n, p in self.named_parameters()}
-        self.nu = {n: torch.zeros_like(p) for n, p in self.named_parameters()}
+        """Zero moments and step count (optax's ``init``), or a fresh custom
+        optimizer."""
+        self.optimizer = None
+        self.sparse_state = False
+        if self._optimizer_factory is not None:
+            self.optimizer = self._optimizer_factory([self.in_emb,
+                                                      self.out_emb])
+            self.mu, self.nu = {}, {}
+        else:
+            self.mu = {n: torch.zeros_like(p)
+                       for n, p in self.named_parameters()}
+            self.nu = {n: torch.zeros_like(p)
+                       for n, p in self.named_parameters()}
         self.count = 0
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -171,14 +394,95 @@ class SkipGramModel(nn.Module):
             self.out_emb.zero_()
         self.reset_optimizer()
 
-    def _ids(self, walks, neg_ids):
+    def _as_ids(self, *ids):
         dev = self.in_emb.device
-        return common.as_int32(walks, dev), common.as_int32(neg_ids, dev)
+        return [common.as_int32(x, dev) for x in ids]
+
+    @torch.no_grad()
+    def apply_gradients(self, grads: dict) -> None:
+        """One optimizer step from float32 gradients keyed by table name
+        (consumed): dense Adam, or the custom optimizer fed gradients of the
+        tables' type."""
+        if self.optimizer is None:
+            self.adam_update(grads)
+            return
+        self.count += 1
+        for name, param in self.named_parameters():
+            param.grad = grads[name].to(param.dtype)
+        self.optimizer.step()
+        for param in self.parameters():
+            param.grad = None
+
+    @torch.no_grad()
+    def adam_update(self, grads: dict) -> None:
+        """Dense Adam over both tables from float32 gradients (consumed: they
+        serve as scratch): K18's dense entry on the card, its plain version
+        on the CPU.  See the module docstring for where it rounds."""
+        if self.optimizer is not None:
+            raise ValueError("this model steps a custom optimizer; use "
+                             "apply_gradients")
+        if self.sparse_state:
+            raise ValueError("the model holds the touched-rows state of "
+                             "walk_train_step_sparse; reset_optimizer() first")
+        self.count += 1
+        bc1 = self._bias_correction(self.b1)
+        bc2 = self._bias_correction(self.b2)
+        update = bindings.adam_dense if self.in_emb.is_cuda else adam_dense_plain
+        for name, param in self.named_parameters():
+            update(param.data, self.mu[name], self.nu[name], grads[name],
+                   self.learning_rate, self.b1, self.b2, self.eps, bc1, bc2)
+
+    def _bias_correction(self, decay: float) -> float:
+        """optax's ``1 - decay ** count``, computed in float32 and then cast
+        to the moments' type."""
+        bc = sparse_bias_correction(decay, self.count)
+        return float(torch.tensor(bc).to(self.dtype))
+
+    def _windows_step(self, in_ids, pos, neg, cbow: bool):
+        loss, grads = windows_loss_and_grads(self.in_emb, self.out_emb,
+                                             in_ids, pos, neg, cbow)
+        self.apply_gradients(dict(zip(("in_emb", "out_emb"), grads)))
+        return loss
+
+    def _windows_loss(self, in_ids, pos, neg, cbow: bool):
+        if self.in_emb.is_cuda:
+            return WindowsSGNSLoss.apply(self.in_emb, self.out_emb, in_ids,
+                                         pos, neg, cbow)
+        return windows_loss_plain(self.in_emb, self.out_emb, in_ids, pos, neg)
+
+    def embeddings(self) -> torch.Tensor:
+        return self.in_emb.detach()
+
+
+class SkipGramModel(EmbeddingTables):
+    """SGNS embedding tables with their optimizer state (see
+    ``EmbeddingTables``)."""
+
+    # --- window mode: to_windows batches ----------------------------------------
+
+    def _window_ids(self, targets, pos, neg):
+        targets, pos, neg = self._as_ids(targets, pos, neg)
+        return targets.reshape(-1, 1), pos, neg
+
+    def loss_fn(self, targets, pos, neg):
+        """JAX's ``loss_fn``: -log σ(u·v⁺) - Σ log σ(-u·v⁻) summed over a
+        window's C contexts and averaged over the windows; ``targets`` (B,),
+        ``pos``/``neg`` (B, C) node ids.  Differentiable with respect to the
+        tables."""
+        return self._windows_loss(*self._window_ids(targets, pos, neg), False)
+
+    def train_step(self, targets, pos, neg):
+        """One train step on (targets, pos, neg) windows: the loss and its
+        float32 gradients (K16/K17 on the card), then the optimizer, in
+        place.  Returns the loss before the update."""
+        return self._windows_step(*self._window_ids(targets, pos, neg), False)
+
+    # --- block mode: whole walks -----------------------------------------------
 
     def walk_loss(self, walks, neg_ids, window_size: int, num_neg: int):
         """The blockwise loss of (B, L+1) walks, differentiable with respect
         to the tables."""
-        walks, neg_ids = self._ids(walks, neg_ids)
+        walks, neg_ids = self._as_ids(walks, neg_ids)
         if self.in_emb.is_cuda:
             return WalkSGNSLoss.apply(self.in_emb, self.out_emb, walks,
                                       neg_ids, int(window_size), int(num_neg))
@@ -187,88 +491,92 @@ class SkipGramModel(nn.Module):
 
     def walk_loss_and_grads(self, walks, neg_ids, window_size: int,
                             num_neg: int):
-        """(loss, {name: float32 gradient}) of the two tables.  On the card
-        K5 and K6 are launched directly, so that the loss and its gradient
-        allocate nothing of size (N, D) but the two float32 gradient tables
-        (through autograd they would be cast to the tables' type)."""
-        walks, neg_ids = self._ids(walks, neg_ids)
-        window_size, num_neg = int(window_size), int(num_neg)
-        if self.in_emb.is_cuda:
-            with torch.no_grad():
-                loss = bindings.walk_sgns_loss_fwd(
-                    self.in_emb, self.out_emb, walks, neg_ids, window_size,
-                    num_neg)
-                grads = bindings.walk_sgns_loss_bwd(
-                    self.in_emb, self.out_emb, walks, neg_ids, window_size,
-                    num_neg, torch.ones_like(loss))
-        else:
-            loss = walk_loss_plain(self.in_emb, self.out_emb, walks, neg_ids,
-                                   window_size, num_neg)
-            grads = torch.autograd.grad(loss, [self.in_emb, self.out_emb])
-            loss = loss.detach()
-            grads = [g.float() for g in grads]
+        """(loss, {name: float32 gradient}) of the two tables (see
+        ``walk_loss_and_grads``)."""
+        walks, neg_ids = self._as_ids(walks, neg_ids)
+        loss, grads = walk_loss_and_grads(self.in_emb, self.out_emb, walks,
+                                          neg_ids, int(window_size),
+                                          int(num_neg))
         return loss, dict(zip(("in_emb", "out_emb"), grads))
 
     def walk_train_step(self, walks, neg_ids, window_size: int, num_neg: int):
         """One fused blockwise train step on (B, L+1) walks: loss, gradients,
-        dense Adam, in place.  Returns the loss before the update (float32
+        the optimizer, in place.  Returns the loss before the update (float32
         scalar on the tables' device)."""
         loss, grads = self.walk_loss_and_grads(walks, neg_ids, window_size,
                                                num_neg)
-        self.adam_update(grads)
+        self.apply_gradients(grads)
         return loss
 
+    # --- the touched-rows step ---------------------------------------------------
+
+    def init_sparse_opt_state(self) -> None:
+        """State of ``walk_train_step_sparse``: float32 moments shaped like
+        the tables whatever their type, and the global step count at 0."""
+        self.mu = {n: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device)
+                   for n, p in self.named_parameters()}
+        self.nu = {n: torch.zeros_like(m) for n, m in self.mu.items()}
+        self.count = 0
+        self.sparse_state = True
+
+    def gather_touched_rows(self, walks, neg_ids):
+        """The dedup and gathers of the touched-rows step: (ids (M,) sorted
+        unique rows of ``walks ++ neg_ids`` padded with N, walk locations
+        (B, L+1) and negative locations (S,) into them, in_emb's and
+        out_emb's rows at ``ids`` (a pad reads row N - 1, -1 row N - 1))."""
+        n = self.num_nodes
+        flat = torch.cat([walks.reshape(-1), neg_ids])
+        ids, loc = sorted_unique_with_locations(flat, n)
+        safe = torch.clamp(ids, max=n - 1).long()
+        return (ids, loc[: walks.numel()].view(walks.shape),
+                loc[walks.numel():], self.in_emb.detach()[safe],
+                self.out_emb.detach()[safe])
+
+    def walk_train_step_sparse(self, walks, neg_ids, window_size: int,
+                               num_neg: int, group_scatter: bool = True):
+        """Blockwise train step with JAX's touched-rows (lazy) Adam: rows
+        absent from the batch keep their parameters and moments bitwise.
+        Needs ``init_sparse_opt_state()`` first.  Returns the loss before the
+        update.  ``group_scatter`` is accepted for the JAX signature."""
+        if not self._sparse_hparams_ok:
+            raise ValueError(SPARSE_CUSTOM_OPTIMIZER_ERROR)
+        if not self.sparse_state:
+            raise ValueError("walk_train_step_sparse needs float32 moments: "
+                             "call init_sparse_opt_state() first")
+        walks, neg_ids = self._as_ids(walks, neg_ids)
+        window_size = int(window_size)
+        ids, out_loc, neg_loc, in_sub, out_sub = self.gather_touched_rows(
+            walks, neg_ids)
+        loss, grads = walk_loss_and_grads(in_sub, out_sub, out_loc, neg_loc,
+                                          window_size, int(num_neg))
+        self.update_touched_rows(ids, out_loc, *grads, window_size)
+        return loss
+
+    def touched_row_writes(self, ids, out_loc, window_size: int):
+        """(write ids, flag) of the touched-rows update for in_emb (the
+        slots that occur as centers) and out_emb (every real slot; no
+        flag)."""
+        hw, length1 = int(window_size) // 2, out_loc.shape[1]
+        center = torch.zeros(ids.shape, dtype=torch.uint8, device=ids.device)
+        center[out_loc[:, hw: length1 - hw].reshape(-1).long()] = 1
+        n = self.num_nodes
+        return ((touched_row_ids(ids, center, n), center),
+                (touched_row_ids(ids, None, n), None))
+
     @torch.no_grad()
-    def adam_update(self, grads: dict) -> None:
-        """Dense Adam over both tables from float32 gradients (consumed: they
-        serve as scratch).  See the module docstring for where it rounds."""
+    def update_touched_rows(self, ids, out_loc, grad_in, grad_out,
+                            window_size: int) -> None:
+        """The lazy Adam update of the touched-rows step from the float32
+        gradients of the two gathered sub-tables (K18's rows entry on the
+        card)."""
         self.count += 1
-        for name, param in self.named_parameters():
-            g, mu, nu = grads[name], self.mu[name], self.nu[name]
-            narrow = param.dtype != torch.float32
-            if narrow:
-                g.copy_(g.to(param.dtype))
-            for moment, decay, squared in ((mu, self.b1, False),
-                                           (nu, self.b2, True)):
-                new = moment.float() if narrow else moment
-                new.mul_(decay)
-                if squared:
-                    new.addcmul_(g, g, value=1.0 - decay)
-                else:
-                    new.add_(g, alpha=1.0 - decay)
-                if narrow:
-                    moment.copy_(new)
-            # The gradient is spent; its buffer holds sqrt(nu_hat) + eps.
-            denom = g.copy_(nu).div_(self._bias_correction(self.b2))
-            denom.sqrt_().add_(self.eps)
-            step = mu.float() if narrow else mu.clone()
-            step.div_(self._bias_correction(self.b1)).div_(denom)
-            param.copy_(step.mul_(-self.learning_rate).add_(param))
-
-    def _bias_correction(self, decay: float) -> float:
-        """optax's ``1 - decay ** count``, computed in float32 and then cast
-        to the moments' type."""
-        bc = np.float32(1) - np.float32(decay) ** np.float32(self.count)
-        return float(torch.tensor(float(bc)).to(self.dtype))
-
-    def embeddings(self) -> torch.Tensor:
-        return self.in_emb.detach()
-
-    # --- not in this slice ----------------------------------------------------
-
-    def loss_fn(self, *args, **kwargs):
-        raise not_ported("the window-mode loss_fn")
-
-    def train_step(self, *args, **kwargs):
-        raise not_ported("the window-mode train_step")
-
-    def walk_train_step_sparse(self, *args, **kwargs):
-        raise not_ported("the touched-rows step walk_train_step_sparse")
-
-
-def sorted_unique_with_locations(*args, **kwargs):
-    raise not_ported("sorted_unique_with_locations")
-
-
-def scatter_rows(*args, **kwargs):
-    raise not_ported("scatter_rows")
+        bc1 = sparse_bias_correction(self.b1, self.count)
+        bc2 = sparse_bias_correction(self.b2, self.count)
+        update = bindings.adam_rows if self.in_emb.is_cuda else adam_rows_plain
+        writes = self.touched_row_writes(ids, out_loc, window_size)
+        for name, grad, (rows, flag) in zip(("in_emb", "out_emb"),
+                                            (grad_in, grad_out), writes):
+            update(getattr(self, name).data, self.mu[name], self.nu[name],
+                   grad, rows, flag, self.learning_rate, self.b1, self.b2,
+                   self.eps, bc1, bc2)
