@@ -23,8 +23,10 @@ entry; ``negative_distribution="degree75"``, dense and sparse, with the
 alias tables built on the host; ``CBOWModel.train_step`` on
 ``to_windows_cbow`` of the step's walks through K16/K17's CBOW form and
 K18), each case's steps, parts, losses, launches and peak memory, and
-K16/K17 (both forms), K18 dense and K18 rows against their plain versions
-on the rows the main path gave them; last, the edge-list and
+K16/K17 (both forms, and both in the one call that the window steps make),
+K18 dense and K18 rows against their plain versions on the rows the main
+path gave them, K16/K17's launches each timed by the profiler; last, the
+edge-list and
 KG-triples families derived from the same graph as the JAX package's
 ``bench.py --families all`` derives them (the edge list (heads, col_idx) and
 the triples with 16 pseudo relations; padding N, restart, seed 7):
@@ -62,8 +64,10 @@ table their entries read, padding -1 and N, restart both ways, targets
 outside [0, N), round budgets of 1 and 2, L = 1, 7, 8, 9, 80 and B = 1,
 33, 4 097, W = 1, 2, 5, 11, searches cut short,
 tables of one and two triples, walks of padding alone, CBOW's launch in
-groups), and K16-K18 at D = 1, 7, 128, 512, one window, ids of -1, a tail of
-pad slots and no flagged slot (``train_mode_small_checks``).
+groups), and K16-K18 at D = 1, 7, 128, 130, 512, one window, ids of -1, a
+row that every window hits (K17's block-a-row owner pass), a tail of pad
+slots and no flagged slot (``train_mode_small_checks``; K16/K17 also
+through the fused entry, whose loss must be K16's bits).
 
 With ``--compare NAME=DIR`` (another checkout of the repo, e.g. the parent
 commit's ``git archive`` unpacked under the ignored ``build/``; repeatable),
@@ -77,8 +81,12 @@ uniform and node2vec serial legs of each checkout the same way, with the
 device time of their phase calls; then a ``routed_family_comparison``
 line, K13's, K14's and K15's bench legs (triples, uniform with restart,
 p=0.5 q=2 with Bloom filters; both schedules) of each checkout the same
-way, and each leg's device time a phase and idle share by the profiler.
-Without arguments it needs one card and nothing else.
+way, and each leg's device time a phase and idle share by the profiler;
+last a ``train_window_comparison`` line, K16 and K17 (and the fused entry
+where a checkout has it) on the bench train step's windows, skip-gram on
+bfloat16 and CBOW on float32 tables, and each checkout's windows-mode and
+CBOW ``train_step`` from the same tables on the same windows, the same
+way.  Without arguments it needs one card and nothing else.
 
 Every kernel is held against its plain version on all the rows the main path
 gives it.  The routed legs (``phase_routed``) hold K11 and K12 against the
@@ -252,6 +260,11 @@ KERNEL_FACTS = {
         " and models/cbow.py:37, CBOWModel.loss_fn; XLA program, no Pallas "
         "counterpart)"),
     "sgns_windows_loss_bwd": (
+        "torch_random_walk_tpu_torch/kernels/sgns_windows.cu",
+        "torch_random_walk_tpu/models/skipgram.py:173 (the gradient of "
+        "loss_fn, taken by value_and_grad in train_step; and "
+        "models/cbow.py:47; XLA program, no Pallas counterpart)"),
+    "sgns_windows_loss_and_grads": (
         "torch_random_walk_tpu_torch/kernels/sgns_windows.cu",
         "torch_random_walk_tpu/models/skipgram.py:173 (value_and_grad of "
         "loss_fn in train_step; and models/cbow.py:47; XLA program, no "
@@ -665,7 +678,28 @@ SGNS_FUNCTIONS = {
     "walk_sgns_loss_fwd_kernelIf": "K5 float32",
     "walk_sgns_loss_bwd_kernelIfLi4E": "K6 float32 (D <= 128)",
     "walk_sgns_loss_bwd_kernelIfLi16E": "K6 float32 (D <= 512)",
+    # K16/K17 at the trainer's shapes (D <= 128): the per-window pass by
+    # table type, form and gradient flag (K17's also places each out slot),
+    # the owner passes by source, the out slots' histogram.
+    "windows_pass_kernelI13__nv_bfloat16Li8ELi1ELb0ELb0E":
+        "K16 bfloat16 skip-gram",
+    "windows_pass_kernelI13__nv_bfloat16Li8ELi1ELb0ELb1E":
+        "K17 per-window pass, bfloat16 skip-gram",
+    "windows_pass_kernelIfLi4ELi1ELb1ELb0E": "K16 float32 CBOW",
+    "windows_pass_kernelIfLi4ELi1ELb1ELb1E":
+        "K17 per-window pass, float32 CBOW",
+    "windows_owner_kernelI13__nv_bfloat16Li8ELi1EE":
+        "K17 out-row owner, bfloat16 skip-gram",
+    "windows_owner_heavy_kernelI13__nv_bfloat16Li8ELi1EE":
+        "K17 heavy out-row owner, bfloat16 skip-gram",
+    "windows_owner_kernelIfLi4ELi1EE":
+        "K17 out-row owner of float32 rows (CBOW's h, skip-gram's tables)",
+    "windows_owner_heavy_kernelIfLi4ELi1EE":
+        "K17 heavy out-row owner of float32 rows",
+    "windows_hist_kernel": "K17 out-slot histogram",
 }
+# K17's owner passes, which must hold no atomic instruction.
+OWNER_FUNCTIONS = tuple(k for k in SGNS_FUNCTIONS if "owner" in k)
 TENSOR_CORE_FUNCTIONS = ("trw_sgns_loss_fwd_bf16",
                          "trw_sgns_loss_bwd_rows_bf16",
                          "trw_sgns_loss_bwd_neg_bf16")
@@ -732,7 +766,9 @@ BATCH_FUNCTIONS = tuple(k for k in ROUTED_FUNCTIONS if "batch_kernel" in k)
 # K16/K17 (by table type, load width and form) and K18 (dense by table
 # type, rows by type and width): every instantiation, by its mangled name.
 TRAIN_MODE_FUNCTIONS = {
-    "windows_loss_fwd_kernel": "K16", "windows_loss_bwd_kernel": "K17",
+    "windows_pass_kernel": "K16 (and K17's per-window pass)",
+    "windows_owner_kernel": "K17 owner", "windows_owner_heavy_kernel":
+    "K17 heavy-row owner", "windows_hist_kernel": "K17 histogram",
     "adam_dense_kernel": "K18 dense", "adam_rows_kernel": "K18 rows"}
 
 
@@ -929,6 +965,10 @@ def phase_build() -> None:
                 f"{SGNS_FUNCTIONS[key]}: no HMMA/HGMMA instruction in its SASS")
     require(all(ptxas.get(k, {}).get("registers") for k in SGNS_FUNCTIONS),
             f"ptxas reported no registers for a loss kernel: {ptxas}")
+    for key in OWNER_FUNCTIONS:
+        require(key in sass and not sass[key]["atomics"],
+                f"{SGNS_FUNCTIONS[key]}: atomics in its SASS: "
+                f"{sass.get(key)}")
     require(all(walk_ptxas.get(k, {}).get("registers")
                 for k in WALK_FUNCTIONS),
             f"ptxas reported no registers for a walk kernel: {walk_ptxas}")
@@ -2029,28 +2069,50 @@ def plain_windows_loss_and_grads(in_emb, out_emb, in_ids, pos, neg):
 
 
 def windows_errors(in_emb, out_emb, in_ids, pos, neg, cbow: bool) -> dict:
-    """K16 and K17 against the plain version on the same inputs; K16 run
-    twice must give the same bits."""
+    """K16, K17 and the fused entry (both in one call) against the plain
+    version on the same inputs; K16 run twice must give the same bits, and
+    the fused loss K16's bits.  ``grad_*`` the worse of K17's and the fused
+    entry's gradient errors, ``k17_grad_abs_err`` and
+    ``fused_grad_abs_err`` each one's."""
     loss = bindings.sgns_windows_loss_fwd(in_emb, out_emb, in_ids, pos, neg,
                                           cbow)
     again = bindings.sgns_windows_loss_fwd(in_emb, out_emb, in_ids, pos, neg,
                                            cbow)
     grads = bindings.sgns_windows_loss_bwd(in_emb, out_emb, in_ids, pos, neg,
                                            torch.ones_like(loss), cbow)
+    fused_loss, *fused = bindings.sgns_windows_loss_and_grads(
+        in_emb, out_emb, in_ids, pos, neg, cbow)
     (want, want_grads), plain_ms = wall_ms(lambda: plain_windows_loss_and_grads(
         in_emb, out_emb, in_ids, pos, neg))
     require(bool(torch.isfinite(loss)) and bool(torch.isfinite(want)),
             "window loss is not finite")
     require(torch.equal(loss, again), "K16 is not repeatable")
+    require(torch.equal(fused_loss, loss),
+            f"the fused loss {float(fused_loss)!r} is not K16's "
+            f"{float(loss)!r} bit for bit")
     loss_abs = abs(float(loss) - float(want))
-    grad_abs = [float((g - w).abs().max()) for g, w in zip(grads, want_grads)]
+    grad_abs = [float((g - w).abs().max()) for got in (grads, fused)
+                for g, w in zip(got, want_grads)]
     grad_rel = [a / max(float(w.abs().max()), 1e-30)
-                for a, w in zip(grad_abs, want_grads)]
+                for a, w in zip(grad_abs, want_grads * 2)]
+    del grads, fused
     return {"loss": float(loss), "plain_loss": float(want),
+            "fused_loss_equals_k16": True,
             "loss_abs_err": loss_abs,
             "loss_rel_err": loss_abs / max(abs(float(want)), 1e-30),
             "grad_abs_err": max(grad_abs), "grad_rel_err": max(grad_rel),
+            "k17_grad_abs_err": max(grad_abs[:2]),
+            "fused_grad_abs_err": max(grad_abs[2:]),
             "plain_ms": plain_ms}
+
+
+def launch_ms(fn, calls: int = 3) -> dict:
+    """Device ms a launch of each kernel that ``fn`` launches, by kernel
+    name: ``calls`` warm calls under the profiler, each kernel's device time
+    over its launches (the profiler may drop the first kernel of a
+    capture)."""
+    _, _, kernels = profile_device(lambda: [fn() for _ in range(calls)])
+    return {name: ms / count for name, (count, ms) in kernels.items()}
 
 
 def adam_hyper(model, sparse: bool) -> tuple:
@@ -2104,24 +2166,29 @@ def worst_adam(errs: dict) -> tuple[int, float]:
 
 
 def train_mode_small_checks(device) -> dict:
-    """K16/K17 in both forms and both table types, and both K18 entries, at
-    the edges: D = 1, 7, 128, 512; one window; ids of -1 in every kind of
-    row; a slot tail of pads; no flagged slot."""
+    """K16/K17 (and the fused entry) in both forms and both table types, and
+    both K18 entries, at the edges: D = 1, 7, 128, 130, 512; one window; ids
+    of -1 in every kind of row; a row that every window hits (more slots
+    than a group of lanes takes); a slot tail of pads; no flagged slot."""
     gen = torch.Generator(device=device)
     gen.manual_seed(11)
     worst = {"windows_loss_rel_err": 0.0, "windows_grad_rel_err": 0.0,
              "adam_dense_max_ulps": 0, "adam_rows_max_ulps": 0}
     n = 700
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (1, 7, 128, 512):
+        for d in (1, 7, 128, 130, 512):
             in_emb, out_emb = random_tables(n, d, dtype, device, seed=d)
-            for b, c in ((1, 4), (1000, 4), (333, 1)):
+            for b, c, hot in ((1, 4, False), (1000, 4, False),
+                              (333, 1, False), (1000, 4, True)):
                 for cbow in (False, True):
                     def ids(*shape):
                         return torch.randint(-1, n, shape, device=device,
                                              generator=gen, dtype=torch.int32)
                     args = ((ids(b, c), ids(b, 1), ids(b, 1)) if cbow
                             else (ids(b, 1), ids(b, c), ids(b, c)))
+                    if hot:  # every window's first positive and context id
+                        args[1][:, 0] = 5
+                        args[0][:, 0] = 5
                     err = windows_errors(in_emb, out_emb, *args, cbow)
                     worst["windows_loss_rel_err"] = max(
                         worst["windows_loss_rel_err"], err["loss_rel_err"])
@@ -2169,10 +2236,11 @@ def train_mode_small_checks(device) -> dict:
 def sgns_windows_bound(dtype, backward: bool, in_ids, pos, neg, num_nodes):
     """K16/K17 on these windows.  Bytes, each row counted once however many
     windows share it: the distinct in rows and out rows at the table width,
-    the ids, and for K17 the float32 gradient of each of those rows (the
-    rows of the dense gradient tables that stay zero are not counted).
-    Operations: 2 D (CI + 2 CO) a window forward, twice that more backward,
-    against the tensor-core peak of the table type."""
+    the ids, and for K17 (and the fused call, whose loss comes from the
+    same reads) the two dense (N, D) float32 gradient tables written once,
+    as the timed call writes them.  Operations: 2 D (CI + 2 CO) a window
+    forward, twice that more backward, against the tensor-core peak of the
+    table type."""
     b = in_ids.shape[0]
     wrap = lambda t: torch.where(t < 0, t + num_nodes, t)
     in_rows = torch.unique(wrap(in_ids)).numel()
@@ -2184,7 +2252,7 @@ def sgns_windows_bound(dtype, backward: bool, in_ids, pos, neg, num_nodes):
     moved = (in_rows + out_rows) * d * elem + 4 * b * rows_per_window + 4
     flops = 2 * b * d * rows_per_window
     if backward:
-        moved += (in_rows + out_rows) * d * 4
+        moved += 2 * num_nodes * d * 4
         flops *= 3
     return bound(moved, flops, TENSOR_FLOPS_PER_S[dtype])
 
@@ -2251,21 +2319,21 @@ TRAIN_MODE_CASES = {
 # Launches a step each case must show (the rest of TRAIN_MODE_KERNELS: 0).
 TRAIN_MODE_LAUNCHES = {
     "windows": {"uniform_walk_csr": 1, "to_windows": 1,
-                "sgns_windows_loss_fwd": 1, "sgns_windows_loss_bwd": 1,
-                "adam_dense": 2},
+                "sgns_windows_loss_and_grads": 1, "adam_dense": 2},
     "sparse": {"uniform_walk_csr": 1, "walk_sgns_loss_fwd": 1,
                "walk_sgns_loss_bwd": 1, "adam_rows": 2},
     "degree75": {"uniform_walk_csr": 1, "walk_sgns_loss_fwd": 1,
                  "walk_sgns_loss_bwd": 1, "adam_dense": 2},
     "degree75_sparse": {"uniform_walk_csr": 1, "walk_sgns_loss_fwd": 1,
                         "walk_sgns_loss_bwd": 1, "adam_rows": 2},
-    "cbow": {"uniform_walk_csr": 1, "sgns_windows_loss_fwd": 1,
-             "sgns_windows_loss_bwd": 1, "adam_dense": 2},
+    "cbow": {"uniform_walk_csr": 1, "sgns_windows_loss_and_grads": 1,
+             "adam_dense": 2},
 }
 TRAIN_MODE_KERNELS = ("uniform_walk_csr", "node2vec_walk_csr_mixture",
                       "to_windows", "walk_sgns_loss_fwd",
                       "walk_sgns_loss_bwd", "sgns_windows_loss_fwd",
-                      "sgns_windows_loss_bwd", "adam_dense", "adam_rows")
+                      "sgns_windows_loss_bwd", "sgns_windows_loss_and_grads",
+                      "adam_dense", "adam_rows")
 
 
 def phase_train_modes(graph) -> tuple[list[dict], dict]:
@@ -2274,8 +2342,10 @@ def phase_train_modes(graph) -> tuple[list[dict], dict]:
     ``CBOWModel.train_step`` on ``to_windows_cbow`` of the step's walks):
     per case one warm step and TRAIN_STEPS chained steps with CUDA events
     around each (windows mode also one step at p=0.5 q=2 on the same
-    tables), the launch counts set to 0 just before each case and read just
-    after, the losses (finite and falling), peak memory, and the step's
+    tables; windows mode and CBOW then the autograd entry, ``loss_fn`` of
+    the next step's windows and ``backward``, which runs K16 and K17 on
+    their own where the steps run them in one call), the launch counts set
+    to 0 just before each case and read just after, the losses (finite and falling), peak memory, and the step's
     parts timed alone on the step's own inputs.  Then K16/K17 (both forms),
     K18 dense and K18 rows against their plain versions on the full rows
     the main path gave them, and the kernels' rows."""
@@ -2284,7 +2354,8 @@ def phase_train_modes(graph) -> tuple[list[dict], dict]:
     window = TRAIN_CONFIG["window_size"]
     steps = 1 + TRAIN_STEPS
     totals = dict.fromkeys(("sgns_windows_loss_fwd", "sgns_windows_loss_bwd",
-                            "adam_dense", "adam_rows"), 0)
+                            "sgns_windows_loss_and_grads", "adam_dense",
+                            "adam_rows"), 0)
     cases, checks, times = {}, {}, {}
     for case, kw in TRAIN_MODE_CASES.items():
         torch.cuda.synchronize()
@@ -2327,12 +2398,34 @@ def phase_train_modes(graph) -> tuple[list[dict], dict]:
                         for k in TRAIN_MODE_KERNELS}
             taken += 1
             del biased
+        if case in ("windows", "cbow"):  # the autograd entry
+            walks = n2v.walks(targets, steps)
+            win = (tt.to_windows_cbow(walks, window, NUM_NODES,
+                                      n2v.step_seed(steps))
+                   if kw is None else n2v.windows(walks, steps))
+            loss = model.loss_fn(*win)
+            loss.backward()
+            require(bool(torch.isfinite(loss)) and all(
+                p.grad is not None and bool(torch.isfinite(p.grad).all())
+                for p in model.parameters()),
+                f"{case}: the autograd entry's loss or gradients are not "
+                "finite")
+            extra["autograd_loss"] = float(loss)
+            model.zero_grad(set_to_none=True)
+            launches = {k: bindings.launch_counts[k]
+                        for k in TRAIN_MODE_KERNELS}
+            del walks, win, loss
         torch.cuda.synchronize()
         case_peak = torch.cuda.max_memory_allocated() / 2**30
         want = {k: v * taken for k, v in TRAIN_MODE_LAUNCHES[case].items()}
         if case == "windows":  # the biased step walks through K2, not K1
             want["uniform_walk_csr"] -= 1
             want["node2vec_walk_csr_mixture"] = 1
+        if case in ("windows", "cbow"):  # the autograd entry's walk, windows
+            want["uniform_walk_csr"] += 1  # and K16 and K17 on their own
+            want["to_windows"] = want.get("to_windows", 0) + (
+                case == "windows")
+            want["sgns_windows_loss_fwd"] = want["sgns_windows_loss_bwd"] = 1
         require(launches == {k: want.get(k, 0) for k in TRAIN_MODE_KERNELS},
                 f"{case}: the steps did not go through their kernels: "
                 f"{launches}, wanted {want}")
@@ -2365,18 +2458,28 @@ def phase_train_modes(graph) -> tuple[list[dict], dict]:
                 lambda: bindings.sgns_windows_loss_fwd(
                     model.in_emb, model.out_emb, *ids, cbow), iters=3)
             one = torch.ones_like(loss)
-            parts["loss_bwd_ms"] = time_ms(
-                lambda: bindings.sgns_windows_loss_bwd(
-                    model.in_emb, model.out_emb, *ids, one, cbow), iters=3)
-            grads = bindings.sgns_windows_loss_bwd(model.in_emb, model.out_emb,
-                                                   *ids, one, cbow)
+            calls = {
+                "fwd": lambda: bindings.sgns_windows_loss_fwd(
+                    model.in_emb, model.out_emb, *ids, cbow),
+                "bwd": lambda: bindings.sgns_windows_loss_bwd(
+                    model.in_emb, model.out_emb, *ids, one, cbow),
+                "fused": lambda: bindings.sgns_windows_loss_and_grads(
+                    model.in_emb, model.out_emb, *ids, cbow)}
+            parts["loss_bwd_ms"] = time_ms(calls["bwd"], iters=3)
+            parts["loss_and_grads_ms"] = time_ms(calls["fused"], iters=3)
+            grads = calls["bwd"]()
             checks[case] = windows_errors(model.in_emb, model.out_emb, *ids,
                                           cbow)
+            grad_bound = sgns_windows_bound(model.dtype, True, *ids,
+                                            NUM_NODES)
             times[case] = {"fwd": (parts["loss_fwd_ms"], sgns_windows_bound(
                 model.dtype, False, *ids, NUM_NODES)),
-                "bwd": (parts["loss_bwd_ms"], sgns_windows_bound(
-                    model.dtype, True, *ids, NUM_NODES))}
-            del win, loss
+                "bwd": (parts["loss_bwd_ms"], grad_bound),
+                "fused": (parts["loss_and_grads_ms"], grad_bound),
+                # device ms a launch of each kernel of a warm call, by name
+                "sub_launch_ms": {k: launch_ms(fn) for k, fn in
+                                  calls.items()}}
+            del win, loss, calls
         else:
             neg_ids = n2v.negatives(i)
             parts["negatives_ms"] = time_ms(lambda: n2v.negatives(i), iters=3)
@@ -2465,22 +2568,31 @@ def phase_train_modes(graph) -> tuple[list[dict], dict]:
                     f"{key} != plain at the main path's shape ({name}): "
                     f"{checks[key][name]}")
 
+    # K16 and K17 on their own (the autograd entry), and the two in one call
+    # (the train steps' entry, its bound K17's), skip-gram on bfloat16 and
+    # CBOW on float32 tables.
     rows = []
-    for name, case, part in (("sgns_windows_loss_fwd", "windows", "fwd"),
-                             ("sgns_windows_loss_bwd", "windows", "bwd")):
-        ms, bound_pair = times[case][part]
-        err_key = "loss_abs_err" if part == "fwd" else "grad_abs_err"
+    for name, part, err_keys in (
+            ("sgns_windows_loss_fwd", "fwd", ("loss_abs_err",)),
+            ("sgns_windows_loss_bwd", "bwd", ("k17_grad_abs_err",)),
+            ("sgns_windows_loss_and_grads", "fused",
+             ("loss_abs_err", "fused_grad_abs_err"))):
+        ms, bound_pair = times["windows"][part]
         source, replaces = KERNEL_FACTS[name]
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": totals[name],
-            "max_abs_err": max(checks[c][err_key] for c in ("windows",
-                                                           "cbow")),
-            "ms": ms, "plain_ms": checks[case]["plain_ms"],
+            "max_abs_err": max(checks[c][k] for c in ("windows", "cbow")
+                               for k in err_keys),
+            "ms": ms, "plain_ms": checks["windows"]["plain_ms"],
             "bound_ms": bound_pair[0], "bound_by": bound_pair[1],
             "library_ms": None,
             "cbow_ms": times["cbow"][part][0],
-            "cbow_bound_ms": times["cbow"][part][1][0]})
+            "cbow_bound_ms": times["cbow"][part][1][0],
+            "cbow_plain_ms": checks["cbow"]["plain_ms"],
+            # device ms a launch of each kernel of a warm call, by name
+            "sub_launch_ms": {c: times[c]["sub_launch_ms"][part]
+                              for c in ("windows", "cbow")}})
     ms, bound_pair, lib_ms, lib_what = times["adam_dense"]
     source, replaces = KERNEL_FACTS["adam_dense"]
     rows.append({
@@ -3608,7 +3720,119 @@ def phase_compare_kernels(graph, checkouts: dict) -> dict:
     del builds, walks, bench_tg, families, args
     compare_routed(graph, targets[:ROUTED_WALKERS], pkgs)
     compare_routed_families(graph, targets[:ROUTED_WALKERS], pkgs)
+    compare_train_windows(graph, pkgs)
     return times
+
+
+def compare_train_windows(graph, pkgs: dict) -> None:
+    """K16 and K17 (skip-gram on bfloat16 tables, CBOW on float32 tables, at
+    TRAIN_CONFIG) and the windows-mode and CBOW train steps of each package
+    of ``pkgs`` (this tree's first), in this one process, the packages in
+    turns A B ... B A.  The windows are this tree's, of the bench train
+    step's walks (``to_windows`` and ``to_windows_cbow``, one set a step).
+    Kernels: each package's own bindings on the same tables and windows
+    (K16, K17 with a unit gradient, and the fused entry where the package
+    has it), CUDA events, median of 5.  Steps: each package's
+    ``SkipGramModel`` (bfloat16) and ``CBOWModel`` from the same seeded
+    tables, ``train_step`` on the same windows, one warm and TRAIN_STEPS
+    chained steps with CUDA events around each.  Every package's loss must
+    equal this tree's within LOSS_REL_LIMIT and its gradients within
+    GRAD_REL_LIMIT of the largest entry.  The ``train_window_comparison``
+    line."""
+    dev = graph.device
+    targets = torch.arange(TRAIN_WALKERS, dtype=torch.int32, device=dev)
+    n2v = tt.Node2Vec(graph, tt.Node2VecConfig(**TRAIN_CONFIG,
+                                               train_mode="windows"))
+    steps = 1 + TRAIN_STEPS
+    sg_windows, cbow_windows = [], []
+    for i in range(steps):
+        walks = n2v.walks(targets, i)
+        sg_windows.append(n2v.windows(walks, i))
+        cbow_windows.append(tt.to_windows_cbow(
+            walks, TRAIN_CONFIG["window_size"], NUM_NODES, n2v.step_seed(i)))
+    del n2v, walks
+    forms = {"skip_gram": (False, torch.bfloat16, sg_windows[0]),
+             "cbow": (True, torch.float32, cbow_windows[0])}
+    kernel_calls, want = {name: {} for name in pkgs}, {}
+    for form, (cbow, dtype, win) in forms.items():
+        tabs = random_tables(NUM_NODES, TRAIN_CONFIG["dim"], dtype, dev,
+                             seed=3)
+        ids = ((win[2], win[0].reshape(-1, 1), win[1].reshape(-1, 1)) if cbow
+               else (win[0].reshape(-1, 1), win[1], win[2]))
+        ids = tuple(x.to(torch.int32).contiguous() for x in ids)
+        one = torch.ones((), dtype=torch.float32, device=dev)
+        for name, pkg in pkgs.items():
+            b = pkg.kernels.bindings
+            calls = {"fwd": lambda b=b, tabs=tabs, ids=ids, cbow=cbow:
+                     b.sgns_windows_loss_fwd(*tabs, *ids, cbow),
+                     "bwd": lambda b=b, tabs=tabs, ids=ids, cbow=cbow:
+                     b.sgns_windows_loss_bwd(*tabs, *ids, one, cbow)}
+            if hasattr(b, "sgns_windows_loss_and_grads"):
+                calls["fused"] = (lambda b=b, tabs=tabs, ids=ids, cbow=cbow:
+                                  b.sgns_windows_loss_and_grads(*tabs, *ids,
+                                                                cbow))
+            kernel_calls[name].update({f"{form}/{k}": fn
+                                       for k, fn in calls.items()})
+        want[form] = (bindings.sgns_windows_loss_fwd(*tabs, *ids, cbow),
+                      plain_windows_loss_and_grads(*tabs, *ids)[1])
+        del tabs
+    errs = {}
+    for name, calls in kernel_calls.items():
+        for key, fn in calls.items():
+            form, part = key.split("/")
+            out = fn()
+            if part == "fwd":
+                e = abs(float(out) - float(want[form][0])) / abs(
+                    float(want[form][0]))
+                ok = e <= LOSS_REL_LIMIT
+            else:
+                grads = out if part == "bwd" else out[1:]
+                e = max(float((g - w).abs().max() / w.abs().max())
+                        for g, w in zip(grads, want[form][1]))
+                ok = e <= GRAD_REL_LIMIT
+            errs.setdefault(name, {})[key] = e
+            require(ok, f"{name} {key} differs from the plain version: {e}")
+            del out
+    del want
+    order = list(pkgs) + list(reversed(pkgs))
+    times = {name: {} for name in pkgs}
+    for name in order:
+        for key, fn in kernel_calls[name].items():
+            times[name].setdefault(key, []).append(time_ms(fn))
+    del kernel_calls
+    step_ms, losses = {name: {} for name in pkgs}, {name: {} for name in pkgs}
+    for name in order:
+        pkg = pkgs[name]
+        for form in forms:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+            if form == "cbow":
+                model = pkg.CBOWModel(NUM_NODES, TRAIN_CONFIG["dim"])
+                sets = cbow_windows
+            else:
+                model = pkg.SkipGramModel(NUM_NODES, TRAIN_CONFIG["dim"],
+                                          dtype=TRAIN_CONFIG["dtype"])
+                sets = sg_windows
+            model.reset_parameters(gen)
+            got, ms = step_events(lambda i: model.train_step(*sets[i]),
+                                  steps)
+            step_ms[name].setdefault(form, []).append(ms)
+            losses[name][form] = got
+            del model
+            torch.cuda.empty_cache()
+    first = {form: losses[next(iter(pkgs))][form][0] for form in forms}
+    for name in pkgs:
+        for form in forms:
+            e = abs(losses[name][form][0] - first[form]) / abs(first[form])
+            errs[name][f"{form}/first_step_loss"] = e
+            require(e <= LOSS_REL_LIMIT, f"{name} {form}: first step loss "
+                    f"{losses[name][form][0]} against {first[form]}")
+    emit("train_window_comparison", kernel_ms=times, step_ms=step_ms,
+         losses=losses, rel_err=errs, order=order,
+         timing="kernels: CUDA events, median of 5 (1 warm-up), each "
+                "package's call in turns A B ... B A; steps: CUDA events "
+                f"around one warm and {TRAIN_STEPS} chained train_step "
+                "calls a turn, windows precomputed")
 
 
 def compare_routed(graph, targets, pkgs: dict) -> None:
@@ -3748,9 +3972,10 @@ def parse_args(argv):
         "--compare", metavar="NAME=DIR", action="append", default=[],
         help="another checkout of the repo (e.g. the parent commit's "
              "git archive under build/): time its K7-K10 entry points, "
-             "routed CSR legs and K13-K15 legs beside this tree's in one "
-             "process (kernel_comparison, routed_comparison and "
-             "routed_family_comparison lines)")
+             "routed CSR legs, K13-K15 legs, K16/K17 and window train "
+             "steps beside this tree's in one process (kernel_comparison, "
+             "routed_comparison, routed_family_comparison and "
+             "train_window_comparison lines)")
     args = parser.parse_args(argv)
     args.compare = dict(v.split("=", 1) for v in args.compare)
     return args
@@ -3798,7 +4023,8 @@ def main(argv=None) -> int:
         "node2vec_walk_csr_rejection", "to_windows", "all_to_all_chunks",
         "routed_uniform_phase", "routed_node2vec_phase",
         "walk_sgns_loss_fwd", "walk_sgns_loss_bwd", "sgns_windows_loss_fwd",
-        "sgns_windows_loss_bwd", "adam_dense", "adam_rows"],
+        "sgns_windows_loss_bwd", "sgns_windows_loss_and_grads", "adam_dense",
+        "adam_rows"],
         "a kernel row is missing")
     require(all(r["launches"] > 0 for r in rows),
             "a kernel was never launched on the main path")

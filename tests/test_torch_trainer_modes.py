@@ -723,14 +723,20 @@ def _card_tables(n, d, dtype, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cbow", [False, True], ids=["skip-gram", "cbow"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d,b,c", [(1, 33, 4), (7, 100, 4), (128, 1, 4),
-                                   (128, 5000, 4), (512, 300, 2),
-                                   (130, 64, 1)])
-def test_window_kernels_match_the_plain_version(d, b, c, dtype, cbow):
+@pytest.mark.parametrize("d,b,c,hot", [
+    (1, 33, 4, False), (7, 100, 4, False), (7, 300, 4, True),
+    (128, 1, 4, False), (128, 5000, 4, False), (128, 5000, 4, True),
+    (512, 300, 2, False), (512, 300, 2, True), (130, 64, 1, False),
+    (130, 700, 1, True)])
+def test_window_kernels_match_the_plain_version(d, b, c, hot, dtype, cbow):
     """K16 against the plain loss within 1e-5 and bit for bit when run
-    again; K17 within K6's limit, 1e-4 of the largest entry of each table
-    (its atomics add in an order that changes from run to run); ids of -1
-    among every kind of row."""
+    again; K17, and the fused entry ``sgns_windows_loss_and_grads``, within
+    K6's limit, 1e-4 of the largest entry of each table (a row's slots are
+    summed in the order the scatter's atomics place them); the fused loss
+    equal to K16's bit for bit; ids of -1 among every kind of row; with
+    ``hot`` one row that every window hits as its first positive (and, CBOW,
+    its first context id), more slots than a group of lanes takes, so the
+    block-a-row pass sums it."""
     need_cuda()
     n = 300
     in_emb, out_emb = _card_tables(n, d, dtype, seed=d + b)
@@ -739,6 +745,11 @@ def test_window_kernels_match_the_plain_version(d, b, c, dtype, cbow):
                                        generator=gen, dtype=torch.int32)
     in_ids, pos, neg = ((ids(b, c), ids(b, 1), ids(b, 1)) if cbow
                         else (ids(b, 1), ids(b, c), ids(b, c)))
+    if hot:
+        assert b * (1 if cbow else 2 * c) > bindings.SGNS_WINDOWS_HEAVY_SLOTS
+        pos[:, 0] = 5
+        if cbow:
+            in_ids[:, 0] = 5
     loss = bindings.sgns_windows_loss_fwd(in_emb, out_emb, in_ids, pos, neg,
                                           cbow)
     again = bindings.sgns_windows_loss_fwd(in_emb, out_emb, in_ids, pos, neg,
@@ -747,14 +758,18 @@ def test_window_kernels_match_the_plain_version(d, b, c, dtype, cbow):
     grads = bindings.sgns_windows_loss_bwd(
         in_emb, out_emb, in_ids, pos, neg,
         torch.full((), 2.0, device="cuda"), cbow)
+    fused_loss, *fused = bindings.sgns_windows_loss_and_grads(
+        in_emb, out_emb, in_ids, pos, neg, cbow)
+    assert torch.equal(fused_loss, loss)
     plain = [t.float().requires_grad_(True) for t in (in_emb, out_emb)]
     want = tsg.windows_loss_plain(*plain, in_ids, pos, neg)
-    want_grads = torch.autograd.grad(2.0 * want, plain)
+    want_grads = torch.autograd.grad(want, plain)
     np.testing.assert_allclose(float(loss), float(want), rtol=1e-5)
-    for got, ref in zip(grads, want_grads):
-        ref = ref.cpu().numpy()
-        np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=0,
-                                   atol=1e-4 * np.abs(ref).max())
+    for scale, got_grads in ((2.0, grads), (1.0, fused)):
+        for got, ref in zip(got_grads, want_grads):
+            ref = scale * ref.cpu().numpy()
+            np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=0,
+                                       atol=1e-4 * np.abs(ref).max())
 
 
 def ulp_diff(got, want, dtype):

@@ -26,7 +26,8 @@ KERNEL_NAMES = ("uniform_walk_csr", "node2vec_walk_csr_mixture",
                 "routed_uniform_phase", "routed_node2vec_phase",
                 "routed_triples_batch", "routed_edge_list_batch",
                 "routed_edge_list_node2vec_batch", "sgns_windows_loss_fwd",
-                "sgns_windows_loss_bwd", "adam_dense", "adam_rows")
+                "sgns_windows_loss_bwd", "sgns_windows_loss_and_grads",
+                "adam_dense", "adam_rows")
 launch_counts = dict.fromkeys(KERNEL_NAMES, 0)
 
 _lib = None
@@ -36,6 +37,19 @@ _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
 _U32 = ctypes.c_uint32
 _F32 = ctypes.c_float
+
+
+class _WindowsGradCall(ctypes.Structure):
+    """One call of K17 (sgns_windows.cuh ``GradCall``): the inputs and every
+    output and scratch buffer, as device pointers (None: absent)."""
+    _fields_ = ([(name, _PTR) for name in (
+        "in_ids", "pos", "neg", "in_emb", "out_emb", "partial", "loss",
+        "grad_loss", "h", "grad_in", "grad_out", "sort", "entries",
+        "heavy")]
+        + [("num_windows", _I64)]
+        + [(name, _I32) for name in (
+            "in_cols", "out_cols", "num_nodes", "dim", "elem_bytes", "vec",
+            "cbow", "heavy_slots")])
 
 
 def reset_launch_counts() -> None:
@@ -93,13 +107,13 @@ def library(verbose: bool = False) -> ctypes.CDLL:
         lib.trw_routed_edge_list_batch.argtypes = [_PTR, _I32, _PTR]
         lib.trw_routed_edge_list_node2vec_batch.argtypes = [_PTR, _I32, _PTR]
         lib.trw_routed_batch_geometry.argtypes = [_I32, _I32, _I32, _PTR]
-        lib.trw_sgns_windows_grid.argtypes = [_I64]
+        lib.trw_sgns_windows_grid.argtypes = [_I64, _I32]
         lib.trw_sgns_windows_loss_fwd.argtypes = [
             _PTR, _PTR, _PTR, _I64, _I32, _I32, _PTR, _PTR, _I32, _I32, _I32,
             _I32, _I32, _PTR, _PTR, _PTR]
-        lib.trw_sgns_windows_loss_bwd.argtypes = [
-            _PTR, _PTR, _PTR, _I64, _I32, _I32, _PTR, _PTR, _I32, _I32, _I32,
-            _I32, _I32, _PTR, _PTR, _PTR, _PTR]
+        for fn in (lib.trw_sgns_windows_grads_begin,
+                   lib.trw_sgns_windows_grads_end):
+            fn.argtypes = [ctypes.POINTER(_WindowsGradCall), _PTR]
         lib.trw_adam_dense.argtypes = [_I64, _I32] + [_F32] * 8 + [_PTR] * 5
         lib.trw_adam_rows.argtypes = ([_I64, _I32, _I32, _I32, _I32]
                                       + [_F32] * 8 + [_PTR] * 7)
@@ -118,7 +132,8 @@ def library(verbose: bool = False) -> ctypes.CDLL:
                    lib.trw_walk_sgns_chunk, lib.trw_walk_sgns_describe,
                    lib.trw_walk_sgns_loss_fwd, lib.trw_walk_sgns_loss_bwd,
                    lib.trw_sgns_windows_grid, lib.trw_sgns_windows_loss_fwd,
-                   lib.trw_sgns_windows_loss_bwd, lib.trw_adam_dense,
+                   lib.trw_sgns_windows_grads_begin,
+                   lib.trw_sgns_windows_grads_end, lib.trw_adam_dense,
                    lib.trw_adam_rows):
             fn.restype = ctypes.c_int
         _lib = lib
@@ -717,10 +732,13 @@ def walk_sgns_plan(in_emb, walks, neg_ids, window_size: int) -> dict:
             if any(r)}
 
 
-# K16/K17 take a window's rows as one warp: D up to 512, read four elements a
-# lane (8- or 16-byte loads) where D is a multiple of 4 and the tables are
-# 16-byte aligned, else one.
+# K16/K17 take a window's rows as a group of lanes: D up to 512, 16-byte
+# loads (8 bfloat16 or 4 float32 elements a lane) where D is a multiple of
+# the width and the tables are 16-byte aligned, else one element a lane.
 SGNS_WINDOWS_MAX_DIM = 512
+# K17's owner pass leaves a row of more slots than this to a block of its own
+# (sgns_windows_owner.cu); the wrapper sizes the list of such rows by it.
+SGNS_WINDOWS_HEAVY_SLOTS = 128
 
 
 def _check_windows(in_emb, out_emb, in_ids, pos, neg, cbow: bool) -> tuple:
@@ -754,11 +772,23 @@ def _check_windows(in_emb, out_emb, in_ids, pos, neg, cbow: bool) -> tuple:
     if not 0 < num_nodes < 2 ** 31 or not 1 <= dim <= SGNS_WINDOWS_MAX_DIM:
         raise ValueError(f"tables of shape {tuple(in_emb.shape)} are not "
                          f"supported (dim <= {SGNS_WINDOWS_MAX_DIM})")
+    if num_windows * 2 * out_cols >= 2 ** 31:
+        raise ValueError(f"{num_windows} windows hold more than 2^31 - 1 "
+                         "out slots")
+    wide = 16 // in_emb.element_size()
     aligned = all(t.data_ptr() % 16 == 0 for t in (in_emb, out_emb))
-    vec = 4 if dim % 4 == 0 and aligned else 1
+    vec = wide if dim % wide == 0 and aligned else 1
     return (in_ids.data_ptr(), pos.data_ptr(), neg.data_ptr(), num_windows,
             in_cols, out_cols, in_emb.data_ptr(), out_emb.data_ptr(),
             num_nodes, dim, in_emb.element_size(), vec, int(cbow))
+
+
+def _windows_partials(args, device) -> tuple:
+    """K16's scratch for its per-block partial sums, and the loss."""
+    with torch.cuda.device(device):
+        grid = library().trw_sgns_windows_grid(args[3], args[11])
+    return (torch.empty((grid,), dtype=torch.float32, device=device),
+            torch.empty((), dtype=torch.float32, device=device))
 
 
 def sgns_windows_loss_fwd(in_emb, out_emb, in_ids, pos, neg,
@@ -766,31 +796,88 @@ def sgns_windows_loss_fwd(in_emb, out_emb, in_ids, pos, neg,
     """K16.  The per-window SGNS loss (skip-gram, or CBOW with ``cbow``), a
     float32 scalar on the device; equal inputs give equal bits."""
     args = _check_windows(in_emb, out_emb, in_ids, pos, neg, cbow)
-    with torch.cuda.device(in_ids.device):
-        grid = library().trw_sgns_windows_grid(args[3])
-    partial = torch.empty((grid,), dtype=torch.float32, device=in_ids.device)
-    loss = torch.empty((), dtype=torch.float32, device=in_ids.device)
+    partial, loss = _windows_partials(args, in_ids.device)
     _launch("sgns_windows_loss_fwd", library().trw_sgns_windows_loss_fwd,
             _device_index(in_ids.device), *args, partial.data_ptr(),
             loss.data_ptr())
     return loss
 
 
+def _windows_grads(in_emb, out_emb, in_ids, pos, neg, cbow: bool, grad_loss,
+                   with_loss: bool):
+    """K17's passes (with K16's loss from the same per-window pass where
+    ``with_loss``): the histogram of the out slots by row, its scan by
+    ``torch.cumsum``, the per-window pass (each out slot's (source row,
+    dloss/dlogit) placed in its row's bucket, each window's in-row gradient
+    added with atomics, CBOW's h written), and the owner passes, which write
+    every row of the out table's gradient once.  Returns (loss or None,
+    grad_in, grad_out)."""
+    args = _check_windows(in_emb, out_emb, in_ids, pos, neg, cbow)
+    dev = in_ids.device
+    (_, _, _, num_windows, in_cols, out_cols, _, _, num_nodes, dim, elem,
+     vec, _) = args
+    slots = num_windows * 2 * out_cols
+    f32 = dict(dtype=torch.float32, device=dev)
+    # counts (N), the heavy-row count (1), offsets (N + 1)
+    sort = torch.zeros((2 * num_nodes + 2,), dtype=torch.int32, device=dev)
+    entries = torch.empty((slots, 2), dtype=torch.int32, device=dev)
+    heavy = torch.empty((slots // (SGNS_WINDOWS_HEAVY_SLOTS + 1) + 1,),
+                        dtype=torch.int32, device=dev)
+    grad_in = torch.zeros((num_nodes, dim), **f32)
+    grad_out = torch.empty((num_nodes, dim), **f32)
+    h = torch.empty((num_windows, dim), **f32) if cbow else None
+    partial, loss = (_windows_partials(args, dev) if with_loss
+                     else (None, None))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    call = _WindowsGradCall(
+        in_ids=ptr(in_ids), pos=ptr(pos), neg=ptr(neg), in_emb=ptr(in_emb),
+        out_emb=ptr(out_emb), partial=ptr(partial), loss=ptr(loss),
+        grad_loss=ptr(grad_loss), h=ptr(h), grad_in=ptr(grad_in),
+        grad_out=ptr(grad_out), sort=ptr(sort), entries=ptr(entries),
+        heavy=ptr(heavy), num_windows=num_windows, in_cols=in_cols,
+        out_cols=out_cols, num_nodes=num_nodes, dim=dim, elem_bytes=elem,
+        vec=vec, cbow=int(cbow), heavy_slots=SGNS_WINDOWS_HEAVY_SLOTS)
+    lib, index = library(), _device_index(dev)
+    rc = _call(lib.trw_sgns_windows_grads_begin, index, ctypes.byref(call))
+    if rc == 0:
+        torch.cumsum(sort[:num_nodes], 0, dtype=torch.int32,
+                     out=sort[num_nodes + 2:])
+        rc = _call(lib.trw_sgns_windows_grads_end, index, ctypes.byref(call))
+    if rc != 0:
+        name = ("sgns_windows_loss_and_grads" if with_loss
+                else "sgns_windows_loss_bwd")
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"code {rc}")
+    return loss, grad_in, grad_out
+
+
 def sgns_windows_loss_bwd(in_emb, out_emb, in_ids, pos, neg,
                           grad_loss: torch.Tensor, cbow: bool = False):
     """K17.  The gradient of K16's loss, times the float32 device scalar
     ``grad_loss``, as two dense (N, D) float32 tables (in_emb's, out_emb's),
-    summed with atomics."""
-    args = _check_windows(in_emb, out_emb, in_ids, pos, neg, cbow)
+    each out row summed by its owner, written once."""
     _check("grad_loss", grad_loss, torch.float32, 0, in_ids.device)
-    grad_in = torch.zeros(in_emb.shape, dtype=torch.float32,
-                          device=in_ids.device)
-    grad_out = torch.zeros(in_emb.shape, dtype=torch.float32,
-                           device=in_ids.device)
-    _launch("sgns_windows_loss_bwd", library().trw_sgns_windows_loss_bwd,
-            _device_index(in_ids.device), *args, grad_loss.data_ptr(),
-            grad_in.data_ptr(), grad_out.data_ptr())
+    _, grad_in, grad_out = _windows_grads(in_emb, out_emb, in_ids, pos, neg,
+                                          cbow, grad_loss, False)
+    launch_counts["sgns_windows_loss_bwd"] += 1
     return grad_in, grad_out
+
+
+def sgns_windows_loss_and_grads(in_emb, out_emb, in_ids, pos, neg,
+                                cbow: bool = False):
+    """K16 and K17 in one call, the train step's value and gradient: (the
+    loss, equal to K16's bit for bit, and its two dense float32 gradients).
+    K17's launches with the loss taken in its per-window pass (K16's body
+    with K17's outputs), which reads each window's rows once; the owner
+    pass then reads each out slot's source row again.  K16's own kernel
+    does not run.  Counted under its own name."""
+    loss, grad_in, grad_out = _windows_grads(in_emb, out_emb, in_ids, pos,
+                                             neg, cbow, None, True)
+    launch_counts["sgns_windows_loss_and_grads"] += 1
+    return loss, grad_in, grad_out
 
 
 def _adam_hyper(lr, b1, b2, eps, bc1, bc2) -> tuple:

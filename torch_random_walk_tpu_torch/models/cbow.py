@@ -7,8 +7,9 @@ the center node is predicted from the mean of the W-1 context rows of
 tables are float32, and the optimizer is dense Adam at 1e-3 (optax's
 ``adam(1e-3)``) or a custom factory, as ``SkipGramModel``'s.  On a CUDA tensor
 the loss is the CBOW form of K16, its gradient K17's
-(``kernels/sgns_windows.cu``: ``du / (W-1)`` spread over the context rows),
-and the update K18's dense entry; ``windows_loss_plain`` and
+(``kernels/sgns_windows.cu``: ``du / (W-1)`` to each context row; each out
+row summed by its owner, ``sgns_windows_owner.cu``), both from one call in
+the train step, and the update K18's dense entry; ``windows_loss_plain`` and
 ``adam_dense_plain`` are their plain versions.
 """
 

@@ -12,8 +12,11 @@ Two losses over the same (target, positive-context) pairs:
   (differentiated by autograd) is their plain version.
 - the per-window loss (``loss_fn``, the JAX ``loss_fn``) on the (targets,
   pos, neg) windows of ``to_windows``.  On a CUDA tensor it is K16 and its
-  gradient K17 (``kernels/sgns_windows.cu``); ``windows_loss_plain`` is their
-  plain version.
+  gradient K17 (``kernels/sgns_windows.cu``, ``sgns_windows_owner.cu``), and
+  the train step takes both from one call (one pass over the windows' rows,
+  as JAX's ``value_and_grad``); ``windows_loss_plain`` is their plain
+  version, and ``windows_grads_plain`` mirrors K17's passes (the per-window
+  pass, the bucketing of the out slots by row and the owner sums).
 
 Logits and losses are float32 whatever the tables' type.  A node id of -1
 (the graph entry's mark of a walk that ran out of rounds) addresses the last
@@ -169,6 +172,81 @@ def windows_loss_plain(in_emb, out_emb, in_ids, pos, neg):
     return loss.mean()
 
 
+def table_rows(ids, num_nodes: int):
+    """Node ids -> the table rows the kernels read (``table_row``): a
+    negative id wraps once, then the row is clamped into [0, N); int64."""
+    ids = ids.long()
+    return torch.where(ids < 0, ids + num_nodes, ids).clamp(0, num_nodes - 1)
+
+
+def window_terms_plain(in_emb, out_emb, in_ids, pos, neg, grad_loss=1.0):
+    """Plain mirror of K17's per-window pass (K16's body with its gradient
+    outputs): (the loss; g (B, 2 CO), each out slot's dloss/dlogit times
+    ``grad_loss`` / B, the positives first; h (B, D), the mean of a window's
+    in rows; dh (B, D), the gradient of each of its in rows: the sum of g *
+    out row over its slots, divided by CI).  float32 whatever the tables'
+    type."""
+    n, b, co = in_emb.shape[0], in_ids.shape[0], pos.shape[1]
+    h = in_emb[table_rows(in_ids, n)].float().mean(1)
+    rows = out_emb[table_rows(torch.cat([pos, neg], 1), n)].float()
+    x = (h[:, None] * rows).sum(-1)                            # (B, 2 CO)
+    loss = -(F.logsigmoid(x[:, :co]).sum(-1)
+             + F.logsigmoid(-x[:, co:]).sum(-1)).mean()
+    scale = grad_loss / b
+    g = torch.cat([-scale * torch.sigmoid(-x[:, :co]),
+                   scale * torch.sigmoid(x[:, co:])], 1)
+    dh = (g[..., None] * rows).sum(1) / in_ids.shape[1]
+    return loss, g, h, dh
+
+
+def bucket_slots_plain(slot_rows, num_nodes: int):
+    """Plain mirror of K17's counting sort: (offsets (N + 1), the exclusive
+    scan of each row's slot count; order, the slots grouped by row, each
+    row's in slot order).  The kernel's scatter fills a row in the order of
+    its atomics; the plain version keeps slot (window) order."""
+    order = torch.argsort(slot_rows, stable=True)
+    offsets = torch.zeros(num_nodes + 1, dtype=torch.int64,
+                          device=slot_rows.device)
+    offsets[1:] = torch.cumsum(torch.bincount(slot_rows,
+                                              minlength=num_nodes), 0)
+    return offsets, order
+
+
+def owner_rows_plain(offsets, order, weight, src, per: int):
+    """Plain mirror of K17's owner passes: row r of the (N, D) float32
+    result is the sum over its slots s (``order[offsets[r]:offsets[r +
+    1]]``, added in that order) of ``weight[s]`` (1 where None) times
+    ``src[s // per]``; a row with no slot is zero."""
+    counts = offsets[1:] - offsets[:-1]
+    rows = torch.repeat_interleave(
+        torch.arange(counts.shape[0], device=order.device), counts)
+    terms = src[order // per]
+    if weight is not None:
+        terms = weight[order, None] * terms
+    out = torch.zeros((counts.shape[0], src.shape[1]), dtype=torch.float32,
+                      device=src.device)
+    return out.index_add_(0, rows, terms)
+
+
+def windows_grads_plain(in_emb, out_emb, in_ids, pos, neg, grad_loss=1.0):
+    """(loss, [grad_in, grad_out]) of the per-window loss as K17 computes
+    them, in tensor code: the per-window pass, then the out slots (s = b * 2
+    CO + c, of weight g[b, c] and source h_b) bucketed by row and summed by
+    their owners.  The in rows' gradient, which the kernel adds with one
+    atomic row add a window and in row, is the same sum over the in slots (s
+    = b * CI + c, of source dh_b), taken here by the same owner mirror."""
+    n = in_emb.shape[0]
+    loss, g, h, dh = window_terms_plain(in_emb, out_emb, in_ids, pos, neg,
+                                        grad_loss)
+    out_rows = table_rows(torch.cat([pos, neg], 1), n).reshape(-1)
+    in_rows = table_rows(in_ids, n).reshape(-1)
+    grad_out = owner_rows_plain(*bucket_slots_plain(out_rows, n),
+                                g.reshape(-1), h, g.shape[1])
+    grad_in = owner_rows_plain(*bucket_slots_plain(in_rows, n), None, dh,
+                               in_ids.shape[1])
+    return loss, [grad_in, grad_out]
+
+
 @torch.no_grad()
 def adam_dense_plain(param, mu, nu, grad, lr, b1, b2, eps, bc1, bc2) -> None:
     """Plain version of K18's dense entry: one Adam step over every element,
@@ -313,16 +391,15 @@ def walk_loss_and_grads(in_emb, out_emb, walks, neg_ids, window_size: int,
 
 
 def windows_loss_and_grads(in_emb, out_emb, in_ids, pos, neg, cbow: bool):
-    """(loss, [float32 gradients]) of the per-window loss: K16 and K17 on
-    CUDA tables, the plain version through autograd on CPU tables."""
+    """(loss, [float32 gradients]) of the per-window loss: K16 and K17 in
+    one call on CUDA tables (``bindings.sgns_windows_loss_and_grads``: one
+    per-window pass takes the loss and the gradient's inputs), the plain
+    version through autograd on CPU tables."""
     if in_emb.is_cuda:
         with torch.no_grad():
-            loss = bindings.sgns_windows_loss_fwd(in_emb, out_emb, in_ids,
-                                                  pos, neg, cbow)
-            grads = bindings.sgns_windows_loss_bwd(
-                in_emb, out_emb, in_ids, pos, neg, torch.ones_like(loss),
-                cbow)
-        return loss, list(grads)
+            loss, *grads = bindings.sgns_windows_loss_and_grads(
+                in_emb, out_emb, in_ids, pos, neg, cbow)
+        return loss, grads
     tables = _leaves(in_emb, out_emb)
     loss = windows_loss_plain(*tables, in_ids, pos, neg)
     grads = torch.autograd.grad(loss, tables)
