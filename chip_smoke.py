@@ -40,7 +40,17 @@ K14, ``walk_edge_list_node2vec_partitioned_routed`` at p=0.5 q=2 with the
 edge-list cuckoo tables and with Bloom filters and saturated ones through
 K15, ``walk_triples_partitioned_routed`` through K13; both schedules; both
 copies; K13, K14 and K15 are one persistent cooperative launch a walk
-after phase 0).  It checks the results and
+after phase 0); last, the KG-embedding trainer on the same triples (1 000
+held out) at the README's configuration (``KGEmbeddingConfig(dim=128)``,
+float32, walk length 20, 4 negatives, W = 3, 65 536 start entities a
+step): TransE dense and touched-rows, DistMult, RotatE, triple skip-gram
+and CBOW, one warm and three chained ``epoch_step``s each through K9, K10,
+K19 or K20 and K18, the first step's loss again from the same tables, the
+parts of a step, K19 and K20 (both entries, both table types) against
+their plain versions on a prefix of the step's own positives or windows
+and at the edges (``kge_small_checks``), and the tail ranking of the
+held-out triples against all entities (``phase_kge``).  It checks the
+results and
 measures every kernel at the shape the main path gives it; the two loss
 kernels also with float32 tables, each with its tile plan and its device time
 by kernel.  The ``build`` line reports each loss kernel's registers and
@@ -158,7 +168,7 @@ import torch
 
 import torch_random_walk_tpu_torch as tt
 from torch_random_walk_tpu_torch.kernels import bindings, build
-from torch_random_walk_tpu_torch.models import skipgram
+from torch_random_walk_tpu_torch.models import kge, skipgram
 from torch_random_walk_tpu_torch.ops import (
     common,
     edge_list_walk,
@@ -202,6 +212,46 @@ TRAIN_WALKERS, TRAIN_STEPS = 65_536, 3
 # with atomics): the loss within 1e-5 of the plain loss, every gradient entry
 # within 1e-4 of the largest entry of its table.
 LOSS_REL_LIMIT, GRAD_REL_LIMIT = 1e-5, 1e-4
+
+# The KG-embedding trainer of the README (``KGEmbeddingConfig(dim=128,
+# objective="transe")``, walk length 20, 4 negatives, margin 2, lr 1e-2,
+# float32; W = 3 for the window objectives) on the bench triples graph
+# (family_graphs: 2 M entities, 16 relations, about 36 M triples, fat,
+# padding N), KGE_HELD_OUT triples held out for the tail ranking, 65 536
+# start entities a step: one warm and three chained epoch steps a case.
+KGE_CONFIG = dict(dim=128, walk_length=20, window_size=3, num_negatives=4,
+                  margin=2.0, learning_rate=1e-2, dtype="float32")
+KGE_WALKERS, KGE_STEPS, KGE_HELD_OUT, KGE_SEED = 65_536, 3, 1_000, 13
+KGE_CASES = {
+    "transe": dict(objective="transe"),
+    "transe_sparse": dict(objective="transe", update_mode="sparse"),
+    "distmult": dict(objective="distmult"),
+    "rotate": dict(objective="rotate"),
+    "skipgram": dict(objective="skipgram"),
+    "cbow": dict(objective="cbow"),
+}
+# Launches a step each case must show (the rest of KGE_KERNELS: 0).
+KGE_LAUNCHES = {
+    "pair": {"uniform_walk_triples": 1, "kge_pair_loss_and_grads": 1,
+             "adam_dense": 2},
+    "sparse": {"uniform_walk_triples": 1, "kge_pair_loss_and_grads": 1,
+               "adam_rows": 2},
+    "skipgram": {"uniform_walk_triples": 1, "to_windows_triples": 1,
+                 "kge_windows_loss_and_grads": 1, "adam_dense": 4},
+    "cbow": {"uniform_walk_triples": 1, "to_windows_triples_cbow": 1,
+             "kge_windows_loss_and_grads": 1, "adam_dense": 4},
+}
+KGE_KERNELS = ("uniform_walk_triples", "to_windows_triples",
+               "to_windows_triples_cbow", "kge_pair_loss",
+               "kge_pair_loss_and_grads", "kge_windows_loss",
+               "kge_windows_loss_and_grads", "adam_dense", "adam_rows")
+KGE_ROWS = ("kge_pair_loss", "kge_pair_loss_and_grads", "kge_windows_loss",
+            "kge_windows_loss_and_grads")
+# The plain versions of K19 and K20 gather every scored row for autograd
+# (about 10 GB for the pair loss at the full 1 310 720 positives): they are
+# held against the kernels on this prefix of the step's positives or
+# windows, both kernels' entries run on the same prefix.
+KGE_CHECK_PREFIX = 262_144
 
 # Peaks of one H100 SXM at its full 700 W limit (NVIDIA data sheet): device
 # memory rate; dense tensor-core peaks by table type (bfloat16; float32
@@ -279,6 +329,24 @@ KERNEL_FACTS = {
         "torch_random_walk_tpu/models/skipgram.py:257 (the lazy Adam and "
         "scatter_rows of walk_train_step_sparse; XLA program, no Pallas "
         "counterpart)"),
+    "kge_pair_loss": (
+        "torch_random_walk_tpu_torch/kernels/kge_pair.cu",
+        "torch_random_walk_tpu/models/kge.py:186 (KGEModel._pair_loss_tabs "
+        "through pair_loss_fn:196; XLA program, no Pallas counterpart)"),
+    "kge_pair_loss_and_grads": (
+        "torch_random_walk_tpu_torch/kernels/kge_pair.cu",
+        "torch_random_walk_tpu/models/kge.py:269 (value_and_grad of "
+        "pair_loss_fn in pair_train_step, and of _pair_loss_tabs in "
+        "pair_train_step_sparse:350; XLA program, no Pallas counterpart)"),
+    "kge_windows_loss": (
+        "torch_random_walk_tpu_torch/kernels/kge_windows.cu",
+        "torch_random_walk_tpu/models/kge.py:223 (skipgram_loss_fn; and "
+        "cbow_loss_fn:245; XLA program, no Pallas counterpart)"),
+    "kge_windows_loss_and_grads": (
+        "torch_random_walk_tpu_torch/kernels/kge_windows.cu",
+        "torch_random_walk_tpu/models/kge.py:377 (value_and_grad of "
+        "skipgram_loss_fn in skipgram_train_step; and cbow_train_step:385; "
+        "XLA program, no Pallas counterpart)"),
     "uniform_walk_edge_list": (
         "torch_random_walk_tpu_torch/kernels/edge_list_walk.cu",
         "torch_random_walk_tpu/ops/fatwalk.py:1092 (uniform_walk_edge_list_fat"
@@ -552,7 +620,7 @@ def loss_errors(in_emb, out_emb, walks, neg_ids, window):
             "plain_ms": plain_ms}
 
 
-# --- bounds -------------------------------------------------------------------
+# --- bounds ------------------------------------------------------------------
 
 def bound(bytes_moved: float, operations: float,
           ops_per_s: float | None = None) -> tuple[float, str]:
@@ -651,7 +719,7 @@ def sgns_bound(dtype: torch.dtype, backward: bool, walks, neg_ids):
     return bound(moved, flops, TENSOR_FLOPS_PER_S[dtype]), in_rows, out_rows
 
 
-# --- phases -------------------------------------------------------------------
+# --- phases ------------------------------------------------------------------
 
 def phase_device() -> str:
     global INT_OPS_PER_S
@@ -770,6 +838,15 @@ TRAIN_MODE_FUNCTIONS = {
     "windows_owner_kernel": "K17 owner", "windows_owner_heavy_kernel":
     "K17 heavy-row owner", "windows_hist_kernel": "K17 histogram",
     "adam_dense_kernel": "K18 dense", "adam_rows_kernel": "K18 rows"}
+# K19's and K20's instantiations on the KGE phase's path (float32 rows of
+# 128: V = 4, K = 1), with and without the gradient (the last template
+# flag); the build line gives their registers and spills by mangled name.
+KGE_FUNCTIONS = {
+    "kge_pair_kernelIfLi4ELi1ELi0E": "K19 TransE",
+    "kge_pair_kernelIfLi4ELi1ELi1E": "K19 DistMult",
+    "kge_pair_kernelIfLi4ELi1ELi2E": "K19 RotatE",
+    "kge_windows_kernelIfLi4ELi1ELb0E": "K20 skip-gram",
+    "kge_windows_kernelIfLi4ELi1ELb1E": "K20 CBOW"}
 
 
 def ptxas_instantiations(log: str, families: dict) -> dict:
@@ -941,6 +1018,7 @@ def phase_build() -> None:
     family_ptxas = ptxas_report(log, FAMILY_FUNCTIONS)
     routed_ptxas = ptxas_report(log, ROUTED_FUNCTIONS)
     train_mode_ptxas = ptxas_instantiations(log, TRAIN_MODE_FUNCTIONS)
+    kge_ptxas = ptxas_instantiations(log, KGE_FUNCTIONS)
     threefry = threefry_sass_ops()
     THREEFRY_OPS = threefry["int32_only_ops"]
     emit("build", seconds=round(seconds, 2), sources=list(build.SOURCES),
@@ -953,6 +1031,7 @@ def phase_build() -> None:
          routed_kernels={ROUTED_FUNCTIONS[k]: v
                          for k, v in routed_ptxas.items()},
          train_mode_kernels=train_mode_ptxas,
+         kge_kernels=kge_ptxas,
          threefry_int32_only_ops=THREEFRY_OPS,
          threefry_int32_pipe_ops=threefry["int32_pipe_ops"],
          threefry_fma_pipe_ops=threefry["fma_pipe_ops"],
@@ -1410,7 +1489,7 @@ def phase_kernels(graph, targets, out, counts, walk_ms, walk_entry_ms):
     return rows
 
 
-# --- the routed legs (K11, K12) -------------------------------------------------
+# --- the routed legs (K11, K12) ----------------------------------------------
 
 def routed_calls(phases: int, k: int | None = None) -> int:
     """Phase calls of a routed leg of ``phases`` phases: the loop enqueues
@@ -2618,7 +2697,7 @@ def phase_train_modes(graph) -> tuple[list[dict], dict]:
     return rows, totals
 
 
-# --- the edge-list and KG-triples families (K7-K10) ---------------------------
+# --- the edge-list and KG-triples families (K7-K10) --------------------------
 
 def family_graphs(graph, dead_quarter: bool = False):
     """The bench families derived from a CSR graph as the JAX package's
@@ -3113,7 +3192,7 @@ def phase_family_kernels(el, tg, targets, launches, checked) -> list[dict]:
     return rows
 
 
-# --- the routed edge-list and KG-triples engines (K13-K15) ---------------------
+# --- the routed edge-list and KG-triples engines (K13-K15) -------------------
 
 # leg: (engine, restart, filters of the biased engine).  All at the families'
 # bench setting: padding N, seed 7, the bench targets' first ROUTED_WALKERS.
@@ -3595,6 +3674,461 @@ def phase_routed_families(graph) -> list[dict]:
     return rows
 
 
+# --- the KG-embedding trainer (K19, K20) -------------------------------------
+
+def plain_kge_grads(fn, tables):
+    """(loss, float32 gradients) of a plain KGE loss ``fn(leaves,
+    rounding)`` on float32 copies of ``tables`` (exact for bfloat16) that
+    round where an operation on tables of their own type rounds: the
+    kernels' arithmetic, with float32 gradient sums."""
+    leaves = [t.detach().to(torch.float32, copy=True).requires_grad_(True)
+              for t in tables]
+    loss = fn(leaves, tables[0].dtype)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def kge_errors(loss_fn, grads_fn, plain_fn, tables) -> dict:
+    """A KGE kernel's two entries against its plain version on the same
+    inputs: the loss-only launch twice (the same bits), the value-and-grad
+    call (its loss the loss-only bits), and the plain loss and gradients."""
+    loss, again = loss_fn(), loss_fn()
+    fused_loss, grads = grads_fn()
+    (want, want_grads), plain_ms = wall_ms(lambda: plain_kge_grads(plain_fn,
+                                                                   tables))
+    require(bool(torch.isfinite(loss)) and bool(torch.isfinite(want)),
+            "KGE loss is not finite")
+    require(torch.equal(loss, again), "the KGE loss is not repeatable")
+    require(torch.equal(fused_loss, loss),
+            f"the value-and-grad loss {float(fused_loss)!r} is not the "
+            f"loss-only launch's {float(loss)!r} bit for bit")
+    loss_abs = abs(float(loss) - float(want))
+    # JAX's TransE gradient is NaN where ||d|| = 0 (bfloat16 tables meet it
+    # at small D): the kernel's NaN entries must be the plain version's.
+    grad_abs, grad_rel, nans = [], [], 0
+    for g, w in zip(grads, want_grads):
+        nan = torch.isnan(w)
+        require(torch.equal(torch.isnan(g), nan), "the KGE gradient's NaN "
+                "entries are not the plain version's")
+        nans += int(nan.sum())
+        diff, ref = (g - w).abs()[~nan], w.abs()[~nan]
+        grad_abs.append(float(diff.max()) if diff.numel() else 0.0)
+        grad_rel.append(grad_abs[-1] / max(
+            float(ref.max()) if ref.numel() else 0.0, 1e-30))
+    del grads, want_grads
+    return {"loss": float(loss), "plain_loss": float(want),
+            "loss_abs_err": loss_abs,
+            "loss_rel_err": loss_abs / max(abs(float(want)), 1e-30),
+            "grad_abs_err": max(grad_abs), "grad_rel_err": max(grad_rel),
+            "grad_nan_entries": nans, "plain_ms": plain_ms}
+
+
+def kge_pair_calls(tables, pos, neg, valid, objective, margin):
+    """K19's two entries and its plain version on these inputs, as
+    ``kge_errors`` takes them."""
+    args = (*tables, pos, neg, valid, objective, margin)
+    return (lambda: bindings.kge_pair_loss(*args),
+            lambda: (lambda out: (out[0], out[1:]))(
+                bindings.kge_pair_loss_and_grads(*args)),
+            lambda leaves, rounding: kge.pair_loss_plain(
+                objective, margin, *leaves, pos, neg, valid, rounding))
+
+
+def kge_windows_calls(tables, batch, pad, cbow):
+    """K20's two entries and its plain version on these windows."""
+    return (lambda: bindings.kge_windows_loss(tables, *batch, pad, cbow),
+            lambda: bindings.kge_windows_loss_and_grads(tables, *batch, pad,
+                                                        cbow),
+            lambda leaves, rounding: kge.windows_loss_plain(
+                leaves, *batch, pad, cbow, rounding))
+
+
+def worse(worst: dict, err: dict) -> None:
+    for key in ("loss_rel_err", "grad_rel_err"):
+        worst[key] = max(worst[key], err[key])
+    worst["grad_nan_entries"] += err["grad_nan_entries"]
+
+
+def kge_small_checks(device) -> dict:
+    """K19 and K20, both entries and both table types, against their plain
+    versions at the edges: D = 1, 7, 128, 130, 512 (RotatE: 2, 128, 130,
+    512); one positive, K = 1, 4 and 33; a hub entity every positive hits;
+    an all-padding batch; W = 1, 3 and 11; a window of padding only, padded
+    and out-of-range components, a hub entity in every window."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(17)
+    n, r = 500, 7
+    pad = n
+    worst = {fam: {"loss_rel_err": 0.0, "grad_rel_err": 0.0,
+                   "grad_nan_entries": 0} for fam in ("pair", "windows")}
+
+    def ints(low, high, *shape):
+        return torch.randint(low, high, shape, device=device, generator=gen,
+                             dtype=torch.int32)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for objective in kge.PAIR_OBJECTIVES:
+            dims = ((2, 128, 130, 512) if objective == "rotate"
+                    else (1, 7, 128, 130, 512))
+            for d in dims:
+                ent, rel = (t.to(dtype) for t in random_tables(
+                    n, d, torch.float32, device, d))
+                rel = rel[:r, : d // 2 if objective == "rotate" else d]
+                rel = rel.contiguous()
+                for b, k, case in ((1, 1, "one"), (700, 4, "plain"),
+                                   (300, 33, "wide"), (700, 4, "hub"),
+                                   (200, 4, "all_pad")):
+                    pos = torch.stack([ints(0, n, b), ints(0, r, b),
+                                       ints(0, n, b)], 1)
+                    if case == "hub":
+                        pos[:, 0] = 5
+                    neg = tt.corrupt_triples(pos.contiguous(), n, k, 9, 1)
+                    valid = (ints(0, 5, b) > 0).to(torch.uint8)
+                    if case == "all_pad":
+                        valid.zero_()
+                    worse(worst["pair"], kge_errors(
+                        *kge_pair_calls((ent, rel), pos.contiguous(), neg,
+                                        valid, objective, 2.0), (ent, rel)))
+        for cbow in (False, True):
+            for d in (1, 7, 128, 130, 512):
+                tabs = [t.to(dtype) for t in (
+                    *random_tables(n, d, torch.float32, device, d),
+                    *random_tables(n, d, torch.float32, device, d + 1))]
+                tabs[1], tabs[3] = (tabs[1][:r].contiguous(),
+                                    tabs[3][:r].contiguous())
+                for b, w in ((1, 1), (600, 1), (600, 3), (400, 11)):
+                    def trips(*shape):
+                        x = torch.stack([ints(-1, n + 2, *shape),
+                                         ints(0, r, *shape),
+                                         ints(0, n, *shape)], -1)
+                        x[ints(0, 5, *shape) == 0] = pad
+                        return x.contiguous()
+                    many = trips(b, 2 * w)
+                    many[0] = pad  # a window of padding only
+                    many[:, 0, 0] = 5  # a hub entity
+                    batch = ((trips(b), trips(b), many) if cbow
+                             else (trips(b), many, trips(b, 2 * w)))
+                    worse(worst["windows"], kge_errors(
+                        *kge_windows_calls(tabs, batch, pad, cbow), tabs))
+    return worst
+
+
+def kge_pair_bound(tables, pos, neg, valid, grads: bool):
+    """K19 on these positives.  Bytes, each row counted once however many
+    triples share it: the distinct entity and relation rows at the table
+    width, the ids and weights, and with the gradient the two dense float32
+    gradient tables written once, as the timed call writes them.
+    Operations: about 8 float32 operations an element of a scored triple
+    (RotatE's sines and cosines not counted), three times that with the
+    gradient, against the CUDA cores' float32 rate."""
+    ent, rel = tables
+    ent_rows = torch.unique(torch.cat([
+        pos[:, 0], pos[:, 2], neg[..., 0].reshape(-1),
+        neg[..., 2].reshape(-1)])).numel()
+    rel_rows = torch.unique(torch.cat([pos[:, 1],
+                                       neg[..., 1].reshape(-1)])).numel()
+    moved = (ent_rows * ent.shape[1] * ent.element_size()
+             + rel_rows * rel.shape[1] * rel.element_size()
+             + 4 * (pos.numel() + neg.numel()) + valid.numel() + 4)
+    flops = 8 * (pos.shape[0] + neg.shape[0] * neg.shape[1]) * ent.shape[1]
+    if grads:
+        moved += 4 * (ent.numel() + rel.numel())
+        flops *= 3
+    return bound(moved, flops, FP32_FLOPS_PER_S), {
+        "entity_rows": ent_rows, "relation_rows": rel_rows}
+
+
+def kge_windows_bound(tables, batch, pad, cbow: bool, grads: bool):
+    """K20 on these windows.  Bytes: the distinct rows of the components in
+    range of the slots it reads (windows of weight 1: skip-gram's target,
+    unmasked positives and every negative; CBOW's positive, negative and
+    unmasked context slots), each counted once at the table width, every id
+    read once, and with the gradient the four dense float32 gradient tables
+    written once.  Operations: 4 D a composed slot (two adds and the dot
+    product), three times that with the gradient."""
+    if cbow:
+        pos, neg, ctx = batch
+        ok = pos[:, 1] != pad
+        ins, ctx = [pos[ok], neg[ok]], ctx[ok]
+        outs = [ctx[ctx[..., 1] != pad]]
+    else:
+        tgt, pw, nw = batch
+        ok = tgt[:, 1] != pad
+        pw = pw[ok]
+        ins, outs = [tgt[ok]], [pw[pw[..., 1] != pad], nw[ok].reshape(-1, 3)]
+    ne, dim = tables[0].shape
+    nr = tables[1].shape[0]
+
+    def distinct(trips, cols, n):
+        ids = torch.cat([t[..., c].reshape(-1) for t in trips for c in cols])
+        return torch.unique(ids[(ids >= 0) & (ids < n)]).numel()
+
+    rows = (distinct(ins, (0, 2), ne) + distinct(ins, (1,), nr)
+            + distinct(outs, (0, 2), ne) + distinct(outs, (1,), nr))
+    slots = sum(t.reshape(-1, 3).shape[0] for t in ins + outs)
+    moved = (rows * dim * tables[0].element_size()
+             + 4 * sum(t.numel() for t in batch) + 4)
+    flops = 4 * dim * slots
+    if grads:
+        moved += 4 * sum(t.numel() for t in tables)
+        flops *= 3
+    return bound(moved, flops, FP32_FLOPS_PER_S), {"rows": rows,
+                                                   "slots": slots}
+
+
+def kge_step_parts(emb, targets, i) -> tuple[dict, dict]:
+    """The parts of one step, each alone on the step's own inputs: the walk
+    (K9), the batch (targets and negatives, or K10's windows), the dedup
+    and gathers (touched-rows step), K19 or K20 alone and in its one call,
+    and K18 on the tables.  Returns (parts, what the kernel checks need)."""
+    model, pad = emb.model, emb.padding_idx
+    objective = emb.config.objective
+    walks = emb.walks(targets, i)
+    parts = {"walk_ms": time_ms(lambda: emb.walks(targets, i), iters=3),
+             "batch_ms": time_ms(lambda: emb.batch(walks, i), iters=3)}
+    batch = emb.batch(walks, i)
+    del walks
+    sparse = emb.config.update_mode == "sparse"
+    if model.pair:
+        pos, neg, valid = model._pair_batch(*batch, pad)
+        if sparse:
+            parts["dedup_and_gathers_ms"] = time_ms(
+                lambda: model.gather_touched_rows(pos, neg), iters=3)
+            ent_ids, rel_ids, pos_l, neg_l, *tabs = model.gather_touched_rows(
+                pos, neg)
+            ids = (pos_l, neg_l, valid)
+        else:
+            tabs, ids = [model.ent.detach(), model.rel.detach()], (pos, neg,
+                                                                   valid)
+        calls = kge_pair_calls(tabs, *ids, objective, model.margin)
+    else:
+        tabs, ids = [p.detach() for p in model.parameters()], model._as_ids(
+            *batch)
+        calls = kge_windows_calls(tabs, ids, pad, objective == "cbow")
+    parts["loss_ms"] = time_ms(calls[0], iters=3)
+    parts["loss_and_grads_ms"] = time_ms(calls[1], iters=3)
+    grads = calls[1]()[1]
+    if sparse:
+        hyper = adam_hyper(model, sparse=True)
+        upd = [(getattr(model, n).data, model.mu[n], model.nu[n], g, rows,
+                None) for n, g, rows in zip(kge.PAIR_TABLES, grads,
+                                            (ent_ids, rel_ids))]
+        parts["adam_ms"] = time_ms(lambda: [
+            bindings.adam_rows(*u, *hyper) for u in upd], iters=3)
+    else:
+        hyper = adam_hyper(model, sparse=False)
+        upd = [(p.data, model.mu[n], model.nu[n], g) for (n, p), g in
+               zip(model.named_parameters(), grads)]
+        parts["adam_ms"] = time_ms(lambda: [
+            bindings.adam_dense(*u, *hyper) for u in upd], iters=3)
+    del grads, upd
+    return parts, {"tabs": tabs, "ids": ids, "calls": calls}
+
+
+def phase_kge(graph) -> list[dict]:
+    """The KG-embedding trainer on the bench triples graph (family_graphs,
+    KGE_HELD_OUT triples held out) at KGE_CONFIG, through ``epoch_step``:
+    per case (TransE dense and touched-rows, DistMult, RotatE, triple
+    skip-gram and CBOW) one warm step and KGE_STEPS chained steps with CUDA
+    events around each, the launch counts set to 0 just before and read
+    just after, the first step's loss again from the same tables (the same
+    bits), the autograd entry once for K19 and once for K20, the losses
+    (finite), peak memory and the step's parts; K19 or K20, both entries and
+    both table types, against the plain version on the step's own inputs
+    (their first KGE_CHECK_PREFIX positives or windows); the tail ranking
+    of the held-out triples against all entities by the pair models; one
+    step on every entity, ``train()``'s default batch (dense cases); and
+    the kernels' rows."""
+    dev = graph.device
+    small = kge_small_checks(dev)
+    limits = {"loss_rel_err": LOSS_REL_LIMIT, "grad_rel_err": GRAD_REL_LIMIT}
+    emit("kge_small_checks", limits=limits, worst=small)
+    for fam, e in small.items():
+        require(e["loss_rel_err"] <= LOSS_REL_LIMIT
+                and e["grad_rel_err"] <= GRAD_REL_LIMIT,
+                f"{fam} KGE kernel != plain at the edges: {e}")
+    _, tg = family_graphs(graph)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(KGE_SEED)
+    held = torch.randperm(tg.num_triples, device=dev,
+                          generator=gen)[:KGE_HELD_OUT]
+    keep = torch.ones(tg.num_triples, dtype=torch.bool, device=dev)
+    keep[held] = False
+    test = tg.triples[held].cpu().numpy()
+    train, build_ms = wall_ms(lambda: tt.TriplesGraph.from_arrays(
+        tg.triples[keep], num_entities=tg.num_entities,
+        num_relations=tg.num_relations))
+    del tg, keep, held
+    require(train.fat, "the KGE graph has no fat table")
+    targets = torch.arange(KGE_WALKERS, dtype=torch.int32, device=dev)
+    steps = 1 + KGE_STEPS
+    totals = dict.fromkeys(KGE_ROWS, 0)
+    cases, checks, times = {}, {}, {}
+    for case, kw in KGE_CASES.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        peak_gib()
+        emb = tt.KGEmbedding(train, tt.KGEmbeddingConfig(**KGE_CONFIG, **kw))
+        model = emb.init()
+        cfg, pad = emb.config, emb.padding_idx
+        torch.cuda.synchronize()
+        bindings.reset_launch_counts()
+        losses, step_ms = step_events(lambda i: emb.epoch_step(targets, i),
+                                      steps)
+        emb.init()  # the same tables again
+        again = float(emb.epoch_step(targets, 0))
+        require(again == losses[0], f"{case}: the first step's loss "
+                f"{again!r} is not {losses[0]!r} from the same tables")
+        extra = {}
+        if case in ("transe", "skipgram"):  # the autograd entry
+            batch = emb.batch(emb.walks(targets, steps), steps)
+            fn = (model.pair_loss_fn if model.pair
+                  else model.skipgram_loss_fn)
+            loss = fn(*batch, pad)
+            loss.backward()
+            require(bool(torch.isfinite(loss)) and all(
+                p.grad is not None and bool(torch.isfinite(p.grad).all())
+                for p in model.parameters()),
+                f"{case}: the autograd entry is not finite")
+            extra["autograd_loss"] = float(loss.detach())
+            model.zero_grad(set_to_none=True)
+            del batch, loss
+        launches = {k: bindings.launch_counts[k] for k in KGE_KERNELS}
+        kind = ("sparse" if cfg.update_mode == "sparse"
+                else "pair" if model.pair else cfg.objective)
+        want = {k: v * (steps + 1) for k, v in KGE_LAUNCHES[kind].items()}
+        if case == "transe":
+            want["uniform_walk_triples"] += 1
+            want["kge_pair_loss"] = 1
+            want["kge_pair_loss_and_grads"] += 1
+        if case == "skipgram":
+            want["uniform_walk_triples"] += 1
+            want["to_windows_triples"] += 1
+            want["kge_windows_loss"] = 1
+            want["kge_windows_loss_and_grads"] += 1
+        require(launches == {k: want.get(k, 0) for k in KGE_KERNELS},
+                f"{case}: the steps did not go through their kernels: "
+                f"{launches}, wanted {want}")
+        for k in totals:
+            totals[k] += launches[k]
+        require(all(np.isfinite(losses)), f"{case}: a loss is not finite: "
+                f"{losses}")
+        for name, param in model.named_parameters():
+            require(bool(torch.isfinite(param).all()),
+                    f"{case}: {name} is not finite")
+        torch.cuda.synchronize()
+        case_peak = torch.cuda.max_memory_allocated() / 2**30
+        parts, made = kge_step_parts(emb, targets, steps + 1)
+        tabs, ids, calls = made["tabs"], made["ids"], made["calls"]
+        bound_fn = (kge_pair_bound if model.pair else
+                    lambda t, *b, grads: kge_windows_bound(
+                        t, b, pad, cfg.objective == "cbow", grads))
+        (fwd_bound, counted), (grad_bound, _) = (
+            bound_fn(tabs, *ids, grads=False), bound_fn(tabs, *ids,
+                                                        grads=True))
+        times[case] = {"loss": (parts["loss_ms"], fwd_bound),
+                       "grads": (parts["loss_and_grads_ms"], grad_bound),
+                       "sub_launch_ms": {"loss": launch_ms(calls[0]),
+                                         "grads": launch_ms(calls[1])},
+                       "bound_counted": counted}
+        if cfg.update_mode == "dense":  # the sparse step runs the same K19
+            checks[case] = {}
+            pre = [x[:KGE_CHECK_PREFIX].contiguous() for x in ids]
+            for dtype in (torch.float32, torch.bfloat16):
+                ctabs = [t.to(dtype) for t in tabs]
+                made_calls = (kge_pair_calls(ctabs, *pre, cfg.objective,
+                                             model.margin) if model.pair
+                              else kge_windows_calls(
+                                  ctabs, pre, pad, cfg.objective == "cbow"))
+                checks[case][str(dtype).split(".")[1]] = kge_errors(
+                    *made_calls, ctabs)
+                del ctabs
+        ranking = None
+        if model.pair:
+            metrics, rank_ms = wall_ms(lambda: tt.kg_tail_ranking_metrics(
+                model.entity_embeddings(), model.relation_embeddings(), test,
+                score=cfg.objective))
+            ranking = {"held_out_triples": len(test), "candidates":
+                       train.num_entities, "ms": rank_ms, **metrics}
+        slots = (2 * (1 + cfg.num_negatives) * train.num_entities
+                 * cfg.walk_length)
+        full = (f"skipped: the touched-rows step's static-size sub-table, "
+                f"as JAX's, would hold {slots} rows of {4 * cfg.dim} B")
+        if cfg.update_mode == "dense":  # one step on train()'s default batch
+            every = torch.arange(train.num_entities, dtype=torch.int32,
+                                 device=dev)
+            peak_gib()
+            loss_full, ms_full = step_events(
+                lambda i: emb.epoch_step(every, steps + 2), 1)
+            require(np.isfinite(loss_full[0]),
+                    f"{case}: the full-batch step's loss is not finite")
+            full_items = train.num_entities * cfg.walk_length
+            full = {"start_entities": train.num_entities,
+                    "items": full_items, "ms": ms_full[0],
+                    "items_per_s": full_items / (ms_full[0] / 1e3),
+                    "loss": loss_full[0],
+                    "peak_device_gib": torch.cuda.max_memory_allocated()
+                    / 2**30}
+            del every
+        count = ids[0].shape[0]
+        chained = statistics.median(step_ms[1:])
+        cases[case] = {
+            "losses": losses, "first_step_again": again, "step_ms": step_ms,
+            "warm_step_ms": step_ms[0], "chained_step_ms_median": chained,
+            "items_per_step": count,
+            "items_per_s": count / (chained / 1e3),
+            "parts_ms": parts, "launches": launches,
+            "peak_device_gib": case_peak, "tail_ranking": ranking,
+            "full_batch_step": full, **extra}
+        del emb, model, tabs, ids, calls, made
+    torch.cuda.synchronize()
+    emit("kge", config=KGE_CONFIG, walkers=KGE_WALKERS,
+         entities=train.num_entities, relations=train.num_relations,
+         triples=train.num_triples, graph_build_ms=build_ms, cases=cases,
+         items="positives a step (pair objectives) or windows (skip-gram, "
+               "CBOW)",
+         timing="CUDA events around each step; parts: CUDA events, 1 "
+                "warm-up, median of 3; tail ranking: host clock, raw ranks")
+    emit("kge_kernels", limits=limits, checked_prefix=KGE_CHECK_PREFIX,
+         checks=checks,
+         bounds={c: t["bound_counted"] for c, t in times.items()})
+    for case, by_type in checks.items():
+        for dtype, e in by_type.items():
+            require(e["loss_rel_err"] <= LOSS_REL_LIMIT
+                    and e["grad_rel_err"] <= GRAD_REL_LIMIT,
+                    f"KGE kernel != plain at the main path's shape ({case}, "
+                    f"{dtype}): {e}")
+    rows = []
+    for name, part, main, family, err_key in (
+            ("kge_pair_loss", "loss", "transe",
+             ("transe", "distmult", "rotate"), "loss_abs_err"),
+            ("kge_pair_loss_and_grads", "grads", "transe",
+             ("transe", "distmult", "rotate"), "grad_abs_err"),
+            ("kge_windows_loss", "loss", "skipgram", ("skipgram", "cbow"),
+             "loss_abs_err"),
+            ("kge_windows_loss_and_grads", "grads", "skipgram",
+             ("skipgram", "cbow"), "grad_abs_err")):
+        ms, bound_pair = times[main][part]
+        source, replaces = KERNEL_FACTS[name]
+        by_case = [c for c in times if (c in family or c == "transe_sparse"
+                                        and main == "transe")]
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": totals[name],
+            "max_abs_err": max(checks[c][t][err_key] for c in family
+                               for t in checks[c]),
+            "ms": ms, "plain_ms": checks[main]["float32"]["plain_ms"],
+            "plain_ms_is": f"the first {KGE_CHECK_PREFIX} of the step's "
+                           "items, loss and autograd gradients",
+            "bound_ms": bound_pair[0], "bound_by": bound_pair[1],
+            "bound_counted": times[main]["bound_counted"],
+            "library_ms": None,
+            "ms_by_case": {c: times[c][part][0] for c in by_case},
+            "bound_ms_by_case": {c: times[c][part][1][0] for c in by_case},
+            "sub_launch_ms": {c: times[c]["sub_launch_ms"][part]
+                              for c in by_case}})
+    return rows
+
+
 # --- K7-K10 beside other checkouts' builds, in one process ---------------
 
 PACKAGE = "torch_random_walk_tpu_torch"
@@ -4048,6 +4582,13 @@ def main(argv=None) -> int:
             and all(r["launches"] > 0 and r["max_abs_err"] == 0
                     for r in routed_family_rows),
             "a routed family kernel row is wrong")
+    kge_rows = phase_kge(graph)
+    for r in kge_rows:
+        r["launches_by_run"] = {"kge": r["launches"]}
+    rows += kge_rows
+    require([r["name"] for r in kge_rows] == list(KGE_ROWS)
+            and all(r["launches"] > 0 for r in kge_rows),
+            "a KGE kernel row is missing or was never launched")
     if args.compare:
         phase_compare_kernels(graph, args.compare)
     torch.cuda.synchronize()

@@ -19,6 +19,8 @@ import chip_smoke
 assert "torch_random_walk_tpu_torch.models.skipgram" in sys.modules
 assert "torch_random_walk_tpu_torch.models.node2vec" in sys.modules
 assert "torch_random_walk_tpu_torch.models.cbow" in sys.modules
+assert "torch_random_walk_tpu_torch.models.kge" in sys.modules
+assert "torch_random_walk_tpu_torch.models.eval" in sys.modules
 assert "torch_random_walk_tpu_torch.utils.alias" in sys.modules
 assert "torch_random_walk_tpu_torch.graph.bloom" in sys.modules
 assert "torch_random_walk_tpu_torch.graph.hashset" in sys.modules

@@ -11,8 +11,12 @@ engines (uniform and node2vec CSR, uniform and node2vec edge list, KG
 triples; serial and overlapped schedules, with per-shard cuckoo edge sets and
 Bloom filters), and the trainers ``SkipGramModel`` (blockwise and per-window
 losses; dense Adam, the touched-rows step, or a custom optimizer),
-``CBOWModel`` and ``Node2Vec`` in all its modes (block or windows, dense or
-sparse update, uniform or degree^0.75 negatives).  Sub-packages mirror the
+``CBOWModel``, ``Node2Vec`` in all its modes (block or windows, dense or
+sparse update, uniform or degree^0.75 negatives) and the KG-embedding trainer
+``KGEmbedding`` (``KGEModel``: TransE, DistMult, RotatE, triple skip-gram and
+CBOW; dense or touched-rows Adam), and the evaluations of
+``models/eval.py`` (link-prediction AUCs, node classification, KG tail
+ranking).  Sub-packages mirror the
 JAX package's (``utils``, ``graph``, ``ops``, ``models``, ``parallel``);
 ``kernels`` holds the CUDA sources, their build and their bindings;
 ``convert`` carries graphs and trainer state over from the JAX package.
@@ -48,6 +52,20 @@ from torch_random_walk_tpu_torch.graph.triples import (
     build_relation_tail_index,
 )
 from torch_random_walk_tpu_torch.models.cbow import CBOWModel
+from torch_random_walk_tpu_torch.models.eval import (
+    kg_tail_ranking_metrics,
+    link_prediction_auc,
+    link_prediction_auc_trained,
+    node_classification_accuracy,
+    sample_negative_edges,
+    sbm_oracle_auc,
+)
+from torch_random_walk_tpu_torch.models.kge import (
+    KGEmbedding,
+    KGEmbeddingConfig,
+    KGEModel,
+    corrupt_triples,
+)
 from torch_random_walk_tpu_torch.models.node2vec import Node2Vec, Node2VecConfig
 from torch_random_walk_tpu_torch.models.skipgram import SkipGramModel
 from torch_random_walk_tpu_torch.ops.walk import walk, walk_edge_list, walk_triples
@@ -81,6 +99,9 @@ __all__ = [
     "CBOWModel",
     "CSRGraph",
     "EdgeListGraph",
+    "KGEModel",
+    "KGEmbedding",
+    "KGEmbeddingConfig",
     "Node2Vec",
     "Node2VecConfig",
     "PartitionedCSR",
@@ -95,6 +116,13 @@ __all__ = [
     "build_partition_blooms",
     "build_partition_hashes",
     "build_relation_tail_index",
+    "corrupt_triples",
+    "kg_tail_ranking_metrics",
+    "link_prediction_auc",
+    "link_prediction_auc_trained",
+    "node_classification_accuracy",
+    "sample_negative_edges",
+    "sbm_oracle_auc",
     "synthetic_grid_kg",
     "synthetic_power_law",
     "to_edge_list_indexed",

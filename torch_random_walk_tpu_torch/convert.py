@@ -6,8 +6,9 @@ tables and Bloom filters, handed over as
 numpy arrays (``numpy.asarray(graph.row_ptr)`` and so on; this module imports
 neither JAX nor the JAX package), become the port's objects with the same
 ``max_degree``, ``search_iters`` and ``deg_bits``, so that walks over a
-converted graph equal walks over the original.  The SGNS and CBOW tables, optax's
-Adam state and the touched-rows step's state cross as float32 numpy arrays
+converted graph equal walks over the original.  The SGNS, CBOW and KGE tables,
+optax's Adam state and the touched-rows steps' state cross as float32 numpy
+arrays, keyed as the JAX params are
 (``np.asarray(x.astype(jnp.float32))`` is exact for bfloat16 tables); the port
 casts them to its tables' or moments' type, which is exact on the way back
 too.
@@ -22,6 +23,7 @@ from torch_random_walk_tpu_torch.graph.csr import CSRGraph
 from torch_random_walk_tpu_torch.graph.edge_list import EdgeListGraph
 from torch_random_walk_tpu_torch.graph.triples import TriplesGraph
 from torch_random_walk_tpu_torch.models.cbow import CBOWModel
+from torch_random_walk_tpu_torch.models.kge import KGEModel
 from torch_random_walk_tpu_torch.models.skipgram import SkipGramModel
 from torch_random_walk_tpu_torch.parallel.partition import PartitionedCSR
 from torch_random_walk_tpu_torch.utils.device import resolve_device
@@ -154,48 +156,81 @@ def cbow_to_numpy(model: CBOWModel) -> dict:
     return skipgram_to_numpy(model)
 
 
-def adam_state_from_numpy(model: SkipGramModel, mu: dict, nu: dict,
-                          count: int) -> None:
+def kge_from_numpy(params: dict, objective: str = "transe",
+                   margin: float = 2.0, dtype="float32",
+                   learning_rate: float = 1e-2, optimizer=None,
+                   device=None) -> KGEModel:
+    """The params of a JAX ``KGEModel`` as float32 arrays ({"ent", "rel"} or
+    {"ent_in", "rel_in", "ent_out", "rel_out"}) -> a ``KGEModel`` in
+    ``dtype`` holding them, with zero optimizer state; the entity and
+    relation counts and the dim from the shapes."""
+    ent = np.asarray(params["ent" if "ent" in params else "ent_in"])
+    rel = np.asarray(params["rel" if "rel" in params else "rel_in"])
+    if ent.ndim != 2 or rel.ndim != 2:
+        raise ValueError(f"ent and rel must be 2-d, got {ent.shape} and "
+                         f"{rel.shape}")
+    model = KGEModel(ent.shape[0], rel.shape[0], dim=ent.shape[1],
+                     objective=objective, margin=margin, optimizer=optimizer,
+                     learning_rate=learning_rate, dtype=dtype, device=device)
+    if set(params) != {n for n, _ in model.named_parameters()}:
+        raise ValueError(f"objective {objective!r} takes the tables "
+                         f"{sorted(n for n, _ in model.named_parameters())}, "
+                         f"got {sorted(params)}")
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            param.copy_(_table(params[name], param))
+    return model
+
+
+def kge_to_numpy(model: KGEModel) -> dict:
+    """The KGE tables as float32 numpy arrays, keyed as the JAX params
+    are."""
+    return skipgram_to_numpy(model)
+
+
+def adam_state_from_numpy(model, mu: dict, nu: dict, count: int) -> None:
     """optax's ``ScaleByAdamState`` (``mu`` and ``nu`` as dicts of float32
-    arrays keyed "in_emb"/"out_emb", and the step count) into ``model``."""
-    for name in ("in_emb", "out_emb"):
+    arrays keyed by table name, "in_emb"/"out_emb" or a KGE model's, and the
+    step count) into ``model`` (a ``SkipGramModel``, ``CBOWModel`` or
+    ``KGEModel``), in its moments' type."""
+    for name, _ in model.named_parameters():
         model.mu[name] = _table(mu[name], model.mu[name])
         model.nu[name] = _table(nu[name], model.nu[name])
     model.count = int(count)
 
 
-def skipgram_to_numpy(model: SkipGramModel) -> dict:
+def skipgram_to_numpy(model) -> dict:
     """The tables as float32 numpy arrays, keyed as the JAX params are."""
     return {name: p.detach().float().cpu().numpy()
             for name, p in model.named_parameters()}
 
 
-def adam_state_to_numpy(model: SkipGramModel):
+def adam_state_to_numpy(model):
     """(mu, nu, count) of ``model`` as float32 numpy arrays."""
     mu = {k: v.float().cpu().numpy() for k, v in model.mu.items()}
     nu = {k: v.float().cpu().numpy() for k, v in model.nu.items()}
     return mu, nu, model.count
 
 
-def sparse_state_from_numpy(model: SkipGramModel, state: dict) -> None:
-    """The JAX ``init_sparse_opt_state`` / ``walk_train_step_sparse`` state
-    (``{"mu": {...}, "nu": {...}, "count": c}``, moments as float32 arrays
-    keyed "in_emb"/"out_emb") into ``model``: float32 moments whatever the
-    tables' type."""
-    shape = tuple(model.in_emb.shape)
+def sparse_state_from_numpy(model, state: dict) -> None:
+    """The JAX touched-rows state (``init_sparse_opt_state`` /
+    ``walk_train_step_sparse`` / ``pair_train_step_sparse``: ``{"mu": {...},
+    "nu": {...}, "count": c}``, moments as float32 arrays keyed by table
+    name) into ``model``: float32 moments whatever the tables' type."""
     for key in ("mu", "nu"):
         moments = {}
-        for name in ("in_emb", "out_emb"):
+        for name, param in model.named_parameters():
             x = np.asarray(state[key][name], dtype=np.float32)
-            if x.shape != shape:
-                raise ValueError(f"expected shape {shape}, got {x.shape}")
-            moments[name] = torch.tensor(x, device=model.in_emb.device)
+            if x.shape != tuple(param.shape):
+                raise ValueError(f"expected shape {tuple(param.shape)}, got "
+                                 f"{x.shape}")
+            moments[name] = torch.tensor(x, device=param.device)
         setattr(model, key, moments)
     model.count = int(state["count"])
     model.sparse_state = True
 
 
-def sparse_state_to_numpy(model: SkipGramModel) -> dict:
+def sparse_state_to_numpy(model) -> dict:
     """``model``'s touched-rows state in the JAX layout: {"mu": {...}, "nu":
     {...}, "count": c}, the moments as float32 numpy arrays."""
     return {"mu": {k: v.float().cpu().numpy() for k, v in model.mu.items()},

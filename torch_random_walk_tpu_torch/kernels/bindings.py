@@ -27,7 +27,9 @@ KERNEL_NAMES = ("uniform_walk_csr", "node2vec_walk_csr_mixture",
                 "routed_triples_batch", "routed_edge_list_batch",
                 "routed_edge_list_node2vec_batch", "sgns_windows_loss_fwd",
                 "sgns_windows_loss_bwd", "sgns_windows_loss_and_grads",
-                "adam_dense", "adam_rows")
+                "adam_dense", "adam_rows", "kge_pair_loss",
+                "kge_pair_loss_and_grads", "kge_windows_loss",
+                "kge_windows_loss_and_grads")
 launch_counts = dict.fromkeys(KERNEL_NAMES, 0)
 
 _lib = None
@@ -50,6 +52,30 @@ class _WindowsGradCall(ctypes.Structure):
         + [(name, _I32) for name in (
             "in_cols", "out_cols", "num_nodes", "dim", "elem_bytes", "vec",
             "cbow", "heavy_slots")])
+
+
+class _KgePairCall(ctypes.Structure):
+    """One call of K19 (kge_pair.cu ``PairCall``)."""
+    _fields_ = ([(name, _PTR) for name in (
+        "ent", "rel", "pos", "neg", "valid", "count", "partial", "loss",
+        "grad_loss", "grad_ent", "grad_rel")]
+        + [("num_pos", _I64)]
+        + [(name, _I32) for name in (
+            "num_neg", "num_ent", "num_rel", "dim", "score", "elem_bytes",
+            "vec")]
+        + [("margin", _F32)])
+
+
+class _KgeWindowsCall(ctypes.Structure):
+    """One call of K20 (kge_windows.cu ``WindowsCall``)."""
+    _fields_ = ([(name, _PTR) for name in (
+        "ent_in", "rel_in", "ent_out", "rel_out", "center", "pos", "neg",
+        "count", "partial", "loss", "grad_loss", "grad_ent_in", "grad_rel_in",
+        "grad_ent_out", "grad_rel_out")]
+        + [("num_windows", _I64)]
+        + [(name, _I32) for name in (
+            "cols", "num_ent", "num_rel", "dim", "padding_idx", "cbow",
+            "elem_bytes", "vec")])
 
 
 def reset_launch_counts() -> None:
@@ -117,6 +143,13 @@ def library(verbose: bool = False) -> ctypes.CDLL:
         lib.trw_adam_dense.argtypes = [_I64, _I32] + [_F32] * 8 + [_PTR] * 5
         lib.trw_adam_rows.argtypes = ([_I64, _I32, _I32, _I32, _I32]
                                       + [_F32] * 8 + [_PTR] * 7)
+        lib.trw_kge_pair_grid.argtypes = [_I64, _I32]
+        lib.trw_kge_windows_grid.argtypes = [_I64, _I32]
+        for fn in (lib.trw_kge_pair_loss, lib.trw_kge_pair_loss_and_grads):
+            fn.argtypes = [ctypes.POINTER(_KgePairCall), _PTR]
+        for fn in (lib.trw_kge_windows_loss,
+                   lib.trw_kge_windows_loss_and_grads):
+            fn.argtypes = [ctypes.POINTER(_KgeWindowsCall), _PTR]
         for fn in (lib.trw_routed_uniform_phase, lib.trw_routed_node2vec_phase,
                    lib.trw_routed_start, lib.trw_routed_triples_batch,
                    lib.trw_routed_edge_list_batch,
@@ -134,7 +167,10 @@ def library(verbose: bool = False) -> ctypes.CDLL:
                    lib.trw_sgns_windows_grid, lib.trw_sgns_windows_loss_fwd,
                    lib.trw_sgns_windows_grads_begin,
                    lib.trw_sgns_windows_grads_end, lib.trw_adam_dense,
-                   lib.trw_adam_rows):
+                   lib.trw_adam_rows, lib.trw_kge_pair_grid,
+                   lib.trw_kge_windows_grid, lib.trw_kge_pair_loss,
+                   lib.trw_kge_pair_loss_and_grads, lib.trw_kge_windows_loss,
+                   lib.trw_kge_windows_loss_and_grads):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -153,6 +189,11 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
                          f"shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _ptr(t):
+    """A tensor's device pointer, or None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()
 
 
 def _device_index(device: torch.device) -> int:
@@ -828,16 +869,13 @@ def _windows_grads(in_emb, out_emb, in_ids, pos, neg, cbow: bool, grad_loss,
     h = torch.empty((num_windows, dim), **f32) if cbow else None
     partial, loss = (_windows_partials(args, dev) if with_loss
                      else (None, None))
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     call = _WindowsGradCall(
-        in_ids=ptr(in_ids), pos=ptr(pos), neg=ptr(neg), in_emb=ptr(in_emb),
-        out_emb=ptr(out_emb), partial=ptr(partial), loss=ptr(loss),
-        grad_loss=ptr(grad_loss), h=ptr(h), grad_in=ptr(grad_in),
-        grad_out=ptr(grad_out), sort=ptr(sort), entries=ptr(entries),
-        heavy=ptr(heavy), num_windows=num_windows, in_cols=in_cols,
+        in_ids=_ptr(in_ids), pos=_ptr(pos), neg=_ptr(neg),
+        in_emb=_ptr(in_emb), out_emb=_ptr(out_emb), partial=_ptr(partial),
+        loss=_ptr(loss), grad_loss=_ptr(grad_loss), h=_ptr(h),
+        grad_in=_ptr(grad_in), grad_out=_ptr(grad_out), sort=_ptr(sort),
+        entries=_ptr(entries), heavy=_ptr(heavy), num_windows=num_windows,
+        in_cols=in_cols,
         out_cols=out_cols, num_nodes=num_nodes, dim=dim, elem_bytes=elem,
         vec=vec, cbow=int(cbow), heavy_slots=SGNS_WINDOWS_HEAVY_SLOTS)
     lib, index = library(), _device_index(dev)
@@ -946,6 +984,198 @@ def adam_rows(param, mu, nu, grad, ids, flag, lr, b1, b2, eps, bc1,
             *_adam_hyper(lr, b1, b2, eps, bc1, bc2), ids.data_ptr(),
             None if flag is None else flag.data_ptr(), grad.data_ptr(),
             param.data_ptr(), mu.data_ptr(), nu.data_ptr())
+
+
+# K19 and K20 take rows as K16 does (D up to 512, 16-byte loads where the
+# row width is a multiple of the load width and the tables are 16-byte
+# aligned, else one element a lane).  K19's scores, by the kernel's ids.
+KGE_MAX_DIM = 512
+KGE_SCORES = {"transe": 0, "distmult": 1, "rotate": 2}
+
+
+def _vec_width(tables, width: int) -> int:
+    wide = 16 // tables[0].element_size()
+    aligned = all(t.data_ptr() % 16 == 0 for t in tables)
+    return wide if width % wide == 0 and aligned else 1
+
+
+def _mean_scratch(grid_fn, items: int, vec: int, device) -> tuple:
+    """The masked mean's device count (zero), per-block partials and loss."""
+    with torch.cuda.device(device):
+        grid = grid_fn(items, vec)
+    return (torch.zeros((1,), dtype=torch.int32, device=device),
+            torch.empty((grid,), dtype=torch.float32, device=device),
+            torch.empty((), dtype=torch.float32, device=device))
+
+
+def _check_pair(ent, rel, pos, neg, valid, score: str) -> tuple:
+    """The checks of K19's entries.  ``pos`` (B, 3) and ``neg`` (B, K, 3)
+    int32 with components in range, ``valid`` (B,) uint8.  Returns (D, P,
+    vec): P the relation rows' width (D, or D / 2 for RotatE)."""
+    if score not in KGE_SCORES:
+        raise ValueError(f"unknown score {score!r}; expected one of "
+                         f"{tuple(KGE_SCORES)}")
+    if not isinstance(ent, torch.Tensor) or ent.dtype not in _TABLE_DTYPES:
+        raise ValueError("the tables must be float32 or bfloat16 tensors")
+    dev = ent.device
+    _check("ent", ent, ent.dtype, 2)
+    _check("rel", rel, ent.dtype, 2, dev)
+    _check("pos", pos, torch.int32, 2, dev)
+    _check("neg", neg, torch.int32, 3, dev)
+    _check("valid", valid, torch.uint8, 1, dev)
+    num_ent, dim = ent.shape
+    width = dim // 2 if score == "rotate" else dim
+    if score == "rotate" and dim % 2:
+        raise ValueError(f"rotate needs an even dim, got {dim}")
+    if rel.shape[1] != width or rel.shape[0] < 1 or num_ent < 1:
+        raise ValueError(f"rel must be (R, {width}) beside ent "
+                         f"{tuple(ent.shape)}, got {tuple(rel.shape)}")
+    if not 1 <= width <= dim <= KGE_MAX_DIM or num_ent >= 2 ** 31:
+        raise ValueError(f"tables of shape {tuple(ent.shape)} are not "
+                         f"supported (dim <= {KGE_MAX_DIM})")
+    b = pos.shape[0]
+    if pos.shape[1] != 3 or neg.shape[0] != b or neg.shape[2] != 3 or (
+            valid.shape[0] != b):
+        raise ValueError(f"pos (B, 3), neg (B, K, 3) and valid (B,) expected,"
+                         f" got {tuple(pos.shape)}, {tuple(neg.shape)} and "
+                         f"{tuple(valid.shape)}")
+    if b < 1:
+        raise ValueError("at least one positive is required")
+    return dim, width, _vec_width((ent, rel), width)
+
+
+def _kge_pair(ent, rel, pos, neg, valid, score: str, margin: float,
+              grads: bool, grad_loss=None):
+    dim, width, vec = _check_pair(ent, rel, pos, neg, valid, score)
+    dev = ent.device
+    count, partial, loss = _mean_scratch(library().trw_kge_pair_grid,
+                                         pos.shape[0], vec, dev)
+    grad_ent = grad_rel = None
+    if grads:
+        grad_ent = torch.zeros(ent.shape, dtype=torch.float32, device=dev)
+        grad_rel = torch.zeros(rel.shape, dtype=torch.float32, device=dev)
+    call = _KgePairCall(
+        ent=_ptr(ent), rel=_ptr(rel), pos=_ptr(pos), neg=_ptr(neg),
+        valid=_ptr(valid), count=_ptr(count), partial=_ptr(partial),
+        loss=_ptr(loss), grad_loss=_ptr(grad_loss), grad_ent=_ptr(grad_ent),
+        grad_rel=_ptr(grad_rel), num_pos=pos.shape[0],
+        num_neg=neg.shape[1], num_ent=ent.shape[0], num_rel=rel.shape[0],
+        dim=dim, score=KGE_SCORES[score], elem_bytes=ent.element_size(),
+        vec=vec, margin=float(margin))
+    name = "kge_pair_loss_and_grads" if grads else "kge_pair_loss"
+    _launch(name, getattr(library(), "trw_" + name), _device_index(dev),
+            ctypes.byref(call))
+    return loss, grad_ent, grad_rel
+
+
+def kge_pair_loss(ent, rel, pos, neg, valid, score: str,
+                  margin: float) -> torch.Tensor:
+    """K19, loss only: the masked-mean logistic NEG loss of the pair
+    objective ``score`` ("transe", "distmult", "rotate"), a float32 scalar on
+    the device; equal inputs give equal bits.  ``ent`` (N_e, D), ``rel``
+    (N_r, D) or, for RotatE, (N_r, D / 2) phases; ``pos`` (B, 3) and ``neg``
+    (B, K, 3) int32 triples with every component in range; ``valid`` (B,)
+    uint8, a positive's weight."""
+    return _kge_pair(ent, rel, pos, neg, valid, score, margin, False)[0]
+
+
+def kge_pair_loss_and_grads(ent, rel, pos, neg, valid, score: str,
+                            margin: float, grad_loss=None):
+    """K19, the loss and its gradient in one pass: (the loss, K19's loss-only
+    bits; the float32 gradients of ``ent`` and ``rel``, times the float32
+    device scalar ``grad_loss`` where it is given)."""
+    if grad_loss is not None:
+        _check("grad_loss", grad_loss, torch.float32, 0, ent.device)
+    return _kge_pair(ent, rel, pos, neg, valid, score, margin, True,
+                     grad_loss)
+
+
+def _check_kge_windows(tables, center, pos, neg, cbow: bool) -> tuple:
+    """The checks of K20's entries.  ``tables`` (ent_in, rel_in, ent_out,
+    rel_out) of one type and width D.  Skip-gram: ``center`` the targets
+    (B, 3), ``pos`` and ``neg`` (B, C, 3); CBOW: ``center`` the windows (B,
+    C, 3), ``pos`` and ``neg`` (B, 3).  Returns (B, C, D, vec)."""
+    ent = tables[0]
+    if not isinstance(ent, torch.Tensor) or ent.dtype not in _TABLE_DTYPES:
+        raise ValueError("the tables must be float32 or bfloat16 tensors")
+    dev = ent.device
+    for name, t in zip(("ent_in", "rel_in", "ent_out", "rel_out"), tables):
+        _check(name, t, ent.dtype, 2, dev)
+    one, many = (pos, center) if cbow else (center, pos)
+    _check("windows" if cbow else "targets", center, torch.int32,
+           3 if cbow else 2, dev)
+    _check("pos", pos, torch.int32, 2 if cbow else 3, dev)
+    _check("neg", neg, torch.int32, 2 if cbow else 3, dev)
+    num_ent, dim = ent.shape
+    num_rel = tables[1].shape[0]
+    if (tables[2].shape != ent.shape or tables[3].shape != tables[1].shape
+            or tables[1].shape[1] != dim or num_rel < 1 or num_ent < 1):
+        raise ValueError("ent_in and ent_out must be (N_e, D), rel_in and "
+                         "rel_out (N_r, D)")
+    if not 1 <= dim <= KGE_MAX_DIM or num_ent >= 2 ** 31:
+        raise ValueError(f"tables of shape {tuple(ent.shape)} are not "
+                         f"supported (dim <= {KGE_MAX_DIM})")
+    b = one.shape[0]
+    if (one.shape != (b, 3) or many.shape[0] != b or many.shape[2] != 3
+            or neg.shape != pos.shape):
+        raise ValueError("windows of mismatched shapes: "
+                         f"{tuple(center.shape)}, {tuple(pos.shape)}, "
+                         f"{tuple(neg.shape)}")
+    if b < 1 or many.shape[1] < 1:
+        raise ValueError("at least one window of one slot is required")
+    return b, many.shape[1], dim, _vec_width(tables, dim)
+
+
+def _kge_windows(tables, center, pos, neg, padding_idx: int, cbow: bool,
+                 grads: bool, grad_loss=None):
+    b, cols, dim, vec = _check_kge_windows(tables, center, pos, neg, cbow)
+    dev = tables[0].device
+    count, partial, loss = _mean_scratch(library().trw_kge_windows_grid, b,
+                                         vec, dev)
+    gts = [None] * 4
+    if grads:
+        gts = [torch.zeros(t.shape, dtype=torch.float32, device=dev)
+               for t in tables]
+    call = _KgeWindowsCall(
+        ent_in=_ptr(tables[0]), rel_in=_ptr(tables[1]),
+        ent_out=_ptr(tables[2]), rel_out=_ptr(tables[3]),
+        center=_ptr(center), pos=_ptr(pos), neg=_ptr(neg), count=_ptr(count),
+        partial=_ptr(partial), loss=_ptr(loss), grad_loss=_ptr(grad_loss),
+        grad_ent_in=_ptr(gts[0]), grad_rel_in=_ptr(gts[1]),
+        grad_ent_out=_ptr(gts[2]), grad_rel_out=_ptr(gts[3]),
+        num_windows=b, cols=cols, num_ent=tables[0].shape[0],
+        num_rel=tables[1].shape[0], dim=dim,
+        padding_idx=int(padding_idx), cbow=int(cbow),
+        elem_bytes=tables[0].element_size(), vec=vec)
+    name = "kge_windows_loss_and_grads" if grads else "kge_windows_loss"
+    _launch(name, getattr(library(), "trw_" + name), _device_index(dev),
+            ctypes.byref(call))
+    return loss, gts
+
+
+def kge_windows_loss(tables, a, b, c, padding_idx: int,
+                     cbow: bool = False) -> torch.Tensor:
+    """K20, loss only: the masked-mean skip-gram (``a, b, c`` = targets (B,
+    3), positive and negative windows (B, C, 3)) or CBOW (``a, b, c`` =
+    positive and negative triples (B, 3), windows (B, C, 3)) loss over
+    composed triples, a float32 scalar on the device; equal inputs give equal
+    bits.  ``tables`` (ent_in, rel_in, ent_out, rel_out), (N, D) each; the
+    argument order is the JAX loss functions'."""
+    center, pos, neg = (c, a, b) if cbow else (a, b, c)
+    return _kge_windows(tables, center, pos, neg, padding_idx, cbow,
+                        False)[0]
+
+
+def kge_windows_loss_and_grads(tables, a, b, c, padding_idx: int,
+                               cbow: bool = False, grad_loss=None):
+    """K20, the loss and its gradient in one pass: (the loss, K20's loss-only
+    bits; the four float32 gradient tables, times the float32 device scalar
+    ``grad_loss`` where it is given)."""
+    if grad_loss is not None:
+        _check("grad_loss", grad_loss, torch.float32, 0, tables[0].device)
+    center, pos, neg = (c, a, b) if cbow else (a, b, c)
+    return _kge_windows(tables, center, pos, neg, padding_idx, cbow, True,
+                        grad_loss)
 
 
 # The routed phase kernels (K11-K15) take up to 256 shards (routed.cuh

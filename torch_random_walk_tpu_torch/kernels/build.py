@@ -24,9 +24,10 @@ SOURCE_DIR = Path(__file__).resolve().parent
 SOURCES = ("uniform_walk.cu", "node2vec_walk.cu", "windows.cu", "exchange.cu",
            "sgns_loss.cu", "sgns_loss_tc.cu", "edge_list_walk.cu",
            "triples.cu", "routed.cu", "routed_families.cu", "sgns_windows.cu",
-           "sgns_windows_owner.cu", "adam.cu")
+           "sgns_windows_owner.cu", "adam.cu", "kge_pair.cu",
+           "kge_windows.cu")
 HEADERS = ("threefry.cuh", "csr.cuh", "ranges.cuh", "sgns_loss.cuh",
-           "routed.cuh", "exchange.cuh", "sgns_windows.cuh")
+           "routed.cuh", "exchange.cuh", "sgns_windows.cuh", "kge.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 

@@ -103,13 +103,6 @@ __device__ __forceinline__ void place_slot(const Sort& st, int num_nodes,
     st.heavy[atomicAdd(st.sort + num_nodes, 1)] = (int32_t)p.row;
 }
 
-template <int G>
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int m = G / 2; m > 0; m >>= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
-  return x;
-}
-
 // Lane `lane`'s pieces of rows[u] (row index, or -1: nothing loaded).
 template <typename T, int V, int K, int B>
 __device__ __forceinline__ void load_rows(
@@ -124,20 +117,6 @@ __device__ __forceinline__ void load_rows(
       if (rows[u] >= 0 && at < dim)
         r[u][k] = RowIO<T, V>::load(table + rows[u] * dim + at);
     }
-}
-
-template <int V>
-__device__ __forceinline__ void atomic_add_floats(float* p,
-                                                  const float (&v)[V]) {
-  if constexpr (V == 1) {
-    atomicAdd(p, v[0]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < V / 4; ++i)
-      atomicAdd(reinterpret_cast<float4*>(p) + i,
-                make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2],
-                            v[4 * i + 3]));
-  }
 }
 
 template <typename T, int V, int K, bool kCbow, bool kGrad>

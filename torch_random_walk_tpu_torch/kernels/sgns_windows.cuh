@@ -1,8 +1,10 @@
 // What the two sources of K16/K17 share (sgns_windows.cu: the per-window
 // pass; sgns_windows_owner.cu: the histogram of the out slots and the owner
 // passes): the launch constants, a group's share of a row, 16-byte row
-// loads, float row stores, the dispatch on the load width and the number of
-// row pieces a lane holds, and the layout of K17's counting sort.
+// loads, float row stores and atomic row adds, the group sum, the dispatch
+// on the load width and the number of row pieces a lane holds, and the
+// layout of K17's counting sort.  The KGE kernels K19 and K20 (kge.cuh)
+// take their rows the same way.
 
 #pragma once
 
@@ -94,6 +96,30 @@ __device__ __forceinline__ void store_floats(float* p, const float (&v)[V]) {
       reinterpret_cast<float4*>(p)[i] =
           make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
   }
+}
+
+// V float32 values added to p (float4 atomics where V > 1, sm_90's vector
+// atomics).
+template <int V>
+__device__ __forceinline__ void atomic_add_floats(float* p,
+                                                  const float (&v)[V]) {
+  if constexpr (V == 1) {
+    atomicAdd(p, v[0]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V / 4; ++i)
+      atomicAdd(reinterpret_cast<float4*>(p) + i,
+                make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2],
+                            v[4 * i + 3]));
+  }
+}
+
+// The sum of x over the G lanes of a group (the whole warp takes part).
+template <int G>
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int m = G / 2; m > 0; m >>= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
+  return x;
 }
 
 // Run f(integral_constant<V>, integral_constant<K>) for rows of `dim`

@@ -39,8 +39,6 @@ from torch_random_walk_tpu_torch.ops.windows import to_windows
 from torch_random_walk_tpu_torch.utils import alias, prng
 from torch_random_walk_tpu_torch.utils.device import resolve_device
 
-_EPOCH_STRIDE = 0x9E3779B1
-
 
 @dataclasses.dataclass(frozen=True)
 class Node2VecConfig:
@@ -115,8 +113,7 @@ class Node2Vec:
     def step_seed(self, epoch: int) -> int:
         """uint32(seed) + uint32(epoch) * 0x9E3779B1, wrapping: the seed of
         the epoch's walks and of its shared negatives."""
-        return ((int(self.config.seed) & prng.MASK32)
-                + (int(epoch) & prng.MASK32) * _EPOCH_STRIDE) & prng.MASK32
+        return prng.epoch_seed(self.config.seed, epoch)
 
     def walks(self, targets, epoch: int) -> torch.Tensor:
         """The walks of one epoch step.  They go through ``walk(graph,

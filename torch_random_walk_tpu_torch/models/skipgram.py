@@ -406,40 +406,40 @@ def windows_loss_and_grads(in_emb, out_emb, in_ids, pos, neg, cbow: bool):
     return loss.detach(), [g.float() for g in grads]
 
 
-class EmbeddingTables(nn.Module):
-    """Two (num_nodes, dim) tables, ``in_emb`` and ``out_emb``, in ``dtype``
-    ("float32" or "bfloat16"), with their optimizer: dense Adam (K18 on the
-    card) or a custom ``optimizer`` factory.  ``device=None`` means the
-    card.  The base of ``SkipGramModel`` and ``CBOWModel``."""
+def table_dtype(dtype) -> torch.dtype:
+    """"float32", "bfloat16" or the torch type -> the torch type; raises on
+    any other."""
+    if isinstance(dtype, str):
+        if dtype not in _DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, "
+                             f"got {dtype!r}")
+        dtype = _DTYPES[dtype]
+    if dtype not in _DTYPES.values():
+        raise ValueError(f"dtype {dtype} is not supported")
+    return dtype
 
-    def __init__(self, num_nodes: int, dim: int = 128, optimizer=None,
-                 dtype="float32", learning_rate: float | None = None,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 device=None):
+
+class AdamTables(nn.Module):
+    """Named tables of one type, float32 or bfloat16, with their optimizer:
+    dense Adam over every table (K18 on the card) or a custom ``optimizer``
+    factory, and the touched-rows state (``init_sparse_opt_state``).  A
+    subclass registers its tables as parameters and then calls
+    ``reset_optimizer``.  ``dense_hparams`` are the (b1, b2, eps) of the
+    dense update; ``b1``, ``b2`` and ``eps`` those of the touched-rows one.
+    The base of ``EmbeddingTables`` and ``models/kge.py::KGEModel``."""
+
+    def __init__(self, dtype, optimizer, learning_rate: float, b1: float,
+                 b2: float, eps: float, sparse_hparams_ok: bool):
         super().__init__()
-        if isinstance(dtype, str):
-            if dtype not in _DTYPES:
-                raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, "
-                                 f"got {dtype!r}")
-            dtype = _DTYPES[dtype]
-        if dtype not in _DTYPES.values():
-            raise ValueError(f"dtype {dtype} is not supported")
+        self.dtype = table_dtype(dtype)
         if optimizer is not None and not callable(optimizer):
             raise TypeError("optimizer must be a factory, params -> "
                             "torch.optim.Optimizer")
-        dev = resolve_device(device)
-        self.num_nodes, self.dim, self.dtype = int(num_nodes), int(dim), dtype
-        # A custom optimizer is opaque: the touched-rows step runs only if
-        # learning_rate= came with it (the JAX rule).
-        self._sparse_hparams_ok = optimizer is None or learning_rate is not None
+        self._sparse_hparams_ok = sparse_hparams_ok
         self._optimizer_factory = optimizer
-        self.learning_rate = 1e-3 if learning_rate is None else learning_rate
+        self.learning_rate = learning_rate
         self.b1, self.b2, self.eps = b1, b2, eps
-        shape = (self.num_nodes, self.dim)
-        self.in_emb = nn.Parameter(torch.zeros(shape, dtype=dtype, device=dev))
-        self.out_emb = nn.Parameter(torch.zeros(shape, dtype=dtype,
-                                                device=dev))
-        self.reset_optimizer()
+        self.dense_hparams = (b1, b2, eps)
 
     def reset_optimizer(self) -> None:
         """Zero moments and step count (optax's ``init``), or a fresh custom
@@ -447,8 +447,7 @@ class EmbeddingTables(nn.Module):
         self.optimizer = None
         self.sparse_state = False
         if self._optimizer_factory is not None:
-            self.optimizer = self._optimizer_factory([self.in_emb,
-                                                      self.out_emb])
+            self.optimizer = self._optimizer_factory(list(self.parameters()))
             self.mu, self.nu = {}, {}
         else:
             self.mu = {n: torch.zeros_like(p)
@@ -457,22 +456,18 @@ class EmbeddingTables(nn.Module):
                        for n, p in self.named_parameters()}
         self.count = 0
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        """``in_emb`` uniform in +-1/sqrt(dim), drawn in float32 from
-        ``generator`` (which lives on the tables' device), ``out_emb`` zero;
-        the optimizer state is reset too.  Not the numbers ``jax.random``
-        gives for the same seed."""
-        scale = 1.0 / self.dim ** 0.5
-        draw = torch.empty(self.in_emb.shape, dtype=torch.float32,
-                           device=self.in_emb.device)
-        draw.uniform_(-scale, scale, generator=generator)
-        with torch.no_grad():
-            self.in_emb.copy_(draw)
-            self.out_emb.zero_()
-        self.reset_optimizer()
+    def init_sparse_opt_state(self) -> None:
+        """State of the touched-rows step: float32 moments shaped like the
+        tables whatever their type, and the global step count at 0."""
+        self.mu = {n: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device)
+                   for n, p in self.named_parameters()}
+        self.nu = {n: torch.zeros_like(m) for n, m in self.mu.items()}
+        self.count = 0
+        self.sparse_state = True
 
     def _as_ids(self, *ids):
-        dev = self.in_emb.device
+        dev = next(self.parameters()).device
         return [common.as_int32(x, dev) for x in ids]
 
     @torch.no_grad()
@@ -492,28 +487,84 @@ class EmbeddingTables(nn.Module):
 
     @torch.no_grad()
     def adam_update(self, grads: dict) -> None:
-        """Dense Adam over both tables from float32 gradients (consumed: they
+        """Dense Adam over every table from float32 gradients (consumed: they
         serve as scratch): K18's dense entry on the card, its plain version
         on the CPU.  See the module docstring for where it rounds."""
         if self.optimizer is not None:
             raise ValueError("this model steps a custom optimizer; use "
                              "apply_gradients")
         if self.sparse_state:
-            raise ValueError("the model holds the touched-rows state of "
-                             "walk_train_step_sparse; reset_optimizer() first")
+            raise ValueError("the model holds the touched-rows state of its "
+                             "sparse step; reset_optimizer() first")
         self.count += 1
-        bc1 = self._bias_correction(self.b1)
-        bc2 = self._bias_correction(self.b2)
-        update = bindings.adam_dense if self.in_emb.is_cuda else adam_dense_plain
+        b1, b2, eps = self.dense_hparams
+        bc1 = self._bias_correction(b1)
+        bc2 = self._bias_correction(b2)
         for name, param in self.named_parameters():
+            update = bindings.adam_dense if param.is_cuda else adam_dense_plain
             update(param.data, self.mu[name], self.nu[name], grads[name],
-                   self.learning_rate, self.b1, self.b2, self.eps, bc1, bc2)
+                   self.learning_rate, b1, b2, eps, bc1, bc2)
 
     def _bias_correction(self, decay: float) -> float:
         """optax's ``1 - decay ** count``, computed in float32 and then cast
         to the moments' type."""
         bc = sparse_bias_correction(decay, self.count)
         return float(torch.tensor(bc).to(self.dtype))
+
+    @torch.no_grad()
+    def adam_rows_update(self, updates) -> None:
+        """The lazy Adam update of a touched-rows step (count one step):
+        ``updates`` holds (table name, float32 gradient rows, ids, flag) per
+        table, as ``adam_rows_plain`` takes them (K18's rows entry on the
+        card)."""
+        self.count += 1
+        bc1 = sparse_bias_correction(self.b1, self.count)
+        bc2 = sparse_bias_correction(self.b2, self.count)
+        for name, grad, rows, flag in updates:
+            param = getattr(self, name)
+            update = bindings.adam_rows if param.is_cuda else adam_rows_plain
+            update(param.data, self.mu[name], self.nu[name], grad, rows, flag,
+                   self.learning_rate, self.b1, self.b2, self.eps, bc1, bc2)
+
+
+class EmbeddingTables(AdamTables):
+    """Two (num_nodes, dim) tables, ``in_emb`` and ``out_emb``, in ``dtype``
+    ("float32" or "bfloat16"), with their optimizer (``AdamTables``).
+    ``device=None`` means the card.  The base of ``SkipGramModel`` and
+    ``CBOWModel``."""
+
+    def __init__(self, num_nodes: int, dim: int = 128, optimizer=None,
+                 dtype="float32", learning_rate: float | None = None,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 device=None):
+        # A custom optimizer is opaque: the touched-rows step runs only if
+        # learning_rate= came with it (the JAX rule).
+        super().__init__(dtype, optimizer,
+                         1e-3 if learning_rate is None else learning_rate,
+                         b1, b2, eps,
+                         optimizer is None or learning_rate is not None)
+        dev = resolve_device(device)
+        self.num_nodes, self.dim = int(num_nodes), int(dim)
+        shape = (self.num_nodes, self.dim)
+        self.in_emb = nn.Parameter(torch.zeros(shape, dtype=self.dtype,
+                                               device=dev))
+        self.out_emb = nn.Parameter(torch.zeros(shape, dtype=self.dtype,
+                                                device=dev))
+        self.reset_optimizer()
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """``in_emb`` uniform in +-1/sqrt(dim), drawn in float32 from
+        ``generator`` (which lives on the tables' device), ``out_emb`` zero;
+        the optimizer state is reset too.  Not the numbers ``jax.random``
+        gives for the same seed."""
+        scale = 1.0 / self.dim ** 0.5
+        draw = torch.empty(self.in_emb.shape, dtype=torch.float32,
+                           device=self.in_emb.device)
+        draw.uniform_(-scale, scale, generator=generator)
+        with torch.no_grad():
+            self.in_emb.copy_(draw)
+            self.out_emb.zero_()
+        self.reset_optimizer()
 
     def _windows_step(self, in_ids, pos, neg, cbow: bool):
         loss, grads = windows_loss_and_grads(self.in_emb, self.out_emb,
@@ -587,16 +638,6 @@ class SkipGramModel(EmbeddingTables):
 
     # --- the touched-rows step ---------------------------------------------------
 
-    def init_sparse_opt_state(self) -> None:
-        """State of ``walk_train_step_sparse``: float32 moments shaped like
-        the tables whatever their type, and the global step count at 0."""
-        self.mu = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
-                   for n, p in self.named_parameters()}
-        self.nu = {n: torch.zeros_like(m) for n, m in self.mu.items()}
-        self.count = 0
-        self.sparse_state = True
-
     def gather_touched_rows(self, walks, neg_ids):
         """The dedup and gathers of the touched-rows step: (ids (M,) sorted
         unique rows of ``walks ++ neg_ids`` padded with N, walk locations
@@ -641,19 +682,12 @@ class SkipGramModel(EmbeddingTables):
         return ((touched_row_ids(ids, center, n), center),
                 (touched_row_ids(ids, None, n), None))
 
-    @torch.no_grad()
     def update_touched_rows(self, ids, out_loc, grad_in, grad_out,
                             window_size: int) -> None:
         """The lazy Adam update of the touched-rows step from the float32
         gradients of the two gathered sub-tables (K18's rows entry on the
         card)."""
-        self.count += 1
-        bc1 = sparse_bias_correction(self.b1, self.count)
-        bc2 = sparse_bias_correction(self.b2, self.count)
-        update = bindings.adam_rows if self.in_emb.is_cuda else adam_rows_plain
         writes = self.touched_row_writes(ids, out_loc, window_size)
-        for name, grad, (rows, flag) in zip(("in_emb", "out_emb"),
-                                            (grad_in, grad_out), writes):
-            update(getattr(self, name).data, self.mu[name], self.nu[name],
-                   grad, rows, flag, self.learning_rate, self.b1, self.b2,
-                   self.eps, bc1, bc2)
+        self.adam_rows_update([
+            (name, grad, rows, flag) for name, grad, (rows, flag) in zip(
+                ("in_emb", "out_emb"), (grad_in, grad_out), writes)])

@@ -44,6 +44,9 @@ STREAM_KGE_NEG = 10
 # Max rejection rounds folded into one step's counter space.
 MAX_ROUNDS_PER_STEP = 1 << 16
 
+# The trainers' per-epoch seed stride (the golden-ratio word).
+EPOCH_STRIDE = 0x9E3779B1
+
 
 def as_u32(x, device=None):
     """Integer tensor/array/int -> ``int64`` tensor holding the value's low
@@ -84,6 +87,14 @@ def derive_key(seed: int, stream: int) -> tuple[int, int]:
     width; folded to 64 bits, low word first) and a stream id."""
     seed = int(seed) & 0xFFFFFFFFFFFFFFFF
     return threefry2x32(seed & MASK32, seed >> 32, int(stream), 0x9E3779B9)
+
+
+def epoch_seed(seed: int, epoch: int) -> int:
+    """uint32(seed) + uint32(epoch) * 0x9E3779B1, wrapping, as a Python int
+    in [0, 2^32): the seed of a trainer's epoch step, as the JAX trainers
+    compute it in uint32 (so never the large-seed path of ``derive_key``)."""
+    return ((int(seed) & MASK32)
+            + (int(epoch) & MASK32) * EPOCH_STRIDE) & MASK32
 
 
 def counter_bits(key, c0, c1):
