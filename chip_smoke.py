@@ -48,9 +48,13 @@ and CBOW, one warm and three chained ``epoch_step``s each through K9, K10,
 K19 or K20 and K18, the first step's loss again from the same tables, the
 parts of a step, K19 and K20 (both entries, both table types) against
 their plain versions on a prefix of the step's own positives or windows
-and at the edges (``kge_small_checks``), and the tail ranking of the
-held-out triples against all entities (``phase_kge``).  It checks the
-results and
+and at the edges (``kge_small_checks``: a relation every item has, and
+relation vocabularies just under and just over the shared-memory budget of
+the relation rows' sums), each entry's device time by launch, the relation
+path it took and its global row adds counted from its inputs (``kge_kernels``
+line), and the tail ranking of the held-out triples against all entities
+(``phase_kge``); the ``build`` line gives K19's and K20's registers,
+spills and atomic instructions.  It checks the results and
 measures every kernel at the shape the main path gives it; the two loss
 kernels also with float32 tables, each with its tile plan and its device time
 by kernel.  The ``build`` line reports each loss kernel's registers and
@@ -96,7 +100,10 @@ last a ``train_window_comparison`` line, K16 and K17 (and the fused entry
 where a checkout has it) on the bench train step's windows, skip-gram on
 bfloat16 and CBOW on float32 tables, and each checkout's windows-mode and
 CBOW ``train_step`` from the same tables on the same windows, the same
-way.  Without arguments it needs one card and nothing else.
+way; and a ``kge_comparison`` line, K19 (TransE, RotatE) and K20
+(skip-gram, CBOW), both entries, and each checkout's KGE ``train_step``
+from the same tables on the same batch, the same way.  Without arguments
+it needs one card and nothing else.
 
 Every kernel is held against its plain version on all the rows the main path
 gives it.  The routed legs (``phase_routed``) hold K11 and K12 against the
@@ -252,6 +259,12 @@ KGE_ROWS = ("kge_pair_loss", "kge_pair_loss_and_grads", "kge_windows_loss",
 # held against the kernels on this prefix of the step's positives or
 # windows, both kernels' entries run on the same prefix.
 KGE_CHECK_PREFIX = 262_144
+# The most global row adds the redesigned K19 and K20 make an item at the
+# bench shape (K = 4; W = 3): a positive's h and t and its 4 negatives' own
+# rows; a skip-gram window's 2 in rows, at most 8 distinct positive entity
+# rows (each positive's tail is the next one's head) and 12 negative ones,
+# its relation rows summed on chip.
+KGE_MOST_ADDS_PAIR, KGE_MOST_ADDS_SKIPGRAM = 6, 22
 
 # Peaks of one H100 SXM at its full 700 W limit (NVIDIA data sheet): device
 # memory rate; dense tensor-core peaks by table type (bfloat16; float32
@@ -840,7 +853,8 @@ TRAIN_MODE_FUNCTIONS = {
     "adam_dense_kernel": "K18 dense", "adam_rows_kernel": "K18 rows"}
 # K19's and K20's instantiations on the KGE phase's path (float32 rows of
 # 128: V = 4, K = 1), with and without the gradient (the last template
-# flag); the build line gives their registers and spills by mangled name.
+# flag); the build line gives their registers, spills and atomic
+# instructions by mangled name.
 KGE_FUNCTIONS = {
     "kge_pair_kernelIfLi4ELi1ELi0E": "K19 TransE",
     "kge_pair_kernelIfLi4ELi1ELi1E": "K19 DistMult",
@@ -987,6 +1001,27 @@ def threefry_sass_ops() -> dict:
     return pipe_counts(run_text([cuobjdump, "-sass", str(cubin)]))
 
 
+def kge_sass_report(functions: dict) -> dict:
+    """K19's and K20's instantiations of KGE_FUNCTIONS: their global atomic
+    instructions (RED, ATOM: the row adds, in the item loop and the
+    relation flush) and shared-memory ones (ATOMS: the relation sums), each
+    counted once where it stands in the SASS, by mangled name."""
+    found = {}
+    for name, block in functions.items():
+        if function_key(name, KGE_FUNCTIONS) is None:
+            continue
+        ops = Counter(re.findall(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?"
+            r"((?:REDG?|ATOMS|ATOMG?)(?:\.[A-Za-z0-9_]+)*)", block))
+        found[name] = {
+            "global_atomics": sum(n for op, n in ops.items()
+                                  if not op.startswith("ATOMS")),
+            "shared_atomics": sum(n for op, n in ops.items()
+                                  if op.startswith("ATOMS")),
+            "atomics": dict(sorted(ops.items()))}
+    return found
+
+
 def windows_sass_report(functions: dict) -> dict:
     """K3's entry functions: ``pipe_counts`` of each.  The W = 5 function
     does one window of 4 slots a thread, with no loop, so its counts over 4
@@ -1019,6 +1054,7 @@ def phase_build() -> None:
     routed_ptxas = ptxas_report(log, ROUTED_FUNCTIONS)
     train_mode_ptxas = ptxas_instantiations(log, TRAIN_MODE_FUNCTIONS)
     kge_ptxas = ptxas_instantiations(log, KGE_FUNCTIONS)
+    kge_sass = kge_sass_report(functions)
     threefry = threefry_sass_ops()
     THREEFRY_OPS = threefry["int32_only_ops"]
     emit("build", seconds=round(seconds, 2), sources=list(build.SOURCES),
@@ -1031,7 +1067,8 @@ def phase_build() -> None:
          routed_kernels={ROUTED_FUNCTIONS[k]: v
                          for k, v in routed_ptxas.items()},
          train_mode_kernels=train_mode_ptxas,
-         kge_kernels=kge_ptxas,
+         kge_kernels={name: {**v, **kge_sass.get(name, {})}
+                      for name, v in kge_ptxas.items()},
          threefry_int32_only_ops=THREEFRY_OPS,
          threefry_int32_pipe_ops=threefry["int32_pipe_ops"],
          threefry_fma_pipe_ops=threefry["fma_pipe_ops"],
@@ -3748,67 +3785,118 @@ def worse(worst: dict, err: dict) -> None:
     worst["grad_nan_entries"] += err["grad_nan_entries"]
 
 
+def kge_budget_relations(width: int, dtype, tables: int) -> int:
+    """The most relation rows of ``width`` elements of ``dtype`` (in fresh,
+    aligned tables) whose gradient sums fit the shared budget."""
+    wide = 16 // torch.empty((), dtype=dtype).element_size()
+    vec = wide if width % wide == 0 else 1
+    return bindings.KGE_REL_SHARED_BYTES // bindings.kge_rel_shared_bytes(
+        1, width, vec, tables)
+
+
 def kge_small_checks(device) -> dict:
     """K19 and K20, both entries and both table types, against their plain
     versions at the edges: D = 1, 7, 128, 130, 512 (RotatE: 2, 128, 130,
     512); one positive, K = 1, 4 and 33; a hub entity every positive hits;
-    an all-padding batch; W = 1, 3 and 11; a window of padding only, padded
-    and out-of-range components, a hub entity in every window."""
+    a relation every positive (window slot) has; an all-padding batch; W =
+    1, 3 and 11; a window of padding only, padded and out-of-range
+    components, a hub entity in every window; and at D = 128 and 130 the
+    relation vocabularies just under the shared budget (the relation sums in
+    shared memory) and just over it (global row adds): the paths each case
+    took are counted."""
     gen = torch.Generator(device=device)
     gen.manual_seed(17)
     n, r = 500, 7
     pad = n
     worst = {fam: {"loss_rel_err": 0.0, "grad_rel_err": 0.0,
-                   "grad_nan_entries": 0} for fam in ("pair", "windows")}
+                   "grad_nan_entries": 0, "paths": {}}
+             for fam in ("pair", "windows")}
 
     def ints(low, high, *shape):
         return torch.randint(low, high, shape, device=device, generator=gen,
                              dtype=torch.int32)
+
+    def check(fam, calls, tables):
+        worse(worst[fam], kge_errors(*calls, tables))
+        path = bindings.kge_plan(tables)["relation_path"]
+        worst[fam]["paths"][path] = worst[fam]["paths"].get(path, 0) + 1
+        return path
 
     for dtype in (torch.float32, torch.bfloat16):
         for objective in kge.PAIR_OBJECTIVES:
             dims = ((2, 128, 130, 512) if objective == "rotate"
                     else (1, 7, 128, 130, 512))
             for d in dims:
-                ent, rel = (t.to(dtype) for t in random_tables(
-                    n, d, torch.float32, device, d))
-                rel = rel[:r, : d // 2 if objective == "rotate" else d]
-                rel = rel.contiguous()
-                for b, k, case in ((1, 1, "one"), (700, 4, "plain"),
-                                   (300, 33, "wide"), (700, 4, "hub"),
-                                   (200, 4, "all_pad")):
-                    pos = torch.stack([ints(0, n, b), ints(0, r, b),
-                                       ints(0, n, b)], 1)
-                    if case == "hub":
-                        pos[:, 0] = 5
-                    neg = tt.corrupt_triples(pos.contiguous(), n, k, 9, 1)
-                    valid = (ints(0, 5, b) > 0).to(torch.uint8)
-                    if case == "all_pad":
-                        valid.zero_()
-                    worse(worst["pair"], kge_errors(
-                        *kge_pair_calls((ent, rel), pos.contiguous(), neg,
-                                        valid, objective, 2.0), (ent, rel)))
+                width = d // 2 if objective == "rotate" else d
+                vocab = [(r, None)]
+                if d in (128, 130):
+                    edge = kge_budget_relations(width, dtype, 1)
+                    vocab += [(edge, "shared"),
+                              (edge + 1, "shared and global")]
+                for nr, want in vocab:
+                    ent = random_tables(n, d, torch.float32, device, d)[0]
+                    rel = random_tables(max(nr, n), d, torch.float32, device,
+                                        d + 1)[0]
+                    ent, rel = ent.to(dtype), rel[:nr, :width].contiguous(
+                        ).to(dtype)
+                    cases = ((1, 1, "one"), (700, 4, "plain"),
+                             (300, 33, "wide"), (700, 4, "hub"),
+                             (700, 4, "hot_relation"), (200, 4, "all_pad"))
+                    for b, k, case in (cases if want is None else
+                                       (cases[1], cases[4])):
+                        pos = torch.stack([ints(0, n, b), ints(0, nr, b),
+                                           ints(0, n, b)], 1)
+                        if case == "hub":
+                            pos[:, 0] = 5
+                        if case == "hot_relation":
+                            pos[:, 1] = nr - 1
+                        neg = tt.corrupt_triples(pos.contiguous(), n, k, 9, 1)
+                        valid = (ints(0, 5, b) > 0).to(torch.uint8)
+                        if case == "all_pad":
+                            valid.zero_()
+                        path = check("pair", kge_pair_calls(
+                            (ent, rel), pos.contiguous(), neg, valid,
+                            objective, 2.0), (ent, rel))
+                        require(want is None or path == want,
+                                f"K19 took the {path} relation path with "
+                                f"{nr} relations at D = {d}")
         for cbow in (False, True):
             for d in (1, 7, 128, 130, 512):
-                tabs = [t.to(dtype) for t in (
-                    *random_tables(n, d, torch.float32, device, d),
-                    *random_tables(n, d, torch.float32, device, d + 1))]
-                tabs[1], tabs[3] = (tabs[1][:r].contiguous(),
-                                    tabs[3][:r].contiguous())
-                for b, w in ((1, 1), (600, 1), (600, 3), (400, 11)):
-                    def trips(*shape):
-                        x = torch.stack([ints(-1, n + 2, *shape),
-                                         ints(0, r, *shape),
-                                         ints(0, n, *shape)], -1)
-                        x[ints(0, 5, *shape) == 0] = pad
-                        return x.contiguous()
-                    many = trips(b, 2 * w)
-                    many[0] = pad  # a window of padding only
-                    many[:, 0, 0] = 5  # a hub entity
-                    batch = ((trips(b), trips(b), many) if cbow
-                             else (trips(b), many, trips(b, 2 * w)))
-                    worse(worst["windows"], kge_errors(
-                        *kge_windows_calls(tabs, batch, pad, cbow), tabs))
+                vocab = [(r, None)]
+                if d in (128, 130):
+                    edge = kge_budget_relations(d, dtype, 2)
+                    vocab += [(edge, "shared"),
+                              (edge + 1, "shared and global")]
+                for nr, want in vocab:
+                    tabs = [t.to(dtype) for t in (
+                        *random_tables(max(nr, n), d, torch.float32, device,
+                                       d),
+                        *random_tables(max(nr, n), d, torch.float32, device,
+                                       d + 1))]
+                    tabs = [t[:n if i % 2 == 0 else nr].contiguous()
+                            for i, t in enumerate(tabs)]
+                    sizes = ((1, 1), (600, 1), (600, 3), (400, 11))
+                    for b, w in sizes if want is None else sizes[2:3]:
+                        def trips(*shape):
+                            x = torch.stack([ints(-1, n + 2, *shape),
+                                             ints(0, nr, *shape),
+                                             ints(0, n, *shape)], -1)
+                            x[ints(0, 5, *shape) == 0] = pad
+                            return x.contiguous()
+                        for hot in (False, True):
+                            many = trips(b, 2 * w)
+                            many[0] = pad  # a window of padding only
+                            many[:, 0, 0] = 5  # a hub entity
+                            if hot:  # one relation in every unmasked slot
+                                many[..., 1] = torch.where(
+                                    many[..., 1] == pad, pad, nr - 1)
+                            batch = ((trips(b), trips(b), many) if cbow
+                                     else (trips(b), many, trips(b, 2 * w)))
+                            path = check("windows", kge_windows_calls(
+                                tabs, batch, pad, cbow), tabs)
+                            require(want is None or path == want,
+                                    f"K20 took the {path} relation path "
+                                    f"with {nr} relations at D = {d}")
     return worst
 
 
@@ -3873,6 +3961,88 @@ def kge_windows_bound(tables, batch, pad, cbow: bool, grads: bool):
         flops *= 3
     return bound(moved, flops, FP32_FLOPS_PER_S), {"rows": rows,
                                                    "slots": slots}
+
+
+def kge_row_adds(tabs, ids, pad, objective: str) -> dict:
+    """The global row adds of one K19 or K20 value-and-grad call on these
+    inputs, counted from them by the kernels' rules (``bindings.kge_plan``
+    for the lanes and the relation rows summed on chip): in the item loop
+    (K19: a positive's h and t, once where h == t, each negative's own
+    rows, and its relation rows past the shared ones; K20: the entity and,
+    past the shared rows, relation entries of ``kge.merged_row_adds`` of
+    each window's rounds), at most those of the blocks' relation flushes
+    (grid times the shared rows of each table), and the count of the
+    kernels' first design on the same inputs, a row add a source row of
+    each scored triple (K19: 3 a positive and a negative's differing rows;
+    K20: one a composed component in range).  Per item: the weighted
+    windows (K20) or the positives (K19)."""
+    plan = bindings.kge_plan(tabs)
+    shared = plan["shared_relation_rows"]
+    if objective in kge.PAIR_OBJECTIVES:
+        pos, neg, _ = ids
+        differ = neg != pos[:, None]
+        hot = (neg[..., 1] >= shared) & differ[..., 1]
+        per_item = (2 - (pos[:, 0] == pos[:, 2]).long()
+                    + differ[..., 0].sum(1) + differ[..., 2].sum(1)
+                    + (pos[:, 1] >= shared).long() + hot.sum(1))
+        rel = int((pos[:, 1] >= shared).sum()) + int(hot.sum())
+        items, tables = pos.shape[0], 1
+        first = 3 * pos.shape[0] + int(differ.sum())
+        grid = bindings.library().trw_kge_pair_grid(items, plan["vec"])
+    else:
+        rows = kge.window_slot_rows(ids, pad, objective == "cbow",
+                                    tabs[0].shape[0], tabs[1].shape[0])
+        rel = 0
+        per_item = torch.zeros(ids[0].shape[0], dtype=torch.long,
+                               device=ids[0].device)
+        for side in ("in", "out"):
+            merged = kge.merged_row_adds(
+                rows[side], torch.ones(rows[side].shape[:2],
+                                       device=ids[0].device), plan["lanes"])
+            past = merged["relation"][1] >= shared
+            rel += int(past.sum())
+            for window in (merged["entity"][0], merged["relation"][0][past]):
+                per_item += torch.bincount(window, minlength=len(per_item))
+        first = sum(int((r >= 0).sum()) for r in rows.values())
+        weighted = ids[0][:, 1] != pad
+        items, tables = int(weighted.sum()), 2
+        per_item = per_item[weighted]
+        grid = bindings.library().trw_kge_windows_grid(ids[0].shape[0],
+                                                       plan["vec"])
+    loop = int(per_item.sum())
+    return {**plan, "grid": grid, "items": items,
+            "item_loop_row_adds": loop,
+            "relation_row_adds_in_item_loop": rel,
+            "flush_row_adds_at_most": grid * tables * shared,
+            "per_item": loop / max(items, 1),
+            "most_in_an_item": int(per_item.max()) if items else 0,
+            "first_version_row_adds": first,
+            "first_version_per_item": first / max(items, 1)}
+
+
+def kge_owner_floor(tabs, ids, pad) -> dict:
+    """What an owner-computed gradient of K20 skip-gram's out entity rows
+    (K17's design) would at least cost on these windows: its owner pass
+    sums, for each row, coef times the window's u over the row's merged
+    entries (``kge.merged_row_adds``), which a library call does alone:
+    ``F.embedding_bag`` (sum, per-sample weights) of the windows' u rows,
+    the entries sorted by row, one bag a row; CUDA events, median of 5.  Not
+    counted: the histogram, the placement and the pass that writes u."""
+    rows = kge.window_slot_rows(ids, pad, False, tabs[0].shape[0],
+                                tabs[1].shape[0])["out"]
+    window, row, coef = kge.merged_row_adds(
+        rows, torch.ones(rows.shape[:2], device=rows.device),
+        bindings.kge_plan(tabs)["lanes"])["entity"]
+    u = kge.compose_plain(tabs[0], tabs[1], ids[0])
+    order = torch.argsort(row, stable=True)
+    window, coef = window[order], coef[order]
+    offsets = torch.cat([torch.zeros(1, dtype=torch.long, device=u.device),
+                         torch.cumsum(torch.bincount(
+                             row, minlength=tabs[0].shape[0]), 0)[:-1]])
+    ms = time_ms(lambda: torch.nn.functional.embedding_bag(
+        window, u, offsets, mode="sum", per_sample_weights=coef))
+    return {"entries": len(window), "u_bytes_read": len(window) * u.shape[1]
+            * 4, "embedding_bag_ms": ms}
 
 
 def kge_step_parts(emb, targets, i) -> tuple[dict, dict]:
@@ -3946,6 +4116,9 @@ def phase_kge(graph) -> list[dict]:
         require(e["loss_rel_err"] <= LOSS_REL_LIMIT
                 and e["grad_rel_err"] <= GRAD_REL_LIMIT,
                 f"{fam} KGE kernel != plain at the edges: {e}")
+        require(set(e["paths"]) == {"shared", "shared and global"},
+                f"{fam}: the small checks did not take both relation "
+                f"paths: {e['paths']}")
     _, tg = family_graphs(graph)
     gen = torch.Generator(device=dev)
     gen.manual_seed(KGE_SEED)
@@ -4029,7 +4202,11 @@ def phase_kge(graph) -> list[dict]:
                        "grads": (parts["loss_and_grads_ms"], grad_bound),
                        "sub_launch_ms": {"loss": launch_ms(calls[0]),
                                          "grads": launch_ms(calls[1])},
-                       "bound_counted": counted}
+                       "bound_counted": counted,
+                       "row_adds": kge_row_adds(tabs, ids, pad,
+                                                cfg.objective)}
+        if case == "skipgram":
+            times[case]["owner_floor"] = kge_owner_floor(tabs, ids, pad)
         if cfg.update_mode == "dense":  # the sparse step runs the same K19
             checks[case] = {}
             pre = [x[:KGE_CHECK_PREFIX].contiguous() for x in ids]
@@ -4090,7 +4267,22 @@ def phase_kge(graph) -> list[dict]:
                 "warm-up, median of 3; tail ranking: host clock, raw ranks")
     emit("kge_kernels", limits=limits, checked_prefix=KGE_CHECK_PREFIX,
          checks=checks,
-         bounds={c: t["bound_counted"] for c, t in times.items()})
+         bounds={c: t["bound_counted"] for c, t in times.items()},
+         device_ms_by_launch={c: t["sub_launch_ms"] for c, t in
+                              times.items()},
+         row_adds={c: t["row_adds"] for c, t in times.items()},
+         owner_floor=times["skipgram"]["owner_floor"])
+    for case, t in times.items():
+        adds = t["row_adds"]
+        require(adds["relation_row_adds_in_item_loop"] == 0,
+                f"{case}: the bench shape's relation rows did not go on "
+                f"chip: {adds}")
+        most = {"skipgram": KGE_MOST_ADDS_SKIPGRAM}.get(
+            case, KGE_MOST_ADDS_PAIR if case.startswith(
+                ("transe", "distmult", "rotate")) else None)
+        require(most is None or adds["most_in_an_item"] <= most,
+                f"{case}: {adds['most_in_an_item']} global row adds in one "
+                f"item, more than {most}")
     for case, by_type in checks.items():
         for dtype, e in by_type.items():
             require(e["loss_rel_err"] <= LOSS_REL_LIMIT
@@ -4255,6 +4447,7 @@ def phase_compare_kernels(graph, checkouts: dict) -> dict:
     compare_routed(graph, targets[:ROUTED_WALKERS], pkgs)
     compare_routed_families(graph, targets[:ROUTED_WALKERS], pkgs)
     compare_train_windows(graph, pkgs)
+    compare_kge(graph, pkgs)
     return times
 
 
@@ -4367,6 +4560,108 @@ def compare_train_windows(graph, pkgs: dict) -> None:
                 "package's call in turns A B ... B A; steps: CUDA events "
                 f"around one warm and {TRAIN_STEPS} chained train_step "
                 "calls a turn, windows precomputed")
+
+
+# The KGE cases of ``kge_comparison``: K19 through TransE and RotatE, K20
+# through both forms.
+KGE_COMPARE_CASES = ("transe", "rotate", "skipgram", "cbow")
+
+
+def compare_kge(graph, pkgs: dict) -> None:
+    """K19 and K20, both entries, and the KGE ``train_step`` of each package
+    of ``pkgs`` (this tree's first), in this one process, the packages in
+    turns A B ... B A, at KGE_CONFIG on the bench triples graph: per case of
+    KGE_COMPARE_CASES one batch of this tree's second step (KGE_WALKERS
+    start entities) and this tree's tables after its first (the out tables
+    start at zero).  Kernels: each package's own bindings on the same
+    tables and ids, CUDA events, median of 5.  Steps: each package's
+    ``KGEmbedding`` on its own graph from the same triples, its model's
+    tables set to those tables, one warm and
+    KGE_STEPS chained ``train_step`` calls on the batch with CUDA events
+    around each.  Every package's losses must equal this tree's within
+    LOSS_REL_LIMIT and its gradients within GRAD_REL_LIMIT of the largest
+    entry.  The ``kge_comparison`` line."""
+    dev = graph.device
+    _, tg = family_graphs(graph)
+    targets = torch.arange(KGE_WALKERS, dtype=torch.int32, device=dev)
+    graphs = {name: pkg.TriplesGraph.from_arrays(
+        tg.triples, num_entities=tg.num_entities,
+        num_relations=tg.num_relations) for name, pkg in pkgs.items()}
+    del tg
+    order = list(pkgs) + list(reversed(pkgs))
+    kernel_ms = {name: {} for name in pkgs}
+    step_ms = {name: {} for name in pkgs}
+    errs = {name: {} for name in pkgs}
+    for case in KGE_COMPARE_CASES:
+        cfg = dict(KGE_CONFIG, objective=case)
+        emb = tt.KGEmbedding(graphs["this_tree"], tt.KGEmbeddingConfig(**cfg))
+        model = emb.init()
+        emb.epoch_step(targets, 0)  # out tables start at zero
+        pad = emb.padding_idx
+        batch = emb.batch(emb.walks(targets, 1), 1)
+        init = {n: p.detach().clone() for n, p in model.named_parameters()}
+        tabs = list(init.values())
+        if model.pair:
+            ids = model._pair_batch(*batch, pad)
+            args = (*tabs, *ids, case, model.margin)
+            entries = {
+                "loss": lambda b, a=args: b.kge_pair_loss(*a),
+                "loss_and_grads": lambda b, a=args: (
+                    lambda out: (out[0], list(out[1:])))(
+                        b.kge_pair_loss_and_grads(*a))}
+        else:
+            ids = model._as_ids(*batch)
+            cbow = case == "cbow"
+            entries = {
+                "loss": lambda b, i=ids, c=cbow: b.kge_windows_loss(
+                    tabs, *i, pad, c),
+                "loss_and_grads": lambda b, i=ids, c=cbow:
+                    b.kge_windows_loss_and_grads(tabs, *i, pad, c)}
+        del emb, model
+        want_loss, want_grads = entries["loss_and_grads"](bindings)
+        for name in order:
+            b = pkgs[name].kernels.bindings
+            if case not in errs[name]:
+                loss, grads = entries["loss_and_grads"](b)
+                errs[name][case] = {
+                    "loss": abs(float(loss) - float(want_loss))
+                    / abs(float(want_loss)),
+                    "grads": max(float((g - w).abs().max() / w.abs().max())
+                                 for g, w in zip(grads, want_grads))}
+                del grads
+                require(errs[name][case]["loss"] <= LOSS_REL_LIMIT
+                        and errs[name][case]["grads"] <= GRAD_REL_LIMIT,
+                        f"{name} {case}: K19/K20 differ from this tree's: "
+                        f"{errs[name][case]}")
+            for entry, fn in entries.items():
+                kernel_ms[name].setdefault(f"{case}/{entry}", []).append(
+                    time_ms(lambda: fn(b)))
+        del want_grads
+        first = None
+        for name in order:
+            pkg = pkgs[name]
+            emb = pkg.KGEmbedding(graphs[name], pkg.KGEmbeddingConfig(**cfg))
+            model = emb.init()
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p.copy_(init[n])
+            losses, ms = step_events(lambda i: emb.train_step(batch),
+                                     1 + KGE_STEPS)
+            step_ms[name].setdefault(case, []).append(ms)
+            first = losses[0] if first is None else first
+            e = abs(losses[0] - first) / abs(first)
+            errs[name][case]["first_step_loss"] = e
+            require(e <= LOSS_REL_LIMIT, f"{name} {case}: first step loss "
+                    f"{losses[0]} against {first}")
+            del emb, model
+            torch.cuda.empty_cache()
+        del init, tabs, ids, batch, entries
+    emit("kge_comparison", kernel_ms=kernel_ms, step_ms=step_ms,
+         rel_err=errs, order=order, config=KGE_CONFIG, walkers=KGE_WALKERS,
+         timing="kernels: CUDA events, median of 5 (1 warm-up), each "
+                "package's call in turns A B ... B A; steps: CUDA events "
+                f"around one warm and {KGE_STEPS} chained train_step calls "
+                "a turn on the same batch, from the same tables")
 
 
 def compare_routed(graph, targets, pkgs: dict) -> None:
@@ -4507,9 +4802,10 @@ def parse_args(argv):
         help="another checkout of the repo (e.g. the parent commit's "
              "git archive under build/): time its K7-K10 entry points, "
              "routed CSR legs, K13-K15 legs, K16/K17 and window train "
-             "steps beside this tree's in one process (kernel_comparison, "
-             "routed_comparison, routed_family_comparison and "
-             "train_window_comparison lines)")
+             "steps, K19/K20 and KGE train steps beside this tree's in one "
+             "process (kernel_comparison, routed_comparison, "
+             "routed_family_comparison, train_window_comparison and "
+             "kge_comparison lines)")
     args = parser.parse_args(argv)
     args.compare = dict(v.split("=", 1) for v in args.compare)
     return args

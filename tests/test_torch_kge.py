@@ -604,53 +604,94 @@ def _rel_err(got, want):
     return float((got - want)[~nan].abs().max()) / scale
 
 
+def _vocabularies(width, dtype, tables, dim):
+    """(relation rows, the relation path K19/K20 takes) to check at ``dim``:
+    7 rows; at D = 128 and 130 also the most rows whose sums fit the shared
+    budget and one more (that row by global row adds)."""
+    out = [(7, "shared")]
+    if dim in (128, 130):
+        wide = 16 // torch.empty((), dtype=dtype).element_size()
+        vec = wide if width % wide == 0 else 1
+        edge = bindings.KGE_REL_SHARED_BYTES // (
+            bindings.kge_rel_shared_bytes(1, width, vec, tables))
+        out += [(edge, "shared"), (edge + 1, "shared and global")]
+    return out
+
+
+def _check_pair_on_the_card(ent, rel, pos, neg, valid, objective, dtype,
+                            what):
+    want, want_g = _plain_grads(
+        lambda tabs, *a: tkge.pair_loss_plain(objective, 2.0, *tabs, *a,
+                                              rounding=dtype),
+        (ent, rel), pos, neg, valid)
+    loss = bindings.kge_pair_loss(ent, rel, pos, neg, valid, objective, 2.0)
+    loss2, g_ent, g_rel = bindings.kge_pair_loss_and_grads(
+        ent, rel, pos, neg, valid, objective, 2.0)
+    torch.cuda.synchronize()
+    assert torch.equal(loss, loss2), what
+    assert abs(float(loss) - float(want)) <= 1e-5 * max(
+        abs(float(want)), 1e-3), (what, float(loss), float(want))
+    for g, w in zip((g_ent, g_rel), want_g):
+        assert _rel_err(g, w) <= 1e-4, (what, _rel_err(g, w))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("objective", ["transe", "distmult", "rotate"])
 def test_k19_equals_its_plain_version_on_the_card(objective, dtype):
     """Both entries at D = 1 (not RotatE), 7 (not RotatE), 128, 130, 512;
-    K = 1 and 33; a hub entity every positive hits; an all-padding batch.
-    The plain version reads the tables as float32 (exact for bfloat16) and
-    rounds where K19 rounds on bfloat16 tables (``rounding``)."""
+    K = 1 and 33; a hub entity every positive hits; a relation every
+    positive has (the hottest row); an all-padding batch; at D = 128 and 130
+    the relation vocabularies just under the shared budget and just over it
+    (the last, hot row by global row adds); and the touched-rows step's
+    sub-tables (a relation table padded to its static size).  The plain
+    version reads the tables as float32 (exact for bfloat16) and rounds
+    where K19 rounds on bfloat16 tables (``rounding``)."""
     need_cuda()
-    n, r = 500, 7
+    n = 500
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
+
+    def ints(high, *shape):
+        return torch.randint(0, high, shape, generator=gen, device="cuda")
+
     dims = (2, 128, 130, 512) if objective == "rotate" else (1, 7, 128, 130,
                                                              512)
     for dim in dims:
-        ent, rel = _card_tables(objective, n, r, dim, dtype, dim)
-        for b, k, case in ((1, 1, "one"), (700, 4, "plain"), (300, 33, "wide"),
-                           (700, 4, "hub"), (200, 4, "all_pad")):
-            pos = torch.stack([torch.randint(0, n, (b,), generator=gen,
-                                             device="cuda"),
-                               torch.randint(0, r, (b,), generator=gen,
-                                             device="cuda"),
-                               torch.randint(0, n, (b,), generator=gen,
-                                             device="cuda")], 1).int()
-            if case == "hub":
-                pos[:, 0] = 5
-            pos = pos.contiguous()
-            neg = tt.corrupt_triples(pos, n, k, 9, 1)
-            valid = (torch.rand(b, device="cuda", generator=gen) > 0.2).to(
-                torch.uint8)
-            if case == "all_pad":
-                valid.zero_()
-            want, want_g = _plain_grads(
-                lambda tabs, *a: tkge.pair_loss_plain(objective, 2.0, *tabs,
-                                                      *a, rounding=dtype),
-                (ent, rel), pos, neg, valid)
-            loss = bindings.kge_pair_loss(ent, rel, pos, neg, valid,
-                                          objective, 2.0)
-            loss2, g_ent, g_rel = bindings.kge_pair_loss_and_grads(
-                ent, rel, pos, neg, valid, objective, 2.0)
-            torch.cuda.synchronize()
-            assert torch.equal(loss, loss2), (dim, case)
-            assert abs(float(loss) - float(want)) <= 1e-5 * max(
-                abs(float(want)), 1e-3), (dim, case, float(loss), float(want))
-            for g, w in zip((g_ent, g_rel), want_g):
-                assert _rel_err(g, w) <= 1e-4, (dim, case, _rel_err(g, w))
+        width = dim // 2 if objective == "rotate" else dim
+        for r, path in _vocabularies(width, dtype, 1, dim):
+            ent, rel = _card_tables(objective, n, r, dim, dtype, dim + r)
+            assert bindings.kge_plan((ent, rel))["relation_path"] == path
+            cases = ((1, 1, "one"), (700, 4, "plain"), (300, 33, "wide"),
+                     (700, 4, "hub"), (700, 4, "hot_relation"),
+                     (200, 4, "all_pad"))
+            for b, k, case in cases if r == 7 else (cases[1], cases[4]):
+                pos = torch.stack([ints(n, b), ints(r, b), ints(n, b)],
+                                  1).int()
+                if case == "hub":
+                    pos[:, 0] = 5
+                if case == "hot_relation":
+                    pos[:, 1] = r - 1
+                pos = pos.contiguous()
+                neg = tt.corrupt_triples(pos, n, k, 9, 1)
+                valid = (torch.rand(b, device="cuda", generator=gen)
+                         > 0.2).to(torch.uint8)
+                if case == "all_pad":
+                    valid.zero_()
+                _check_pair_on_the_card(ent, rel, pos, neg, valid, objective,
+                                        dtype, (dim, r, case))
+    model = tt.KGEModel(n, 7, dim=16, objective=objective,
+                        dtype=str(dtype).split(".")[1], device="cuda")
+    pos = torch.stack([ints(n, 600), ints(7, 600), ints(n, 600)], 1).int()
+    neg = tt.corrupt_triples(pos.contiguous(), n, 4, 9, 1)
+    _, _, pos_l, neg_l, ent_sub, rel_sub = model.gather_touched_rows(pos, neg)
+    assert bindings.kge_plan((ent_sub, rel_sub))["relation_path"] == (
+        "shared and global")  # padded to 3 000 rows; the ids address 7
+    valid = torch.ones(600, dtype=torch.uint8, device="cuda")
+    _check_pair_on_the_card(ent_sub, rel_sub, pos_l.contiguous(),
+                            neg_l.contiguous(), valid, objective, dtype,
+                            "touched rows")
 
 
 @pytest.mark.cuda
@@ -658,15 +699,18 @@ def test_k19_equals_its_plain_version_on_the_card(objective, dtype):
                          ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("cbow", [False, True], ids=["skipgram", "cbow"])
 def test_k20_equals_its_plain_version_on_the_card(cbow, dtype):
-    """Both entries at D = 1, 7, 128, 130, 512 and W = 1 and 11, windows with
-    padded components, a window of padding only, a hub entity."""
+    """Both entries at D = 1, 7, 128, 130, 512 and W = 1, 3 and 11, windows
+    with padded components, a window of padding only, a hub entity, and
+    batches whose unmasked slots all have one relation (the hottest row);
+    at D = 128 and 130 the relation vocabularies just under the shared
+    budget and just over it (the last, hot row by global row adds)."""
     need_cuda()
-    n, r = 400, 6
+    n = 400
     pad = n
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
 
-    def trips(*shape):
+    def trips(r, *shape):
         x = torch.stack([torch.randint(-1, n + 2, shape, generator=gen,
                                        device="cuda"),
                          torch.randint(0, r, shape, generator=gen,
@@ -677,28 +721,37 @@ def test_k20_equals_its_plain_version_on_the_card(cbow, dtype):
         return x
 
     for dim in (1, 7, 128, 130, 512):
-        tabs = _card_tables("cbow" if cbow else "skipgram", n, r, dim, dtype,
-                            dim)
-        for b, w in ((1, 1), (600, 1), (600, 11), (600, 3)):
-            one, many = (trips(b), trips(b)), trips(b, 2 * w)
-            many[0] = pad
-            many[:, 0, 0] = 7  # a hub entity
-            batch = ((*one, many) if cbow else (one[0], many,
-                                                trips(b, 2 * w)))
-            batch = [x.contiguous() for x in batch]
-            want, want_g = _plain_grads(
-                lambda t, *a: tkge.windows_loss_plain(t, *a, pad, cbow,
-                                                      rounding=dtype),
-                tabs, *batch)
-            loss = bindings.kge_windows_loss(tabs, *batch, pad, cbow)
-            loss2, grads = bindings.kge_windows_loss_and_grads(tabs, *batch,
-                                                               pad, cbow)
-            torch.cuda.synchronize()
-            assert torch.equal(loss, loss2), (dim, b, w)
-            assert abs(float(loss) - float(want)) <= 1e-5 * max(
-                abs(float(want)), 1e-3), (dim, b, w, float(loss), float(want))
-            for g, wg in zip(grads, want_g):
-                assert _rel_err(g, wg) <= 1e-4, (dim, b, w, _rel_err(g, wg))
+        for r, path in _vocabularies(dim, dtype, 2, dim):
+            tabs = _card_tables("cbow" if cbow else "skipgram", n, r, dim,
+                                dtype, dim + r)
+            assert bindings.kge_plan(tabs)["relation_path"] == path
+            sizes = ((1, 1), (600, 1), (600, 11), (600, 3))
+            for b, w in sizes if r == 7 else sizes[3:]:
+                for hot in (False, True):
+                    one, many = (trips(r, b), trips(r, b)), trips(r, b, 2 * w)
+                    many[0] = pad
+                    many[:, 0, 0] = 7  # a hub entity
+                    if hot:
+                        many[..., 1] = torch.where(many[..., 1] == pad, pad,
+                                                   r - 1)
+                    batch = ((*one, many) if cbow else
+                             (one[0], many, trips(r, b, 2 * w)))
+                    batch = [x.contiguous() for x in batch]
+                    what = (dim, r, b, w, hot)
+                    want, want_g = _plain_grads(
+                        lambda t, *a: tkge.windows_loss_plain(
+                            t, *a, pad, cbow, rounding=dtype), tabs, *batch)
+                    loss = bindings.kge_windows_loss(tabs, *batch, pad, cbow)
+                    loss2, grads = bindings.kge_windows_loss_and_grads(
+                        tabs, *batch, pad, cbow)
+                    torch.cuda.synchronize()
+                    assert torch.equal(loss, loss2), what
+                    assert abs(float(loss) - float(want)) <= 1e-5 * max(
+                        abs(float(want)), 1e-3), (what, float(loss),
+                                                  float(want))
+                    for g, wg in zip(grads, want_g):
+                        assert _rel_err(g, wg) <= 1e-4, (what,
+                                                         _rel_err(g, wg))
 
 
 @pytest.mark.cuda

@@ -62,7 +62,7 @@ class _KgePairCall(ctypes.Structure):
         + [("num_pos", _I64)]
         + [(name, _I32) for name in (
             "num_neg", "num_ent", "num_rel", "dim", "score", "elem_bytes",
-            "vec")]
+            "vec", "rel_shared_rows")]
         + [("margin", _F32)])
 
 
@@ -75,7 +75,7 @@ class _KgeWindowsCall(ctypes.Structure):
         + [("num_windows", _I64)]
         + [(name, _I32) for name in (
             "cols", "num_ent", "num_rel", "dim", "padding_idx", "cbow",
-            "elem_bytes", "vec")])
+            "elem_bytes", "vec", "rel_shared_rows")])
 
 
 def reset_launch_counts() -> None:
@@ -999,6 +999,50 @@ def _vec_width(tables, width: int) -> int:
     return wide if width % wide == 0 and aligned else 1
 
 
+# K19 and K20 sum the gradient of the leading relation rows in each block's
+# shared memory, as many as fit this budget in all relation tables of a call
+# (kge.cuh kRelSharedBytes); rows past them (larger vocabularies) are added
+# to the tables with float4 atomics, as the entity rows.  A choice by shape,
+# never a retry.
+KGE_REL_SHARED_BYTES = 47 * 1024
+
+
+def kge_rel_shared_bytes(num_rel: int, width: int, vec: int,
+                         tables: int) -> int:
+    """Shared bytes of the relation sums (kge.cuh ``rel_shared_bytes``):
+    on the vector path a row holds K pieces of 128 floats (K = 1, 2 or 4,
+    as the kernels' ``with_width`` picks it), on the scalar path the row."""
+    k = -(-width // 128)
+    stride = width if vec == 1 else (1 if k <= 1 else 2 if k <= 2 else 4) * 128
+    return 4 * tables * num_rel * stride
+
+
+def _shared_relation_rows(num_rel: int, width: int, vec: int,
+                          tables: int) -> int:
+    return min(num_rel, KGE_REL_SHARED_BYTES
+               // kge_rel_shared_bytes(1, width, vec, tables))
+
+
+def kge_plan(tables) -> dict:
+    """How K19 (``tables`` = (ent, rel)) or K20 (ent_in, rel_in, ent_out,
+    rel_out) runs on these tables: the load width, the lanes of a group
+    (one item a group), the leading relation rows whose gradient each block
+    sums in shared memory and flushes once at its end (the rest are row
+    adds into the table), and the path that makes: "shared" (every row) or
+    "shared and global"."""
+    rels = tables[1::2]
+    num_rel, width = rels[0].shape
+    vec = _vec_width(tables, width)
+    rows = _shared_relation_rows(num_rel, width, vec, len(rels))
+    return {"vec": vec, "lanes": 16 if vec == 8 else 32,
+            "shared_relation_rows": rows,
+            "relation_rows": num_rel,
+            "relation_path": ("shared" if rows == num_rel
+                              else "shared and global"),
+            "relation_shared_bytes": kge_rel_shared_bytes(rows, width, vec,
+                                                          len(rels))}
+
+
 def _mean_scratch(grid_fn, items: int, vec: int, device) -> tuple:
     """The masked mean's device count (zero), per-block partials and loss."""
     with torch.cuda.device(device):
@@ -1061,7 +1105,9 @@ def _kge_pair(ent, rel, pos, neg, valid, score: str, margin: float,
         grad_rel=_ptr(grad_rel), num_pos=pos.shape[0],
         num_neg=neg.shape[1], num_ent=ent.shape[0], num_rel=rel.shape[0],
         dim=dim, score=KGE_SCORES[score], elem_bytes=ent.element_size(),
-        vec=vec, margin=float(margin))
+        vec=vec, margin=float(margin),
+        rel_shared_rows=(_shared_relation_rows(rel.shape[0], width, vec, 1)
+                         if grads else 0))
     name = "kge_pair_loss_and_grads" if grads else "kge_pair_loss"
     _launch(name, getattr(library(), "trw_" + name), _device_index(dev),
             ctypes.byref(call))
@@ -1146,7 +1192,9 @@ def _kge_windows(tables, center, pos, neg, padding_idx: int, cbow: bool,
         num_windows=b, cols=cols, num_ent=tables[0].shape[0],
         num_rel=tables[1].shape[0], dim=dim,
         padding_idx=int(padding_idx), cbow=int(cbow),
-        elem_bytes=tables[0].element_size(), vec=vec)
+        elem_bytes=tables[0].element_size(), vec=vec,
+        rel_shared_rows=(_shared_relation_rows(tables[1].shape[0], dim, vec,
+                                               2) if grads else 0))
     name = "kge_windows_loss_and_grads" if grads else "kge_windows_loss"
     _launch(name, getattr(library(), "trw_" + name), _device_index(dev),
             ctypes.byref(call))

@@ -2,9 +2,10 @@
 // TransE, DistMult and RotatE; kge_windows.cu: K20, the skip-gram and CBOW
 // losses over composed triples): rows taken by a group of lanes as K16 takes
 // them (sgns_windows.cuh), a group sum that lets the groups of a warp run
-// apart, the rounding of a bfloat16 table's arithmetic, and the masked mean
-// of both losses, -(sum over the weighted items) / max(their count, 1),
-// whose count is taken on the device.
+// apart, the rounding of a bfloat16 table's arithmetic, the masked mean of
+// both losses, -(sum over the weighted items) / max(their count, 1), whose
+// count is taken on the device, and the block's sum of the relation rows'
+// gradient in shared memory.
 
 #pragma once
 
@@ -22,6 +23,15 @@ using win::piece_at;
 using win::RowIO;
 
 constexpr int kCountThreads = 256;
+// The shared-memory budget of the relation rows' gradient sums of a block
+// (all relation tables of a call together), under the 48 KB a block takes
+// without the opt-in attribute: four blocks an SM hold 188 KB of its 227
+// KB.  The leading relation rows that fit it are summed there; rows past
+// them (vocabularies larger than the budget) are added to the tables with
+// float4 atomics, as the entity rows.  The touched-rows step's relation
+// sub-table is padded to a static size, but its ids address its leading
+// rows only.
+constexpr int kRelSharedBytes = 47 * 1024;
 constexpr int kCountMaxGrid = 1024;
 constexpr int kFinishThreads = 256;
 
@@ -89,6 +99,85 @@ __device__ __forceinline__ void zero_pieces(float (&v)[K][V]) {
   for (int k = 0; k < K; ++k)
 #pragma unroll
     for (int j = 0; j < V; ++j) v[k][j] = 0.0f;
+}
+
+// Floats of a relation row's sum in shared memory for rows of `len`
+// elements at load width `vec`: on the vector path K pieces of 128 (G lanes
+// of V), as with_width picks K; on the scalar path the row.
+__host__ __device__ inline int rel_stride(int len, int vec) {
+  const int k = (len + 127) / 128;
+  return vec == 1 ? len : (k <= 1 ? 1 : (k <= 2 ? 2 : 4)) * 128;
+}
+
+inline int64_t rel_shared_bytes(int64_t num_rel, int len, int vec,
+                                int tables) {
+  return (int64_t)tables * num_rel * rel_stride(len, vec) * 4;
+}
+
+__device__ __forceinline__ float* rel_sum_buffer() {
+  extern __shared__ float kge_rel_sum[];
+  return kge_rel_sum;
+}
+
+// Where a relation table's gradient goes: rows below `shared_rows` to the
+// block's sum in shared memory (`shared`, `stride` floats a row, the lanes'
+// pieces laid out (k, j, lane) so that the G lanes of a group add to
+// consecutive words at each step), flushed to `table` once at the block's
+// end; the other rows to `table` itself with float4 atomics.
+struct RelGrad {
+  float* table;   // (N_r, len) float32
+  float* shared;  // shared_rows * stride floats
+  int len, stride, shared_rows;
+};
+
+template <int V>
+__device__ __forceinline__ int rel_word(int k, int j, int lane) {
+  return (k * V + j) * Lanes<V>::G + lane;
+}
+
+template <int V, int K>
+__device__ __forceinline__ void add_rel(const RelGrad& r, int32_t row,
+                                        int lane, const float (&v)[K][V]) {
+  if (row < r.shared_rows) {
+    float* p = r.shared + row * r.stride;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (piece_at<V>(k, lane) < r.len)
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          atomicAdd(p + rel_word<V>(k, j, lane), v[k][j]);
+  } else {
+    add_pieces<V, K>(r.table + (int64_t)row * r.len, lane, r.len, v);
+  }
+}
+
+__device__ __forceinline__ void zero_shared(float* p, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) p[i] = 0.0f;
+}
+
+// The block's relation sums to their tables, after the item loop (the
+// caller syncs the block first): a thread a row piece, its V words in one
+// float4 atomic row add (one float on the scalar path), pieces that are all
+// zero left out.  The only global adds on a relation row below shared_rows.
+template <int V, int K>
+__device__ __forceinline__ void flush_rel(const RelGrad& r) {
+  constexpr int G = Lanes<V>::G;
+  const int per_row = V == 1 ? r.len : K * G;
+  for (int p = threadIdx.x; p < r.shared_rows * per_row; p += blockDim.x) {
+    const int row = p / per_row, q = p - row * per_row;
+    const int k = V == 1 ? 0 : q / G, lane = V == 1 ? q : q % G;
+    const int at = V == 1 ? q : piece_at<V>(k, lane);
+    if (at >= r.len) continue;
+    float v[V];
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      v[j] = r.shared[row * r.stride +
+                      (V == 1 ? q : rel_word<V>(k, j, lane))];
+      any |= v[j] != 0.0f;  // NaN goes on
+    }
+    if (any) win::atomic_add_floats<V>(r.table + (int64_t)row * r.len + at, v);
+  }
 }
 
 // The masked mean: `count` (zero on entry) gets the number of weighted

@@ -29,13 +29,23 @@
 // positive (a half-warp of 16-byte loads for bfloat16 rows of 128, a warp
 // for float32) and keeps e_h, w_r and e_t in registers across the K
 // negatives, loading only a negative's rows that differ from the
-// positive's.  The gradient rows are float32 tables zeroed by the wrapper:
-// a negative's own row gets its gradient with float4 atomics at once, the
-// rows it shares with its positive are summed in registers with the
-// positive's and added once a positive.  (This first version leaves the
-// relation rows, which every positive of a relation hits, to the atomics:
-// PERF.md.)  D <= 512; D no multiple of the load width (RotatE: D/2) takes
-// one element a lane a step.
+// positive's.  The gradient rows are float32 tables zeroed by the wrapper.
+// Adding the positive's three rows and each negative's own row with float4
+// atomics makes up to 7 row adds a positive, and every positive of a
+// relation adds to the same relation row: on a KG of 16 relations some
+// 80 000 float4 atomics on each of its addresses a step.  So:
+//   - the relation rows' gradient summed by each block in shared memory
+//     (the rows a negative shares with its positive summed in registers
+//     first), flushed to the table once at the block's end: no global add
+//     on a relation row inside the item loop, for the leading rows that fit
+//     kRelSharedBytes (the wrapper's choice from the shapes,
+//     rel_shared_rows; rows past them, in larger vocabularies, keep the
+//     float4 row adds, where they contend far less);
+//   - the entity rows a negative shares with its positive summed in
+//     registers and added once a positive (h == t: once), a negative's own
+//     row at once: at most 6 global row adds a positive at K = 4.
+// D <= 512; D no multiple of the load width (RotatE: D/2) takes one element
+// a lane a step.
 //
 // The loss is deterministic: each group sums its positives in grid-stride
 // order, each block its groups in order, and the finish kernel the blocks'
@@ -65,6 +75,8 @@ struct PairCall {
   float* grad_rel;          // (N_r, P) float32, zero on entry
   int64_t num_pos;
   int32_t num_neg, num_ent, num_rel, dim, score, elem_bytes, vec;
+  int32_t rel_shared_rows;  // leading relation rows whose gradient the
+                            // block sums in shared memory (kRelSharedBytes)
   float margin;
 };
 
@@ -212,8 +224,15 @@ __device__ __forceinline__ int32_t clamp_id(int32_t id, int32_t n) {
   return id < 0 ? 0 : (id >= n ? n - 1 : id);
 }
 
+// The float32 RotatE passes' blocks an SM: unbounded, ptxas gives the
+// loss-only pass 72 registers (3 blocks an SM) and the gradient pass 110
+// (2), each slower than with the registers of one more block (PERF.md).
+template <typename T, int kScore, bool kGrad>
+constexpr int kMinBlocks =
+    std::is_same_v<T, float> && kScore == kRotatE ? (kGrad ? 3 : 4) : 1;
+
 template <typename T, int V, int K, int kScore, bool kGrad>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, (kMinBlocks<T, kScore, kGrad>))
 kge_pair_kernel(PairCall c) {
   constexpr int S = kScore == kRotatE ? 2 : 1;
   constexpr int G = Lanes<V>::G, kGroups = kThreads / G;
@@ -223,7 +242,15 @@ kge_pair_kernel(PairCall c) {
   const int dim = c.dim, len = kScore == kRotatE ? c.dim / 2 : c.dim;
   const int num_neg = c.num_neg;
   float scale = 0.0f;
-  if constexpr (kGrad) scale = mean_scale(c.grad_loss, c.count);
+  const RelGrad rel_grad{c.grad_rel, rel_sum_buffer(), len,
+                         rel_stride(len, V), kGrad ? c.rel_shared_rows : 0};
+  if constexpr (kGrad) {
+    scale = mean_scale(c.grad_loss, c.count);
+    if (rel_grad.shared_rows > 0) {
+      zero_shared(rel_grad.shared, rel_grad.shared_rows * rel_grad.stride);
+      __syncthreads();
+    }
+  }
   float sum = 0.0f;
   for (int64_t b = (int64_t)blockIdx.x * kGroups + group; b < c.num_pos;
        b += (int64_t)gridDim.x * kGroups) {
@@ -292,19 +319,33 @@ kge_pair_kernel(PairCall c) {
         if (nh == ph) accumulate(gsum.h, g.h);
         else add_entity(c.grad_ent, nh, dim, len, lane, g.h);
         if (nr == pr) accumulate(gsum.r, g.r);
-        else add_pieces<V, K>(c.grad_rel + (int64_t)nr * len, lane, len, g.r);
+        else add_rel<V, K>(rel_grad, nr, lane, g.r);
         if (nt == pt) accumulate(gsum.t, g.t);
         else add_entity(c.grad_ent, nt, dim, len, lane, g.t);
       }
     }
     sum = __fadd_rn(sum, __fmul_rn(acc, w));
     if constexpr (kGrad) {
+      if (ph == pt) {
+        accumulate(gsum.h, gsum.t);
+      } else {
+        add_entity(c.grad_ent, pt, dim, len, lane, gsum.t);
+      }
       add_entity(c.grad_ent, ph, dim, len, lane, gsum.h);
-      add_pieces<V, K>(c.grad_rel + (int64_t)pr * len, lane, len, gsum.r);
-      add_entity(c.grad_ent, pt, dim, len, lane, gsum.t);
+      add_rel<V, K>(rel_grad, pr, lane, gsum.r);
+    }
+  }
+  if constexpr (kGrad) {
+    if (rel_grad.shared_rows > 0) {
+      __syncthreads();
+      flush_rel<V, K>(rel_grad);
     }
   }
   block_partial<kGroups>(sum, group, lane, c.partial);
+}
+
+inline int rel_len(const PairCall& c) {
+  return c.score == kRotatE ? c.dim / 2 : c.dim;
 }
 
 inline int groups_per_block(int vec) {
@@ -318,10 +359,13 @@ inline int pair_grid(int64_t num_pos, int vec) {
 template <typename T, int kScore, bool kGrad>
 int launch_pass(const PairCall& c, cudaStream_t stream) {
   const int grid = pair_grid(c.num_pos, c.vec);
-  const int len = kScore == kRotatE ? c.dim / 2 : c.dim;
+  const int len = rel_len(c);
+  const size_t shared =
+      kGrad ? rel_shared_bytes(c.rel_shared_rows, len, c.vec, 1) : 0;
   return win::with_width<T>(c.vec, len, [&](auto v, auto k) -> int {
     constexpr int V = decltype(v)::value, K = decltype(k)::value;
-    kge_pair_kernel<T, V, K, kScore, kGrad><<<grid, kThreads, 0, stream>>>(c);
+    kge_pair_kernel<T, V, K, kScore, kGrad>
+        <<<grid, kThreads, shared, stream>>>(c);
     return (int)cudaGetLastError();
   });
 }
@@ -341,13 +385,16 @@ int dispatch_score(const PairCall& c, cudaStream_t stream) {
 }
 
 bool valid_call(const PairCall& c, bool grad) {
-  const int len = c.score == kRotatE ? c.dim / 2 : c.dim;
+  const int len = rel_len(c);
   return c.num_pos >= 1 && c.num_neg >= 0 && c.dim >= 1 &&
          c.dim <= kMaxDim && len >= 1 &&
          (c.score != kRotatE || c.dim % 2 == 0) && c.num_ent >= 1 &&
          c.num_rel >= 1 && (c.vec == 1 || len % c.vec == 0) &&
          c.count != nullptr && c.partial != nullptr && c.loss != nullptr &&
-         (!grad || (c.grad_ent != nullptr && c.grad_rel != nullptr));
+         (!grad || (c.grad_ent != nullptr && c.grad_rel != nullptr)) &&
+         c.rel_shared_rows >= 0 && c.rel_shared_rows <= c.num_rel &&
+         rel_shared_bytes(c.rel_shared_rows, len, c.vec, 1) <=
+             kRelSharedBytes;
 }
 
 int run(const PairCall& c, bool grad, cudaStream_t stream) {

@@ -213,6 +213,62 @@ def windows_loss_plain(tables, a, b, c, padding_idx: int, cbow: bool,
     return fn(tables, a, b, c, padding_idx, rounding)
 
 
+def window_slot_rows(batch, padding_idx: int, cbow: bool, num_entities: int,
+                     num_relations: int) -> dict:
+    """The rows whose gradient K20 adds, by side, as its merged adds take
+    them: ``{"in": (B, S, 3), "out": (B, S', 3)}`` int64 (h, r, t) rows of
+    each window's composed slots, -1 where none is added (a window of
+    weight 0, a masked slot, a component outside [0, n)).  Skip-gram
+    (``batch`` = targets, pos and neg windows): in the target, out the 2 C
+    positive then negative slots; CBOW (pos, neg, windows): in the positive
+    and the negative, out the C context slots."""
+    a, b, c = (x.long() for x in batch)
+    if cbow:
+        ins, outs, ok_out = torch.stack([a, b], 1), c, c[..., 1] != padding_idx
+    else:  # negatives are never masked
+        ins, outs = a[:, None], torch.cat([b, c], 1)
+        ok_out = torch.cat([b[..., 1] != padding_idx,
+                            torch.ones_like(c[..., 1], dtype=torch.bool)], 1)
+    weight = a[:, 1] != padding_idx
+    limits = torch.tensor([num_entities, num_relations, num_entities],
+                          device=a.device)
+
+    def rows(x, ok):
+        keep = ok[..., None] & (x >= 0) & (x < limits)
+        return torch.where(keep, x, -1)
+
+    return {"in": rows(ins, weight[:, None].expand(ins.shape[:2])),
+            "out": rows(outs, ok_out & weight[:, None])}
+
+
+def merged_row_adds(rows, coef, lanes: int) -> dict:
+    """Plain version of K20's merged row adds (``kge_windows.cu``
+    ``merged_adds``): of ``rows`` (B, S, 3), the rows of each window's S
+    slots (-1: none), with ``coef`` (B, S) their coefficients, taken in
+    rounds of ``lanes`` slots; each distinct row of a round, the entity rows
+    h and t alike, gets the sum of its occurrences' coefficients (h == t:
+    twice) in one add.  Returns ``{"entity": (window, row, coef), "relation":
+    (window, row, coef)}``, one entry an add."""
+    b, s, _ = rows.shape
+    dev = rows.device
+    rounds = -(-s // lanes)
+    slot_round = (torch.arange(s, device=dev) // lanes).expand(b, s)
+    window = torch.arange(b, device=dev)[:, None].expand(b, s)
+    span = max(int(rows.max()) + 1, 1)
+    out = {}
+    for name, comps in (("entity", (0, 2)), ("relation", (1,))):
+        ids = torch.cat([rows[..., i].reshape(-1) for i in comps])
+        key = ((window.reshape(-1) * rounds + slot_round.reshape(-1))
+               .repeat(len(comps)) * span + ids)
+        c = coef.reshape(-1).repeat(len(comps))
+        keep = ids >= 0
+        key, inverse = torch.unique(key[keep], return_inverse=True)
+        total = torch.zeros(key.shape, dtype=c.dtype, device=dev)
+        total.index_add_(0, inverse, c[keep])
+        out[name] = (key // span // rounds, key % span, total)
+    return out
+
+
 # --- the kernels through autograd, and in one call ---------------------------
 
 def _leaves(tables):
