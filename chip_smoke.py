@@ -66,7 +66,23 @@ float atomics give the one-card trainer against itself), their step times
 beside the one-card steps and the group's all-reduce of one step's gradients
 (``dp`` line); and K3 and K10 at a nonzero ``window_offset`` on the bench
 walks against the rows of the offset-0 call and their plain versions
-(``dp_window_offsets`` line). It checks the results and
+(``dp_window_offsets`` line).  Last, the command-line entry points
+(``phase_cli``, ``cli`` line), in this process as a user runs them, with
+their launches counted from zero: ``products_shape_graph`` (2 449 029 nodes,
+about 127 M edges) drawn on the host, built on the card and written to its
+cache, then loaded from it, equal, with K1 and K2 walks on it (131 072
+walkers, L = 80, p = 0.5 q = 2, every hop an edge); trw-torch-walk on
+``synth:2449029:25`` (about 127 M edges once symmetrized), its ``.npy``
+equal to ``walk()`` on the same graph; trw-torch-train on the same spec with
+its defaults (dim 128, L = 40, window 5, float32 tables, every node a walk a
+step: K1, K5/K6 on float32, K18) for 3 epochs; a run on
+``synth:200000:8`` checkpointed after 2 epochs and resumed to 4 against an
+uninterrupted 4-epoch run (every epoch's walks equal, losses and tables
+within the allowance of the gradient kernels' float atomics); and
+trw-torch-train-kg on ``grid:1000`` (1 000 000 entities, about 4 M triples,
+every entity a walk a step) for 2 epochs with TransE and a held-out
+ranking (K9, K19, K18) and with the skip-gram objective (K9, K10, K20,
+K18); each part's times and peak device memory. It checks the results and
 measures every kernel at the shape the main path gives it; the two loss
 kernels also with float32 tables, each with its tile plan and its device time
 by kernel.  The ``build`` line reports each loss kernel's registers and
@@ -176,11 +192,14 @@ import argparse
 import contextlib
 import hashlib
 import importlib
+import io
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from pathlib import Path
@@ -189,6 +208,8 @@ import numpy as np
 import torch
 
 import torch_random_walk_tpu_torch as tt
+from torch_random_walk_tpu_torch import cli as trw_cli
+from torch_random_walk_tpu_torch.graph import datasets
 from torch_random_walk_tpu_torch.kernels import bindings, build
 from torch_random_walk_tpu_torch.models import kge, skipgram
 from torch_random_walk_tpu_torch.ops import (
@@ -200,7 +221,8 @@ from torch_random_walk_tpu_torch.ops import (
     windows,
 )
 from torch_random_walk_tpu_torch.parallel import exchange, partition_v2
-from torch_random_walk_tpu_torch.utils import prng
+from torch_random_walk_tpu_torch.utils import checkpoint, prng
+from torch_random_walk_tpu_torch.utils.device import synchronize
 
 # The bench shape of the JAX package's bench.py (its single-chip default and
 # its scaling mode's walker count).
@@ -480,10 +502,10 @@ def time_ms(fn, warmup: int = 1, iters: int = 5) -> float:
 
 def wall_ms(fn):
     """One run of ``fn`` on the host clock, device work included."""
-    torch.cuda.synchronize()
+    synchronize()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    synchronize()
     return out, (time.perf_counter() - t0) * 1e3
 
 
@@ -4712,6 +4734,402 @@ def dp_window_offsets(node_walks, triple_walks, tg, pad: int) -> dict:
     return out
 
 
+# --- the command-line entry points (phase_cli) -------------------------------
+
+# trw-torch-walk and trw-torch-train at the ogbn-products size (BASELINE.json
+# config 4: 2 449 029 nodes, about 127 M directed edges once symmetrized),
+# every node a walk a step in training; the resume at a size whose
+# checkpoints (6 tables of 200 000 x 128 float32) stay small; trw-torch-
+# train-kg at every entity of a 1 000 x 1 000 grid KG.
+CLI_SPEC = "synth:2449029:25"
+CLI_WALKERS, CLI_WALK_LENGTH = 131_072, 80
+CLI_TRAIN_EPOCHS = 3
+CLI_RESUME_SPEC, CLI_RESUME_EPOCHS = "synth:200000:8", (2, 4)
+CLI_KG_SPEC, CLI_KG_EPOCHS, CLI_KG_HOLDOUT = "grid:1000", 2, 0.00025
+# the card's held-out MRR against float64 on the CPU: two formulas for the
+# distance, whose rounding (about 1e-13 of a distance) may swap a candidate
+# that ties the target within it
+RANKING_REL_LIMIT = 1e-6
+CLI_KERNELS = ("uniform_walk_csr", "node2vec_walk_csr_mixture",
+               "walk_sgns_loss_fwd", "walk_sgns_loss_bwd", "adam_dense",
+               "uniform_walk_triples", "kge_pair_loss_and_grads",
+               "to_windows_triples", "kge_windows_loss_and_grads")
+
+
+@contextlib.contextmanager
+def timed_calls(owner, name: str, times: list, record=None):
+    """``owner.name`` replaced, inside the block, by a wrapper that appends
+    each call's seconds (host clock, device synchronised before and after)
+    to ``times``, and ``record(result, *args)`` if given."""
+    original = getattr(owner, name)
+
+    def wrapper(*args, **kwargs):
+        synchronize()
+        t0 = time.perf_counter()
+        out = original(*args, **kwargs)
+        synchronize()
+        times.append(time.perf_counter() - t0)
+        if record is not None:
+            record(out, *args)
+        return out
+
+    setattr(owner, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(owner, name, original)
+
+
+@contextlib.contextmanager
+def call_peaks(owner, name: str, dev, peaks: list):
+    """``owner.name`` replaced, inside the block, by a wrapper that appends
+    each call's own peak device memory to ``peaks`` (GiB above what was
+    allocated when it was called).  The card's peak counter is reset for
+    the call; the peak before it is folded into the run's (peak_gib) and
+    into ``peaks``' entry ``"before"``, so that a caller can still report
+    the peak of its whole block."""
+    original = getattr(owner, name)
+
+    def wrapper(*args, **kwargs):
+        if dev.type != "cuda":
+            return original(*args, **kwargs)
+        held = torch.cuda.max_memory_allocated()
+        RUN_PEAK_BYTES[0] = max(RUN_PEAK_BYTES[0], held)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = original(*args, **kwargs)
+        peaks.append({"call_gib": (torch.cuda.max_memory_allocated() - base)
+                      / 2**30, "before_gib": held / 2**30})
+        return out
+
+    setattr(owner, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(owner, name, original)
+
+
+def csr_hops_ok(graph, walks, targets) -> bool:
+    """Column 0 the targets, ids in [0, N), every hop of every walk an
+    edge."""
+    w = walks.to(torch.int64)
+    if not (bool((w[:, 0] == targets).all())
+            and bool(((w >= 0) & (w < graph.num_nodes)).all())):
+        return False
+    a, b = w[:, :-1].reshape(-1), w[:, 1:].reshape(-1)
+    return bool(common.is_neighbor_csr(b, a, graph.row_ptr, graph.col_idx,
+                                       graph.search_iters).all())
+
+
+def metrics_lines(path: str) -> list[dict]:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def cli_products_graph(dev, tmp: str) -> dict:
+    """products_shape_graph twice into ``tmp``: the host draws, the device
+    build and the cache write timed apart, then the load; the loaded CSR
+    must equal the built one.  K1 and K2 walks on it, every hop an edge."""
+    draws, saves = [], []
+    peak_gib()
+    with timed_calls(datasets, "power_law_edges", draws), \
+            timed_calls(datasets, "_save_csr_cache", saves):
+        built, total_ms = wall_ms(lambda: datasets.products_shape_graph(
+            root=tmp, device=dev))
+    build_peak = peak_gib()
+    loaded, load_ms = wall_ms(lambda: datasets.products_shape_graph(
+        root=tmp, device=dev))
+    require(len(draws) == len(saves) == 1, "products_shape_graph did not "
+            "draw and save once on its first call")
+    require(torch.equal(built.row_ptr, loaded.row_ptr)
+            and torch.equal(built.col_idx, loaded.col_idx)
+            and loaded.fat == built.fat,
+            "the products-shape cache did not load as the built graph")
+    del built
+    targets = (torch.arange(CLI_WALKERS, dtype=torch.int32, device=dev)
+               % loaded.num_nodes)
+    walk_ms = {}
+    for name, pq in (("uniform", (1.0, 1.0)), ("mixture", (P, Q))):
+        walks, walk_ms[name] = wall_ms(lambda pq=pq: tt.walk(
+            loaded, target_nodes=targets, p=pq[0], q=pq[1],
+            walk_length=CLI_WALK_LENGTH, seed=WALK_SEED, device=dev))
+        require(tuple(walks.shape) == (CLI_WALKERS, CLI_WALK_LENGTH + 1)
+                and csr_hops_ok(loaded, walks, targets),
+                f"products-shape {name} walk: a hop is not an edge")
+        del walks
+    return {"nodes": loaded.num_nodes, "edges": loaded.num_edges,
+            "max_degree": loaded.max_degree, "fat": loaded.fat,
+            "host_draws_s": draws[0], "cache_write_s": saves[0],
+            "first_call_s": total_ms / 1e3,
+            "device_build_s": total_ms / 1e3 - draws[0] - saves[0],
+            "cache_load_s": load_ms / 1e3, "cache_equal": True,
+            "build_peak_gib": build_peak, "walks_peak_gib": peak_gib(),
+            "walk_ms": walk_ms,
+            "walkers": CLI_WALKERS, "walk_length": CLI_WALK_LENGTH,
+            "hops_checked": "every hop of every walk"}
+
+
+def cli_walk(tmp: str, want, device_args: list) -> dict:
+    """trw-torch-walk on CLI_SPEC (p=0.5 q=2): its .npy must equal
+    ``want``, ``walk()`` on the same graph."""
+    out = os.path.join(tmp, "walks.npy")
+    loads, walk_s = [], []
+    peak_gib()
+    with timed_calls(trw_cli, "_load_graph", loads), \
+            timed_calls(trw_cli, "walk", walk_s):
+        _, total_ms = wall_ms(lambda: trw_cli.walk_main(
+            [CLI_SPEC, "-o", out, "--walkers", str(CLI_WALKERS),
+             "--walk-length", str(CLI_WALK_LENGTH), "-p", str(P), "-q", str(Q)]
+            + device_args))
+    peak = peak_gib()
+    got = np.load(out)
+    require(got.shape == tuple(want.shape)
+            and np.array_equal(got, want.cpu().numpy()),
+            "trw-torch-walk's walks != walk() on the same graph")
+    return {"spec": CLI_SPEC, "walkers": CLI_WALKERS,
+            "walk_length": CLI_WALK_LENGTH, "p": P, "q": Q,
+            "equal_to_walk": True, "load_s": loads[0], "walk_s": walk_s[0],
+            "copy_and_save_s": total_ms / 1e3 - loads[0] - walk_s[0],
+            "total_s": total_ms / 1e3, "peak_gib": peak}
+
+
+def cli_train(tmp: str, device_args: list) -> dict:
+    """trw-torch-train on CLI_SPEC with the defaults (dim 128, L = 40,
+    window 5, float32, every node a walk a step): finite losses, the
+    embeddings' shape, each epoch's time."""
+    out, metrics = os.path.join(tmp, "emb.npy"), os.path.join(tmp, "m.jsonl")
+    loads, epochs = [], []
+    peak_gib()
+    with timed_calls(trw_cli, "_load_graph", loads), \
+            timed_calls(tt.Node2Vec, "epoch_step", epochs):
+        _, total_ms = wall_ms(lambda: trw_cli.train_main(
+            [CLI_SPEC, "-o", out, "--epochs", str(CLI_TRAIN_EPOCHS),
+             "--metrics", metrics] + device_args))
+    peak = peak_gib()
+    lines = metrics_lines(metrics)
+    losses = [x["loss"] for x in lines]
+    emb = np.load(out, mmap_mode="r")
+    nodes = int(CLI_SPEC.split(":")[1])
+    require([x["epoch"] for x in lines] == list(range(CLI_TRAIN_EPOCHS))
+            and all(np.isfinite(losses)), f"trw-torch-train losses: {losses}")
+    require(emb.shape == (nodes, 128) and emb.dtype == np.float32,
+            f"trw-torch-train embeddings {emb.shape} {emb.dtype}")
+    return {"spec": CLI_SPEC, "epochs": CLI_TRAIN_EPOCHS,
+            "walks_a_step": nodes, "dim": 128, "walk_length": 40,
+            "dtype": "float32", "losses": losses,
+            "epoch_ms": [s * 1e3 for s in epochs],
+            "load_s": loads[0], "total_s": total_ms / 1e3, "peak_gib": peak}
+
+
+def cli_resume(tmp: str, device_args: list) -> dict:
+    """trw-torch-train on CLI_RESUME_SPEC at dim 128: two epochs into a
+    checkpoint directory, then four into the same one (it must resume after
+    epoch 2), against an uninterrupted four-epoch run: each epoch's walks
+    equal, the losses within LOSS_REL_LIMIT, the final tables within
+    ``dp_table_diff``'s allowance (the gradient kernels' float atomics make
+    two runs' tables differ)."""
+    first, last = CLI_RESUME_EPOCHS
+    digests: dict = {}
+    runs = {}
+    for name, ckpt, epochs in (("first", "resumed", first),
+                               ("resumed", "resumed", last),
+                               ("uninterrupted", "whole", last)):
+        metrics = os.path.join(tmp, f"{name}.jsonl")
+        times: list = []
+        seen = digests.setdefault(name, {})
+        with timed_calls(tt.Node2Vec, "walks", times,
+                         record=lambda w, self, targets, epoch, *a:
+                         seen.__setitem__(epoch, walk_digest(w))):
+            _, ms = wall_ms(lambda: trw_cli.train_main(
+                [CLI_RESUME_SPEC, "-o", os.path.join(tmp, f"{name}.npy"),
+                 "--epochs", str(epochs), "--checkpoint-dir",
+                 os.path.join(tmp, ckpt), "--checkpoint-every", "1",
+                 "--metrics", metrics] + device_args))
+        runs[name] = {"lines": metrics_lines(metrics), "s": ms / 1e3}
+    resumed_epochs = [x["epoch"] for x in runs["resumed"]["lines"]]
+    require(resumed_epochs == list(range(first, last)),
+            f"the second run did not resume after epoch {first}: "
+            f"{resumed_epochs}")
+    whole = digests["uninterrupted"]
+    require(sorted(whole) == list(range(last))
+            and all(digests["first"][e] == whole[e] for e in range(first))
+            and all(digests["resumed"][e] == whole[e]
+                    for e in range(first, last)),
+            f"an epoch's walks differ: {digests}")
+    got = [x["loss"] for x in runs["resumed"]["lines"]]
+    want = [x["loss"] for x in runs["uninterrupted"]["lines"]][first:]
+    require(np.allclose(got, want, rtol=LOSS_REL_LIMIT, atol=0),
+            f"resumed losses {got} vs uninterrupted {want}")
+    payloads = [torch.load(
+        checkpoint.payload_path(os.path.join(tmp, d), last),
+        weights_only=True) for d in ("resumed", "whole")]
+    tables = {n: dp_table_diff(payloads[0][n], payloads[1][n], 1e-2, last)
+              for n in ("in_emb", "out_emb")}
+    require(all(d["within"] for d in tables.values()),
+            f"resumed tables beyond the allowance: {tables}")
+    counts = [p["_extra_state"]["count"] for p in payloads]
+    require(counts == [last, last], f"Adam step counts {counts}")
+    return {"spec": CLI_RESUME_SPEC, "dim": 128, "epochs": [first, last],
+            "resumed_epochs": resumed_epochs, "walks_equal": True,
+            "losses": got, "uninterrupted_losses": want,
+            "tables_vs_uninterrupted": tables,
+            "run_s": {k: v["s"] for k, v in runs.items()}}
+
+
+def transe_ranking_plain(ent, rel, test, triples, chunk: int = 64) -> dict:
+    """The filtered TransE tail ranking of ``test`` (numpy (T, 3)) over the
+    tables ``ent`` and ``rel``, plainly on the CPU in float64, to hold the
+    card's ranking against: squared distances ||q||^2 + ||e||^2 - 2 q.e (the
+    card takes cdist's distances, in the same order up to float64
+    rounding), the other known tails of each (h, r) found by sorting
+    ``triples`` on (h, r), a rank 1 + the closer candidates + half the
+    ties.  Returns {"mrr", "hits@1", "hits@10"}."""
+    ent = torch.from_numpy(np.asarray(ent, np.float64))
+    rel = torch.from_numpy(np.asarray(rel, np.float64))
+    e2 = (ent * ent).sum(1)
+    num_rel = rel.shape[0]
+    key = triples[:, 0].astype(np.int64) * num_rel + triples[:, 1]
+    order = np.argsort(key, kind="stable")
+    keys, tails = key[order], triples[order, 2].astype(np.int64)
+    ranks = []
+    for c0 in range(0, len(test), chunk):
+        part = np.asarray(test[c0: c0 + chunk], np.int64)
+        h, r, t = (torch.from_numpy(part[:, i]) for i in range(3))
+        q = ent[h] + rel[r]
+        d = (q * q).sum(1, keepdim=True) + e2[None] - 2.0 * (q @ ent.T)
+        rows = torch.arange(len(part))
+        true_d = d[rows, t].clone()
+        want = part[:, 0] * num_rel + part[:, 1]
+        lo = np.searchsorted(keys, want, "left")
+        hi = np.searchsorted(keys, want, "right")
+        for i in range(len(part)):
+            d[i, torch.from_numpy(tails[lo[i]:hi[i]])] = torch.inf
+        d[rows, t] = true_d  # never filter the target
+        closer = (d < true_d[:, None]).sum(1)
+        ties = (d == true_d[:, None]).sum(1) - 1
+        ranks.append(1 + closer.to(torch.float64) + ties / 2.0)
+    ranks = torch.cat(ranks).numpy()
+    return {"mrr": float((1.0 / ranks).mean()),
+            "hits@1": float((ranks <= 1).mean()),
+            "hits@10": float((ranks <= 10).mean())}
+
+
+def cli_kg(dev, tmp: str, device_args: list) -> dict:
+    """trw-torch-train-kg on CLI_KG_SPEC, every entity a walk a step: TransE
+    with --eval-holdout (the filtered ranking printed, and held against
+    ``transe_ranking_plain`` on the saved tables, the run's held-out triples
+    and the whole grid: the MRR within RANKING_REL_LIMIT, the hits equal)
+    and the skip-gram objective; each run's losses, ms a step and peak
+    memory."""
+    out = {}
+    for name, extra in (("transe", ["--eval-holdout", str(CLI_KG_HOLDOUT)]),
+                        ("skipgram", ["--objective", "skipgram"])):
+        metrics = os.path.join(tmp, f"kg_{name}.jsonl")
+        emb = os.path.join(tmp, f"kg_{name}.npz")
+        steps: list = []
+        negatives: list = []
+        ranking_s: list = []
+        ranked: list = []
+        printed = io.StringIO()
+        peak_gib()
+        with timed_calls(tt.KGEmbedding, "epoch_step", steps), \
+                call_peaks(kge, "corrupt_triples", dev, negatives), \
+                timed_calls(trw_cli, "kg_tail_ranking_metrics", ranking_s,
+                            record=lambda m, ent, rel, test:
+                            ranked.append((m, test))), \
+                contextlib.redirect_stdout(printed):
+            _, ms = wall_ms(lambda: trw_cli.kg_train_main(
+                [CLI_KG_SPEC, "-o", emb, "--epochs", str(CLI_KG_EPOCHS),
+                 "--metrics", metrics] + extra + device_args))
+        peak = peak_gib()
+        if peak is not None and negatives:
+            peak = max(peak, *(round(x["before_gib"], 2) for x in negatives))
+        losses = [x["loss"] for x in metrics_lines(metrics)]
+        side = int(CLI_KG_SPEC.split(":")[1])
+        with np.load(emb) as data:
+            tables = data["entities"], data["relations"]
+        shapes = [t.shape for t in tables]
+        require(len(losses) == CLI_KG_EPOCHS and all(np.isfinite(losses))
+                and shapes == [(side * side, 128), (4, 128)],
+                f"trw-torch-train-kg {name}: losses {losses}, {shapes}")
+        out[name] = {"losses": losses, "step_ms": [s * 1e3 for s in steps],
+                     "total_s": ms / 1e3, "peak_gib": peak,
+                     "entities": side * side}
+        if negatives:  # the pair objective's corrupted negatives
+            out[name]["corrupt_triples_peak_gib"] = [
+                x["call_gib"] for x in negatives]
+        if name == "transe":
+            require(len(ranked) == 1, f"{len(ranked)} rankings")
+            (got, test), = ranked
+            printed_line = json.loads(
+                printed.getvalue().strip().splitlines()[-1])
+            t0 = time.perf_counter()
+            want = transe_ranking_plain(*tables, test,
+                                        datasets.grid_kg_triples(side)[0])
+            plain_s = time.perf_counter() - t0
+            require(printed_line == {"filtered_" + k: round(v, 4)
+                                     for k, v in got.items()}
+                    and set(got) == set(want)
+                    and abs(got["mrr"] - want["mrr"])
+                    <= RANKING_REL_LIMIT * want["mrr"]
+                    and all(got[k] == want[k] for k in ("hits@1", "hits@10")),
+                    f"the card's filtered ranking {got} (printed "
+                    f"{printed_line}) vs float64 on the CPU {want}")
+            out[name]["filtered_ranking"] = got
+            out[name]["plain_ranking"] = want
+            out[name]["ranking_s"] = ranking_s[0]
+            out[name]["plain_ranking_s"] = plain_s
+            out[name]["held_out"] = len(test)
+    return out
+
+
+def cli_runs(dev) -> tuple[dict, dict]:
+    """The phase's runs on ``dev`` with the launch counts set to 0 just
+    before them: (fields of the cli line, launch counts).  The commands run
+    on their default device, the card, for a card's ``dev``, and with
+    ``--device cpu`` for the CPU's.  The reference walks of the
+    trw-torch-walk check are taken before the count."""
+    with tempfile.TemporaryDirectory(prefix="trw_cli_") as tmp:
+        graph = trw_cli._load_graph(CLI_SPEC, dev)
+        targets = (torch.arange(CLI_WALKERS, dtype=torch.int32, device=dev)
+                   % graph.num_nodes)
+        want = tt.walk(graph, target_nodes=targets, p=P, q=Q,
+                       walk_length=CLI_WALK_LENGTH, seed=0, device=dev)
+        del graph, targets
+        synchronize()
+        bindings.reset_launch_counts()
+        args = [] if dev.type == "cuda" else ["--device", "cpu"]
+        fields = {"products_shape": cli_products_graph(dev, tmp),
+                  "walk": cli_walk(tmp, want, args)}
+        del want
+        fields["train"] = cli_train(tmp, args)
+        fields["resume"] = cli_resume(tmp, args)
+        fields["kg"] = cli_kg(dev, tmp, args)
+        synchronize()
+        launches = dict(bindings.launch_counts)
+    return fields, launches
+
+
+def phase_cli(smi: str) -> dict:
+    """The command-line entry points on the card, in this process, through
+    ``torch_random_walk_tpu_torch.cli`` as a user runs them (no --device:
+    the card): ``products_shape_graph`` built and loaded again from its
+    cache, with K1 and K2 walks on it; trw-torch-walk, trw-torch-train, the
+    resume, and trw-torch-train-kg twice (``cli_runs``).  Returns the run's
+    launch counts; each of CLI_KERNELS must have launched."""
+    t0 = time.perf_counter()
+    fields, launches = cli_runs(torch.device("cuda",
+                                             torch.cuda.current_device()))
+    require(all(launches[k] > 0 for k in CLI_KERNELS),
+            f"the cli run missed a kernel: {launches}")
+    emit("cli", card=smi, **fields,
+         launches={k: v for k, v in launches.items() if v},
+         seconds=round(time.perf_counter() - t0, 1),
+         timing="host clock, the device synchronised around each timed "
+                "call; peak_gib: peak device memory of the sub-run")
+    return launches
+
+
 def compare_dp(graph, pkgs: dict) -> None:
     """ShardedNode2Vec's dense block step (TRAIN_CONFIG) of each package of
     ``pkgs`` that has the data axis, on one NCCL group of this process, in
@@ -5323,10 +5741,16 @@ def main(argv=None) -> int:
             and all(r["launches"] > 0 for r in kge_rows),
             "a KGE kernel row is missing or was never launched")
     dp_launches = phase_dp(graph, smi)
-    for r in rows:  # the data-parallel run, counted from zero
-        if dp_launches[r["name"]]:
-            r.setdefault("launches_by_run", {})["dp"] = dp_launches[r["name"]]
-            r["launches"] += dp_launches[r["name"]]
+    cli_launches = phase_cli(smi)
+    for run, counts in (("dp", dp_launches), ("cli", cli_launches)):
+        for r in rows:  # each run counted from zero
+            if counts[r["name"]]:
+                r.setdefault("launches_by_run", {})[run] = counts[r["name"]]
+                r["launches"] += counts[r["name"]]
+    require(set(CLI_KERNELS) <= {r["name"] for r in rows}
+            and all(r["launches_by_run"].get("cli", 0) > 0 for r in rows
+                    if r["name"] in CLI_KERNELS),
+            "a cli kernel row is missing or shows no launch of the cli run")
     if args.compare:
         phase_compare_kernels(graph, args.compare)
     torch.cuda.synchronize()

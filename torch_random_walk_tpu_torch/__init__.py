@@ -19,10 +19,18 @@ CBOW; dense or touched-rows Adam), the evaluations of
 ranking), and the data axis of the multi-device layer on
 ``torch.distributed`` (``parallel``: ``init_distributed``, ``make_mesh``,
 ``data_sharding``, the three data-parallel walks, ``ShardedNode2Vec`` and
-``ShardedKGEmbedding``).  Sub-packages mirror the
-JAX package's (``utils``, ``graph``, ``ops``, ``models``, ``parallel``);
-``kernels`` holds the CUDA sources, their build and their bindings;
-``convert`` carries graphs and trainer state over from the JAX package.
+``ShardedKGEmbedding``), the dataset loaders and generators of
+``graph.datasets`` (``.npz`` edge files, the OGB edge cache, the Planetoid
+files, the SBM, power-law and ogbn-products-shaped graphs), the exact
+transition oracle ``graph.oracle``, the reference-parity helpers ``to_csr``
+and ``nodes_tensor``, checkpoint and elastic resume (``utils.checkpoint``,
+``utils.elastic``: ``run_resumable``, ``Heartbeat``), logging and profiling
+(``utils.logging``, ``utils.profiling``), and the command-line entry points
+``trw-torch-walk``, ``trw-torch-train`` and ``trw-torch-train-kg``
+(``cli``).  Sub-packages mirror the JAX package's (``utils``, ``graph``,
+``ops``, ``models``, ``parallel``); ``kernels`` holds the CUDA sources, their
+build and their bindings; ``convert`` carries graphs and trainer state over
+from the JAX package.
 
 Every entry point takes ``device=None``, which means the card and raises
 when there is none; the CPU runs the kernels' plain PyTorch versions and only
@@ -40,7 +48,11 @@ from torch_random_walk_tpu_torch import (  # noqa: F401
     parallel,
     utils,
 )
-from torch_random_walk_tpu_torch.graph.csr import CSRGraph
+from torch_random_walk_tpu_torch.graph.csr import (
+    CSRGraph,
+    nodes_tensor,
+    to_csr,
+)
 from torch_random_walk_tpu_torch.graph.datasets import (
     synthetic_grid_kg,
     synthetic_power_law,
@@ -124,10 +136,12 @@ __all__ = [
     "link_prediction_auc",
     "link_prediction_auc_trained",
     "node_classification_accuracy",
+    "nodes_tensor",
     "sample_negative_edges",
     "sbm_oracle_auc",
     "synthetic_grid_kg",
     "synthetic_power_law",
+    "to_csr",
     "to_edge_list_indexed",
     "to_windows",
     "to_windows_cbow",
@@ -141,4 +155,9 @@ __all__ = [
     "walk_partitioned_routed",
     "walk_triples",
     "walk_triples_partitioned_routed",
+    "graph",
+    "models",
+    "ops",
+    "parallel",
+    "utils",
 ]

@@ -11,7 +11,8 @@ optax's Adam state and the touched-rows steps' state cross as float32 numpy
 arrays, keyed as the JAX params are
 (``np.asarray(x.astype(jnp.float32))`` is exact for bfloat16 tables); the port
 casts them to its tables' or moments' type, which is exact on the way back
-too.
+too.  ``checkpoint_from_numpy`` writes a JAX trainer's initial tables as a
+port checkpoint at step 0, from which ``utils.elastic.run_resumable`` starts.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from torch_random_walk_tpu_torch.models.cbow import CBOWModel
 from torch_random_walk_tpu_torch.models.kge import KGEModel
 from torch_random_walk_tpu_torch.models.skipgram import SkipGramModel
 from torch_random_walk_tpu_torch.parallel.partition import PartitionedCSR
+from torch_random_walk_tpu_torch.utils import checkpoint
 from torch_random_walk_tpu_torch.utils.device import resolve_device
 
 
@@ -236,3 +238,22 @@ def sparse_state_to_numpy(model) -> dict:
     return {"mu": {k: v.float().cpu().numpy() for k, v in model.mu.items()},
             "nu": {k: v.float().cpu().numpy() for k, v in model.nu.items()},
             "count": model.count}
+
+
+def checkpoint_from_numpy(ckpt_dir: str, model, params: dict):
+    """Load a JAX trainer's initial tables into ``model`` (a
+    ``SkipGramModel``, ``CBOWModel`` or ``KGEModel``, e.g. a port trainer's
+    ``.model``) and save it as a checkpoint at step 0 in ``ckpt_dir``, so
+    that ``run_resumable`` over the port's trainer starts from the tables
+    the JAX trainer starts from.  ``params``: the tables as float32 arrays
+    keyed by table name.  The model's optimizer state is saved as it
+    stands.  Returns ``model``."""
+    names = {n for n, _ in model.named_parameters()}
+    if set(params) != names:
+        raise ValueError(f"the model's tables are {sorted(names)}, got "
+                         f"{sorted(params)}")
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            param.copy_(_table(params[name], param))
+    checkpoint.save(ckpt_dir, model, 0)
+    return model

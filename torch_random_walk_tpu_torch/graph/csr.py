@@ -1,5 +1,6 @@
 """CSR graph container and constructors (PyTorch twin of
-``torch_random_walk_tpu/graph/csr.py``).
+``torch_random_walk_tpu/graph/csr.py``), and the reference-parity helpers
+``to_csr`` and ``nodes_tensor`` of a networkx graph.
 
 Invariants the walk kernels rely on:
 
@@ -153,6 +154,32 @@ class CSRGraph:
                    num_nodes=num_nodes, num_edges=num_edges,
                    max_degree=max_degree,
                    fat=fat_tables_fit(num_nodes, num_edges, max_degree))
+
+    @classmethod
+    def from_networkx(cls, graph, device=None) -> "CSRGraph":
+        """Adjacency in ``graph.nodes()`` order, as the reference's
+        ``nx.to_scipy_sparse_matrix`` orders it (torch_rw/utils.py:6)."""
+        import networkx as nx
+
+        csr = nx.to_scipy_sparse_array(graph, format="csr")
+        return cls.from_arrays(csr.indptr, csr.indices, device=device)
+
+
+def to_csr(graph, device=None):
+    """Reference-parity helper (torch_rw/utils.py:5): networkx graph ->
+    (row_ptr, col_idx) int32 tensors on ``device``."""
+    g = CSRGraph.from_networkx(graph, device=device)
+    return g.row_ptr, g.col_idx
+
+
+def nodes_tensor(graph, device=None) -> torch.Tensor:
+    """Reference-parity helper (torch_rw/utils.py:11): the node indices
+    0..N-1 in insertion order, int32.  The reference computes
+    ``nodes.index(node)`` for each node of ``list(graph.nodes())``; nodes are
+    unique, so each one's first occurrence is its own position and the
+    result is always ``arange(N)``."""
+    return torch.arange(len(graph.nodes()), dtype=torch.int32,
+                        device=resolve_device(device))
 
 
 def _as_int64(x, device: torch.device) -> torch.Tensor:

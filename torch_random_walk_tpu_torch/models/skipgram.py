@@ -426,7 +426,10 @@ class AdamTables(nn.Module):
     subclass registers its tables as parameters and then calls
     ``reset_optimizer``.  ``dense_hparams`` are the (b1, b2, eps) of the
     dense update; ``b1``, ``b2`` and ``eps`` those of the touched-rows one.
-    The base of ``EmbeddingTables`` and ``models/kge.py::KGEModel``."""
+    ``state_dict()`` holds the tables and, as extra state, the optimizer's
+    (``get_extra_state``), so that ``utils/checkpoint.py`` saves and
+    restores a model whole.  The base of ``EmbeddingTables`` and
+    ``models/kge.py::KGEModel``."""
 
     def __init__(self, dtype, optimizer, learning_rate: float, b1: float,
                  b2: float, eps: float, sparse_hparams_ok: bool):
@@ -465,6 +468,45 @@ class AdamTables(nn.Module):
         self.nu = {n: torch.zeros_like(m) for n, m in self.mu.items()}
         self.count = 0
         self.sparse_state = True
+
+    def get_extra_state(self) -> dict:
+        """The optimizer state, which ``state_dict()`` carries beside the
+        tables so that a checkpoint resumes whole: the step count, whether
+        the moments are the touched-rows step's, the moments by table name,
+        and a custom optimizer's own state dict."""
+        return {"count": self.count, "sparse_state": self.sparse_state,
+                "mu": dict(self.mu), "nu": dict(self.nu),
+                "optimizer": (None if self.optimizer is None
+                              else self.optimizer.state_dict())}
+
+    def set_extra_state(self, state: dict) -> None:
+        """Load ``get_extra_state``'s dict (from any device) onto the tables'
+        devices; the moments are copied."""
+        if (state["optimizer"] is None) != (self.optimizer is None):
+            raise ValueError("the saved state was made with "
+                             f"{'no' if state['optimizer'] is None else 'a'} "
+                             "custom optimizer; this model has "
+                             f"{'none' if self.optimizer is None else 'one'}")
+        params = dict(self.named_parameters())
+        moments = {}
+        for key in ("mu", "nu"):
+            saved = state[key]
+            if set(saved) != (set(params) if self.optimizer is None
+                              else set()):
+                raise ValueError(f"saved {key} holds {sorted(saved)}, the "
+                                 f"model's tables are {sorted(params)}")
+            for name, m in saved.items():
+                if m.shape != params[name].shape:
+                    raise ValueError(f"saved {key}[{name!r}] is "
+                                     f"{tuple(m.shape)}, the table "
+                                     f"{tuple(params[name].shape)}")
+            moments[key] = {name: m.to(params[name].device, copy=True)
+                            for name, m in saved.items()}
+        self.mu, self.nu = moments["mu"], moments["nu"]
+        self.count = int(state["count"])
+        self.sparse_state = bool(state["sparse_state"])
+        if self.optimizer is not None:
+            self.optimizer.load_state_dict(state["optimizer"])
 
     def _as_ids(self, *ids):
         dev = next(self.parameters()).device

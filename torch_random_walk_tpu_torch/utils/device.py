@@ -23,3 +23,11 @@ def resolve_device(device=None) -> torch.device:
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def synchronize() -> None:
+    """Wait for the card's queued work, where this process uses a card, so
+    that a time includes it and its faults surface here (CUDA launches
+    return before the device has run them)."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
